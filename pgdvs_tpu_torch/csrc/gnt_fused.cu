@@ -1,0 +1,711 @@
+// Fused GNT transformer forward (depth 8, width 64) for Hopper (sm_90a).
+//
+// Replaces the TPU kernel pgdvs_tpu/kernels/gnt_fused_mono4.py:
+// gnt_fused_apply_mono4 on its rgb_feat contract. The Python wrapper is
+// pgdvs_tpu_torch/kernels/gnt_fused.py, which also holds the plain torch
+// version this kernel is checked against.
+//
+// Work: about 1e4 FLOP per (view, ray, sample) token per block (the 64x64
+// value projection dominates), plus 4-head attention over the samples of
+// every ray. Three kernels, launched from a host loop over the 8 blocks:
+//
+//   k_prologue   rgbfeat_fc_0/1 per view token -> h [V, N, 64] bf16 and the
+//                max-pool over views -> q [N, 64] f32 (N = R * S tokens).
+//   k_view       one view transformer (+ q_fc on even blocks) for 64
+//                tokens: validity and ray-diff recomputed from pts and the
+//                cameras, views streamed one at a time through an online
+//                per-channel softmax, so a token's [V, 64] set never has to
+//                sit in shared memory at once.
+//   k_ray        one ray transformer for one ray (all S samples in shared
+//                memory, heads one at a time); the last block also writes
+//                the head-mean first-query weights, rgb and the weighted
+//                valid-view count.
+//
+// Bounds on the card: the products are bf16 WMMA tiles (16x16x16, f32
+// accumulate); the per-channel view softmax and the layer norms are f32 CUDA
+// core work. q stays f32 in global memory between kernels (it is small next
+// to h); h is written once and read once per block.
+//
+// All dense layers run here; the host only composes weights offline
+// (wk@wv, wk@wa0, wq@wa0, p1@wa0, exact by linearity).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <math.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+#define NW 64
+#define PH 8
+#define POSENC 63
+#define HEADS 4
+#define HD 16
+#define TT 64          // tokens per block, prologue + view kernels
+#define NTHREADS 256
+#define NWARPS 8
+#define STAGE_LD 20
+#define MAX_VIEWS 32
+#define QCHUNK 32      // query rows per score chunk in k_ray
+
+// ---------------------------------------------------------------------------
+// WMMA helpers. A: bf16 row-major (lda); B: bf16 row-major [K x N] (ldb) or,
+// with B_COL, element (k, n) at B[n * ldb + k]. M, N, K multiples of 16.
+// Output tiles are spread over the block's 8 warps.
+// ---------------------------------------------------------------------------
+template <bool B_COL>
+__device__ __forceinline__ void tile_mma(
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float>& acc,
+    const bf16* A, int lda, const bf16* B, int ldb, int mt, int nt, int K) {
+  wmma::fill_fragment(acc, 0.0f);
+  for (int k = 0; k < K; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::load_matrix_sync(a, A + mt * 16 * lda + k, lda);
+    if (B_COL) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+      wmma::load_matrix_sync(b, B + (size_t)nt * 16 * ldb + k, ldb);
+      wmma::mma_sync(acc, a, b, acc);
+    } else {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(b, B + (size_t)k * ldb + nt * 16, ldb);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+  }
+}
+
+// C[M x N] f32 (ldc) = A @ B
+template <bool B_COL = false>
+__device__ void gemm_store(const bf16* A, int lda, const bf16* B, int ldb,
+                           float* C, int ldc, int M, int N, int K) {
+  const int warp = threadIdx.x >> 5;
+  const int ntn = N / 16;
+  for (int t = warp; t < (M / 16) * ntn; t += NWARPS) {
+    const int mt = t / ntn, nt = t % ntn;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    tile_mma<B_COL>(acc, A, lda, B, ldb, mt, nt, K);
+    wmma::store_matrix_sync(C + mt * 16 * ldc + nt * 16, acc, ldc,
+                            wmma::mem_row_major);
+  }
+}
+
+// epi(row, col, value) for every element of A @ B, through a per-warp
+// [16 x STAGE_LD] f32 staging tile (stage holds NWARPS of them).
+template <class Epi>
+__device__ void gemm_epi(const bf16* A, int lda, const bf16* B, int ldb,
+                         int M, int N, int K, float* stage, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* st = stage + warp * 16 * STAGE_LD;
+  const int ntn = N / 16;
+  for (int t = warp; t < (M / 16) * ntn; t += NWARPS) {
+    const int mt = t / ntn, nt = t % ntn;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    tile_mma<false>(acc, A, lda, B, ldb, mt, nt, K);
+    wmma::store_matrix_sync(st, acc, STAGE_LD, wmma::mem_row_major);
+    __syncwarp();
+    for (int i = lane; i < 256; i += 32) {
+      const int r = i >> 4, c = i & 15;
+      epi(mt * 16 + r, nt * 16 + c, st[r * STAGE_LD + c]);
+    }
+    __syncwarp();
+  }
+}
+
+// Layer norm of one 64-wide row held by 4 consecutive lanes (16 each).
+__device__ __forceinline__ void ln_quad(const float* x, const float* scale,
+                                        const float* bias, int g, float* out) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s += x[i];
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  const float mu = s * (1.0f / NW);
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float d = x[i] - mu;
+    v += d * d;
+  }
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  const float rs = rsqrtf(v * (1.0f / NW) + 1e-6f);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    out[i] = (x[i] - mu) * rs * scale[g * 16 + i] + bias[g * 16 + i];
+}
+
+// Layer norm of one 64-wide row held by a whole warp (2 per lane).
+__device__ __forceinline__ void ln_warp(float& a, float& b, const float* scale,
+                                        const float* bias, int lane) {
+  float s = a + b;
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float mu = s * (1.0f / NW);
+  float v = (a - mu) * (a - mu) + (b - mu) * (b - mu);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const float rs = rsqrtf(v * (1.0f / NW) + 1e-6f);
+  a = (a - mu) * rs * scale[2 * lane] + bias[2 * lane];
+  b = (b - mu) * rs * scale[2 * lane + 1] + bias[2 * lane + 1];
+}
+
+// In front of the camera and inside [0, W-1] x [0, H-1] (project_points +
+// pixel_inbound). P: the 3x4 K @ w2c rows of one view.
+__device__ __forceinline__ bool point_valid(const float* P, float x, float y,
+                                            float z, float hf, float wf) {
+  const float uc = x * P[0] + y * P[1] + z * P[2] + P[3];
+  const float vc = x * P[4] + y * P[5] + z * P[6] + P[7];
+  const float zc = x * P[8] + y * P[9] + z * P[10] + P[11];
+  const float zd = fmaxf(zc, 1e-8f);
+  const float uu = fminf(fmaxf(uc / zd, -1e6f), 1e6f);
+  const float vv = fminf(fmaxf(vc / zd, -1e6f), 1e6f);
+  return uu >= 0.f && uu <= wf - 1.f && vv >= 0.f && vv <= hf - 1.f &&
+         zc > 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// weights
+// ---------------------------------------------------------------------------
+struct HeadW {
+  const bf16* w0; const float* b0; const bf16* w1; const float* b1;
+};
+struct ViewW {
+  const float *ln_s, *ln_b;
+  const bf16 *wqa0, *wbig;
+  const float *bbig, *p0, *p0b, *wa1, *ba1;
+  const bf16* wout; const float* bout;
+  const float *fln_s, *fln_b;
+  const bf16* wf1; const float* bf1;
+  const bf16* wf2; const float* bf2;
+  const bf16* wq0; const float* bq0;
+  const bf16* wq1; const float* bq1;
+};
+struct RayW {
+  const float *ln_s, *ln_b;
+  const bf16* wqkv;
+  const bf16* wo; const float* bo;
+  const float *fln_s, *fln_b;
+  const bf16* wf1; const float* bf1;
+  const bf16* wf2; const float* bf2;
+};
+struct FinalW {
+  const float *norm_s, *norm_b, *rgb_w, *rgb_b;
+};
+#define N_HEAD_PTRS 4
+#define N_VIEW_PTRS 21
+#define N_RAY_PTRS 11
+#define N_FINAL_PTRS 4
+#define DEPTH 8
+#define N_PTRS (N_HEAD_PTRS + DEPTH * (N_VIEW_PTRS + N_RAY_PTRS) + N_FINAL_PTRS)
+
+// ---------------------------------------------------------------------------
+// k_prologue: h = rgbfeat_fc_1(relu(rgbfeat_fc_0(rgb_feat))), q = max_v h
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NTHREADS)
+k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int Cp, HeadW w,
+           bf16* __restrict__ hout, float* __restrict__ qout) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lda = Cp + 8;
+  bf16* A = (bf16*)smem;                       // [TT x lda]
+  bf16* A2 = A + TT * lda;                     // [TT x 72]
+  float* Cs = (float*)(A2 + TT * 72);          // [TT x 68]
+  const int n0 = blockIdx.x * TT;
+  const int tid = threadIdx.x, t = tid >> 2, g = tid & 3;
+  float qm[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) qm[i] = -INFINITY;
+
+  for (int v = 0; v < V; ++v) {
+    const bf16* src = rf + ((size_t)v * N + n0) * C;
+    for (int i = tid; i < TT * Cp; i += NTHREADS) {
+      const int r = i / Cp, c = i - r * Cp;
+      A[r * lda + c] = (c < C && n0 + r < N) ? src[(size_t)r * C + c]
+                                             : __float2bfloat16(0.f);
+    }
+    __syncthreads();
+    gemm_store(A, lda, w.w0, NW, Cs, 68, TT, NW, Cp);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = g * 16 + i;
+      A2[t * 72 + c] = __float2bfloat16(fmaxf(Cs[t * 68 + c] + w.b0[c], 0.f));
+    }
+    __syncthreads();
+    gemm_store(A2, 72, w.w1, NW, Cs, 68, TT, NW, NW);
+    __syncthreads();
+    if (n0 + t < N) {
+      bf16* dst = hout + ((size_t)v * N + n0 + t) * NW + g * 16;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const bf16 hb = __float2bfloat16(Cs[t * 68 + g * 16 + i] + w.b1[g * 16 + i]);
+        dst[i] = hb;
+        qm[i] = fmaxf(qm[i], __bfloat162float(hb));
+      }
+    }
+    __syncthreads();
+  }
+  if (n0 + t < N) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) qout[(size_t)(n0 + t) * NW + g * 16 + i] = qm[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// k_view: one view transformer block (+ q_fc_0/1 when has_qfc)
+// ---------------------------------------------------------------------------
+#define VIEW_LDA 88   // [h_v (64) | pos_in (8) | zero (16)]
+#define VIEW_LDC 84
+#define VIEW_LDH 264
+
+__global__ void __launch_bounds__(NTHREADS)
+k_view(const bf16* __restrict__ h, float* __restrict__ q,
+       const float* __restrict__ pts, const float* __restrict__ vcode,
+       const float* __restrict__ centers, const float* __restrict__ proj,
+       int V, int N, int S, float hf, float wf, ViewW w, int has_qfc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* A = (bf16*)smem;                                  // [TT x 88]
+  float* Cs = (float*)(A + TT * VIEW_LDA);                // [TT x 84]
+  bf16* X = (bf16*)(Cs + TT * VIEW_LDC);                  // [TT x 72]
+  float* QA = (float*)(X + TT * 72);                      // [TT x 20]
+  bf16* H1 = (bf16*)(QA + TT * 20);                       // [TT x 264]
+  float* stage = (float*)(H1 + TT * VIEW_LDH);            // [8 x 16 x 20]
+  float* pts_s = stage + NWARPS * 16 * STAGE_LD;          // [TT x 3]
+  unsigned* vmask = (unsigned*)(pts_s + TT * 3);          // [TT]
+  int* vcnt = (int*)(vmask + TT);                         // [TT]
+  float* wa1_s = (float*)(vcnt + TT);                     // [8 x 64]
+
+  const int n0 = blockIdx.x * TT;
+  const int tid = threadIdx.x, t = tid >> 2, g = tid & 3;
+  const bool live = n0 + t < N;
+
+  float qr[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    qr[i] = live ? q[(size_t)(n0 + t) * NW + g * 16 + i] : 0.f;
+
+  if (tid < TT) {
+    const int n = min(n0 + tid, N - 1);
+    const float px = pts[n * 3], py = pts[n * 3 + 1], pz = pts[n * 3 + 2];
+    pts_s[tid * 3] = px;
+    pts_s[tid * 3 + 1] = py;
+    pts_s[tid * 3 + 2] = pz;
+    unsigned m = 0;
+    int cnt = 0;
+    for (int v = 0; v < V; ++v) {
+      if (point_valid(proj + v * 12, px, py, pz, hf, wf)) {
+        m |= 1u << v;
+        ++cnt;
+      }
+    }
+    vmask[tid] = m;
+    vcnt[tid] = cnt;
+  }
+  for (int i = tid; i < PH * NW; i += NTHREADS) wa1_s[i] = w.wa1[i];
+  for (int i = tid; i < TT * 16; i += NTHREADS)
+    A[(i >> 4) * VIEW_LDA + 72 + (i & 15)] = __float2bfloat16(0.f);
+
+  // x = attn_norm(q); qa = x @ (wq @ wa0)
+  {
+    float xo[16];
+    ln_quad(qr, w.ln_s, w.ln_b, g, xo);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) X[t * 72 + g * 16 + i] = __float2bfloat16(xo[i]);
+  }
+  __syncthreads();
+  gemm_store(X, 72, w.wqa0, 16, QA, 20, TT, 16, NW);
+  __syncthreads();
+
+  float mx[16], den[16], agg[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    mx[i] = -INFINITY;
+    den[i] = 0.f;
+    agg[i] = 0.f;
+  }
+  const float cx0 = centers[0], cy0 = centers[1], cz0 = centers[2];
+
+  for (int v = 0; v < V; ++v) {
+    // A = [h_v | relu(pos_fc_0(ray_diff_v)) | 0]
+    const bf16* hv = h + ((size_t)v * N + n0) * NW;
+    for (int i = tid; i < TT * 8; i += NTHREADS) {
+      const int r = i >> 3, c8 = i & 7;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (n0 + r < N) val = ((const uint4*)(hv + (size_t)r * NW))[c8];
+      *(uint4*)(A + r * VIEW_LDA + c8 * 8) = val;
+    }
+    if (tid < TT) {
+      const float px = pts_s[tid * 3], py = pts_s[tid * 3 + 1], pz = pts_s[tid * 3 + 2];
+      float ax = cx0 - px, ay = cy0 - py, az = cz0 - pz;
+      float an = sqrtf(ax * ax + ay * ay + az * az) + 1e-6f;
+      ax /= an; ay /= an; az /= an;
+      const float* cv = centers + 3 * (v + 1);
+      float bx = cv[0] - px, by = cv[1] - py, bz = cv[2] - pz;
+      float bn = sqrtf(bx * bx + by * by + bz * bz) + 1e-6f;
+      bx /= bn; by /= bn; bz /= bn;
+      const float dx = ax - bx, dy = ay - by, dz = az - bz;
+      const float dn = fmaxf(sqrtf(dx * dx + dy * dy + dz * dz), 1e-6f);
+      const float rd[4] = {dx / dn, dy / dn, dz / dn, ax * bx + ay * by + az * bz};
+#pragma unroll
+      for (int j = 0; j < PH; ++j) {
+        float p = w.p0b[j];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) p += rd[k] * w.p0[k * PH + j];
+        A[tid * VIEW_LDA + NW + j] = __float2bfloat16(fmaxf(p, 0.f));
+      }
+    }
+    __syncthreads();
+    // [val (64) | a0 w/o the q side (8) | 0 (8)]
+    gemm_store(A, VIEW_LDA, w.wbig, 80, Cs, VIEW_LDC, TT, 80, 80);
+    __syncthreads();
+    const bool valid = (vmask[t] >> v) & 1u;
+    if (valid || vcnt[t] == 0) {
+      float tj[PH];
+#pragma unroll
+      for (int j = 0; j < PH; ++j)
+        tj[j] = fmaxf(Cs[t * VIEW_LDC + NW + j] + w.bbig[NW + j] - QA[t * 20 + j], 0.f);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int c = g * 16 + i;
+        float lg = w.ba1[c];
+#pragma unroll
+        for (int j = 0; j < PH; ++j) lg += tj[j] * wa1_s[j * NW + c];
+        const float val = Cs[t * VIEW_LDC + c] + w.bbig[c];
+        const float mn = fmaxf(mx[i], lg);
+        const float sc = __expf(mx[i] - mn);
+        const float e = __expf(lg - mn);
+        den[i] = den[i] * sc + e;
+        agg[i] = agg[i] * sc + e * val;
+        mx[i] = mn;
+      }
+    }
+    __syncthreads();
+  }
+
+  // x = out_fc(agg) + q
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    X[t * 72 + g * 16 + i] = __float2bfloat16(agg[i] / den[i]);
+  __syncthreads();
+  gemm_store(X, 72, w.wout, NW, Cs, VIEW_LDC, TT, NW, NW);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) qr[i] += Cs[t * VIEW_LDC + g * 16 + i] + w.bout[g * 16 + i];
+  // q = x + ff(ff_norm(x))
+  {
+    float xo[16];
+    ln_quad(qr, w.fln_s, w.fln_b, g, xo);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) X[t * 72 + g * 16 + i] = __float2bfloat16(xo[i]);
+  }
+  __syncthreads();
+  gemm_epi(X, 72, w.wf1, 4 * NW, TT, 4 * NW, NW, stage,
+           [&](int r, int c, float val) {
+             H1[r * VIEW_LDH + c] = __float2bfloat16(fmaxf(val + w.bf1[c], 0.f));
+           });
+  __syncthreads();
+  gemm_store(H1, VIEW_LDH, w.wf2, NW, Cs, VIEW_LDC, TT, NW, 4 * NW);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) qr[i] += Cs[t * VIEW_LDC + g * 16 + i] + w.bf2[g * 16 + i];
+
+  if (has_qfc) {
+    // q = q_fc_1(relu(q_fc_0([q | pts_code | view_code])))  (K = 192)
+    const int ldq = 200;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) H1[t * ldq + g * 16 + i] = __float2bfloat16(qr[i]);
+    if (tid < TT) {
+      bf16* row = H1 + tid * ldq;
+      float p3[3] = {pts_s[tid * 3], pts_s[tid * 3 + 1], pts_s[tid * 3 + 2]};
+      float s3[3], c3[3];
+      for (int k = 0; k < 3; ++k) {
+        row[NW + k] = __float2bfloat16(p3[k]);
+        s3[k] = sinf(p3[k]);
+        c3[k] = cosf(p3[k]);
+      }
+      for (int f = 0; f < 10; ++f) {
+        for (int k = 0; k < 3; ++k) {
+          row[NW + 3 + 6 * f + k] = __float2bfloat16(s3[k]);
+          row[NW + 6 + 6 * f + k] = __float2bfloat16(c3[k]);
+          const float s2 = 2.f * s3[k] * c3[k];
+          const float c2 = c3[k] * c3[k] - s3[k] * s3[k];
+          s3[k] = s2;
+          c3[k] = c2;
+        }
+      }
+      const int ray = min(n0 + tid, N - 1) / S;
+      for (int k = 0; k < POSENC; ++k)
+        row[NW + POSENC + k] = __float2bfloat16(vcode[(size_t)ray * POSENC + k]);
+      for (int k = NW + 2 * POSENC; k < ldq; ++k) row[k] = __float2bfloat16(0.f);
+    }
+    __syncthreads();
+    gemm_epi(H1, ldq, w.wq0, NW, TT, NW, 192, stage,
+             [&](int r, int c, float val) {
+               X[r * 72 + c] = __float2bfloat16(fmaxf(val + w.bq0[c], 0.f));
+             });
+    __syncthreads();
+    gemm_store(X, 72, w.wq1, NW, Cs, VIEW_LDC, TT, NW, NW);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 16; ++i) qr[i] = Cs[t * VIEW_LDC + g * 16 + i] + w.bq1[g * 16 + i];
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) q[(size_t)(n0 + t) * NW + g * 16 + i] = qr[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// k_ray: one ray transformer block for one ray (blockIdx.x)
+// ---------------------------------------------------------------------------
+#define RAY_LDQKV 56   // [q_h (16) | k_h (16) | v_h (16) | pad (8)]
+#define RAY_LDH 264
+
+struct RayLayout {
+  size_t x, o, qkv, sc, p, hbuf, stage, rowinv, pool, wacc, total;
+};
+
+__host__ __device__ inline RayLayout ray_layout(int sp) {
+  RayLayout L;
+  size_t off = 0;
+  L.x = off; off += (size_t)sp * 72 * 2;
+  L.o = off; off += (size_t)sp * 72 * 2;
+  const size_t attn = (size_t)sp * RAY_LDQKV * 2 + (size_t)QCHUNK * (sp + 4) * 4 +
+                      (size_t)QCHUNK * (sp + 8) * 2;
+  const size_t ff = (size_t)64 * RAY_LDH * 2;
+  L.qkv = off;
+  L.sc = off + (size_t)sp * RAY_LDQKV * 2;
+  L.p = L.sc + (size_t)QCHUNK * (sp + 4) * 4;
+  L.hbuf = off;
+  off += attn > ff ? attn : ff;
+  off = (off + 127) & ~(size_t)127;
+  L.stage = off; off += (size_t)NWARPS * 16 * STAGE_LD * 4;
+  L.rowinv = off; off += QCHUNK * 4;
+  L.pool = off; off += (NW + 4) * 4;
+  L.wacc = off; off += (size_t)sp * 4;
+  L.total = off;
+  return L;
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+k_ray(float* __restrict__ q, const float* __restrict__ pts,
+      const float* __restrict__ proj, int V, int S, int Sp, float hf, float wf,
+      RayW w, int last, FinalW fw, float* __restrict__ rgb_out,
+      float* __restrict__ w_out, float* __restrict__ cnt_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const RayLayout L = ray_layout(Sp);
+  bf16* X = (bf16*)(smem + L.x);
+  bf16* O = (bf16*)(smem + L.o);
+  bf16* QKV = (bf16*)(smem + L.qkv);
+  float* Sc = (float*)(smem + L.sc);
+  bf16* P = (bf16*)(smem + L.p);
+  bf16* Hb = (bf16*)(smem + L.hbuf);
+  float* stage = (float*)(smem + L.stage);
+  float* rowinv = (float*)(smem + L.rowinv);
+  float* pool = (float*)(smem + L.pool);
+  float* wacc = (float*)(smem + L.wacc);
+
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* qg = q + (size_t)r * S * NW;
+  const int lds = Sp + 4, ldp = Sp + 8;
+
+  for (int k = tid; k < Sp; k += NTHREADS) wacc[k] = 0.f;
+  if (tid < NW + 4) pool[tid] = 0.f;
+  // X = attn_norm(q), zero rows past S
+  for (int row = warp; row < Sp; row += NWARPS) {
+    float a = 0.f, b = 0.f;
+    if (row < S) {
+      a = qg[row * NW + 2 * lane];
+      b = qg[row * NW + 2 * lane + 1];
+      ln_warp(a, b, w.ln_s, w.ln_b, lane);
+    }
+    X[row * 72 + 2 * lane] = __float2bfloat16(a);
+    X[row * 72 + 2 * lane + 1] = __float2bfloat16(b);
+  }
+  __syncthreads();
+
+  for (int hh = 0; hh < HEADS; ++hh) {
+    gemm_epi(X, 72, w.wqkv + hh * 48, 3 * NW, Sp, 48, NW, stage,
+             [&](int rr, int c, float val) {
+               QKV[rr * RAY_LDQKV + c] = __float2bfloat16(val);
+             });
+    __syncthreads();
+    for (int q0 = 0; q0 < Sp; q0 += QCHUNK) {
+      const int nq = min(QCHUNK, Sp - q0);
+      gemm_store<true>(QKV + q0 * RAY_LDQKV, RAY_LDQKV, QKV + HD, RAY_LDQKV,
+                       Sc, lds, nq, Sp, HD);
+      __syncthreads();
+      for (int row = warp; row < nq; row += NWARPS) {
+        float m = -INFINITY;
+        for (int k = lane; k < S; k += 32) m = fmaxf(m, Sc[row * lds + k] * 0.25f);
+        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        float sum = 0.f;
+        for (int k = lane; k < Sp; k += 32) {
+          const float e = k < S ? expf(Sc[row * lds + k] * 0.25f - m) : 0.f;
+          P[row * ldp + k] = __float2bfloat16(e);
+          sum += e;
+        }
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float inv = 1.f / sum;
+        if (lane == 0) rowinv[row] = inv;
+        if (last && q0 + row == 0) {
+          for (int k = lane; k < S; k += 32)
+            wacc[k] += expf(Sc[k] * 0.25f - m) * inv * (1.0f / HEADS);
+        }
+      }
+      __syncthreads();
+      gemm_epi(P, ldp, QKV + 2 * HD, RAY_LDQKV, nq, HD, Sp, stage,
+               [&](int rr, int c, float val) {
+                 O[(q0 + rr) * 72 + hh * HD + c] = __float2bfloat16(val * rowinv[rr]);
+               });
+      __syncthreads();
+    }
+  }
+
+  // q += out_fc(O)
+  gemm_epi(O, 72, w.wo, NW, Sp, NW, NW, stage, [&](int rr, int c, float val) {
+    if (rr < S) qg[rr * NW + c] += val + w.bo[c];
+  });
+  __syncthreads();
+  // q += ff(ff_norm(q)), 64 rows at a time
+  for (int row = warp; row < Sp; row += NWARPS) {
+    float a = 0.f, b = 0.f;
+    if (row < S) {
+      a = qg[row * NW + 2 * lane];
+      b = qg[row * NW + 2 * lane + 1];
+      ln_warp(a, b, w.fln_s, w.fln_b, lane);
+    }
+    X[row * 72 + 2 * lane] = __float2bfloat16(a);
+    X[row * 72 + 2 * lane + 1] = __float2bfloat16(b);
+  }
+  __syncthreads();
+  for (int c0 = 0; c0 < Sp; c0 += 64) {
+    const int m = min(64, Sp - c0);
+    gemm_epi(X + c0 * 72, 72, w.wf1, 4 * NW, m, 4 * NW, NW, stage,
+             [&](int rr, int c, float val) {
+               Hb[rr * RAY_LDH + c] = __float2bfloat16(fmaxf(val + w.bf1[c], 0.f));
+             });
+    __syncthreads();
+    gemm_epi(Hb, RAY_LDH, w.wf2, NW, m, NW, 4 * NW, stage,
+             [&](int rr, int c, float val) {
+               if (c0 + rr < S) qg[(c0 + rr) * NW + c] += val + w.bf2[c];
+             });
+    __syncthreads();
+  }
+  if (!last) return;
+
+  // weights, rgb = rgb_fc(mean_s norm(q)), cnt = sum_s w_s * valid_s / V
+  for (int k = tid; k < S; k += NTHREADS) w_out[(size_t)r * S + k] = wacc[k];
+  float pa = 0.f, pb = 0.f;
+  for (int row = warp; row < S; row += NWARPS) {
+    float a = qg[row * NW + 2 * lane], b = qg[row * NW + 2 * lane + 1];
+    ln_warp(a, b, fw.norm_s, fw.norm_b, lane);
+    pa += a;
+    pb += b;
+  }
+  atomicAdd(&pool[2 * lane], pa);
+  atomicAdd(&pool[2 * lane + 1], pb);
+  float cnt = 0.f;
+  for (int k = tid; k < S; k += NTHREADS) {
+    const float* p = pts + ((size_t)r * S + k) * 3;
+    int nv = 0;
+    for (int v = 0; v < V; ++v) nv += point_valid(proj + v * 12, p[0], p[1], p[2], hf, wf);
+    cnt += wacc[k] * (float)nv;
+  }
+  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+  if (lane == 0) atomicAdd(&pool[NW], cnt);
+  __syncthreads();
+  if (tid < 3) {
+    float acc = fw.rgb_b[tid];
+    for (int c = 0; c < NW; ++c) acc += pool[c] * (1.0f / S) * fw.rgb_w[c * 3 + tid];
+    rgb_out[r * 3 + tid] = acc;
+  }
+  if (tid == 0) cnt_out[r] = pool[NW] / (float)V;
+}
+
+// ---------------------------------------------------------------------------
+// host entry
+// ---------------------------------------------------------------------------
+static inline size_t prologue_smem(int cp) {
+  return (size_t)TT * (cp + 8) * 2 + (size_t)TT * 72 * 2 + (size_t)TT * 68 * 4;
+}
+static inline size_t view_smem() {
+  return (size_t)TT * VIEW_LDA * 2 + (size_t)TT * VIEW_LDC * 4 + (size_t)TT * 72 * 2 +
+         (size_t)TT * 20 * 4 + (size_t)TT * VIEW_LDH * 2 +
+         (size_t)NWARPS * 16 * STAGE_LD * 4 + (size_t)TT * 3 * 4 + (size_t)TT * 4 * 2 +
+         (size_t)PH * NW * 4;
+}
+
+extern "C" {
+
+// Shared memory one ray block needs for Sp (padded) samples; the wrapper
+// checks it against the device limit before launching.
+size_t gnt_mono4_ray_smem(int sp) { return ray_layout(sp).total; }
+
+int gnt_mono4_max_views() { return MAX_VIEWS; }
+
+int gnt_mono4_n_ptrs() { return N_PTRS; }
+
+// Runs the whole forward on `stream`. wptrs: N_PTRS device pointers in the
+// order of pack_mono4_weights (pgdvs_tpu_torch/kernels/gnt_fused.py).
+// Returns a cudaError_t (0 = launched).
+int gnt_mono4_forward(const void* rf, const void* pts, const void* vcode,
+                      const void* centers, const void* proj, int V, int R,
+                      int S, int C, int Cp, float hf, float wf,
+                      const uint64_t* wptrs, int n_ptrs, void* h_scratch,
+                      void* q_scratch, void* rgb_out, void* w_out,
+                      void* cnt_out, void* stream_ptr) {
+  if (n_ptrs != N_PTRS || V > MAX_VIEWS || V < 1 || S < 1 || R < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int N = R * S;
+  const int Sp = (S + 15) / 16 * 16;
+  int k = 0;
+  auto nb = [&]() { return (const bf16*)(uintptr_t)wptrs[k++]; };
+  auto nf = [&]() { return (const float*)(uintptr_t)wptrs[k++]; };
+
+  HeadW hw;
+  hw.w0 = nb(); hw.b0 = nf(); hw.w1 = nb(); hw.b1 = nf();
+  ViewW vw[DEPTH];
+  RayW rw[DEPTH];
+  for (int b = 0; b < DEPTH; ++b) {
+    ViewW& a = vw[b];
+    a.ln_s = nf(); a.ln_b = nf(); a.wqa0 = nb(); a.wbig = nb(); a.bbig = nf();
+    a.p0 = nf(); a.p0b = nf(); a.wa1 = nf(); a.ba1 = nf(); a.wout = nb();
+    a.bout = nf(); a.fln_s = nf(); a.fln_b = nf(); a.wf1 = nb(); a.bf1 = nf();
+    a.wf2 = nb(); a.bf2 = nf(); a.wq0 = nb(); a.bq0 = nf(); a.wq1 = nb();
+    a.bq1 = nf();
+    RayW& y = rw[b];
+    y.ln_s = nf(); y.ln_b = nf(); y.wqkv = nb(); y.wo = nb(); y.bo = nf();
+    y.fln_s = nf(); y.fln_b = nf(); y.wf1 = nb(); y.bf1 = nf(); y.wf2 = nb();
+    y.bf2 = nf();
+  }
+  FinalW fw;
+  fw.norm_s = nf(); fw.norm_b = nf(); fw.rgb_w = nf(); fw.rgb_b = nf();
+
+  cudaError_t err;
+  const size_t sm_pro = prologue_smem(Cp), sm_view = view_smem();
+  const size_t sm_ray = ray_layout(Sp).total;
+  if ((err = cudaFuncSetAttribute(k_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
+  if ((err = cudaFuncSetAttribute(k_view, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_view))) return (int)err;
+  if ((err = cudaFuncSetAttribute(k_ray, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_ray))) return (int)err;
+
+  const int nblk = (N + TT - 1) / TT;
+  k_prologue<<<nblk, NTHREADS, sm_pro, stream>>>(
+      (const bf16*)rf, V, N, C, Cp, hw, (bf16*)h_scratch, (float*)q_scratch);
+  if ((err = cudaGetLastError())) return (int)err;
+  for (int b = 0; b < DEPTH; ++b) {
+    k_view<<<nblk, NTHREADS, sm_view, stream>>>(
+        (const bf16*)h_scratch, (float*)q_scratch, (const float*)pts,
+        (const float*)vcode, (const float*)centers, (const float*)proj, V, N, S,
+        hf, wf, vw[b], b % 2 == 0);
+    if ((err = cudaGetLastError())) return (int)err;
+    k_ray<<<R, NTHREADS, sm_ray, stream>>>(
+        (float*)q_scratch, (const float*)pts, (const float*)proj, V, S, Sp, hf,
+        wf, rw[b], b == DEPTH - 1, fw, (float*)rgb_out, (float*)w_out,
+        (float*)cnt_out);
+    if ((err = cudaGetLastError())) return (int)err;
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,99 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+The shared library is built at first use from ``pgdvs_tpu_torch/csrc``
+(``-gencode arch=compute_90a,code=sm_90a``, plain C interface) into
+``pgdvs_tpu_torch/_build/``, named by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads at once. Nothing here runs
+at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+c_void_p, c_int, c_float, c_size_t = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+)
+
+# C signatures of the library's entry points (csrc/gnt_fused.cu)
+SIGNATURES = {
+    "gnt_mono4_forward": (
+        [c_void_p] * 5 + [c_int] * 5 + [c_float, c_float, c_void_p, c_int]
+        + [c_void_p] * 6,
+        c_int,
+    ),
+    "gnt_mono4_ray_smem": ([c_int], c_size_t),
+    "gnt_mono4_max_views": ([], c_int),
+    "gnt_mono4_n_ptrs": ([], c_int),
+}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return nvcc
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> "KernelLibrary":
+    """Build (if needed) and load the kernels; cached for the process."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"libpgdvs_kernels_{source_digest()}.so"
+    log = ""
+    t0 = time.perf_counter()
+    built = not so.exists()
+    if built:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, (args, res) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = res
+    return KernelLibrary(lib, so, built, time.perf_counter() - t0, log)
+
+
+class KernelLibrary:
+    """The loaded library plus how it was obtained (for reports)."""
+
+    def __init__(self, lib, path, built, seconds, log):
+        self.lib, self.path, self.built = lib, path, built
+        self.build_seconds, self.build_log = seconds, log

@@ -1,0 +1,228 @@
+"""K1 — the fused GNT transformer forward, as a hand-written Hopper kernel.
+
+Replaces the TPU kernel ``pgdvs_tpu/kernels/gnt_fused_mono4.py:
+gnt_fused_apply_mono4`` on its ``rgb_feat`` contract:
+
+    gnt_fused_mono4(params, rgb_feat [V, R, S, C] bf16, pts [R, S, 3] f32,
+                    view_code [R, 63], centers [V+1, 3] f32 (target first),
+                    proj [V, 3|4, 4] f32 (K @ w2c), hw=(H, W))
+      -> {"rgb": [R, 3], "weights": [R, S] (true sample order),
+          "inbound_cnt_raw": [R]}        all float32
+
+Inside the kernel, as in mono4's body: view validity (in front, inside
+[0, W-1] x [0, H-1]), the ray-difference code, the 63-dim point embedding,
+rgbfeat_fc + max-pool over views, 8 x [masked per-channel view softmax,
+q_fc on even blocks, 4-head ray attention], LayerNorm + mean + rgb_fc, and
+``inbound_cnt_raw = sum_s w_s * (#valid views at s) / V``. Any S up to the
+shared-memory bound of one ray block (352 samples at the H100's 227 KB);
+no padding is asked of the caller.
+
+What bounds it on the H100: about 1e4 FLOP per (view, ray, sample) token and
+block, mostly the 64x64 value projection, plus S x S attention per head and
+ray. The design (``csrc/gnt_fused.cu``) runs every dense layer as bf16 WMMA
+tiles with f32 accumulation, keeps softmax and LayerNorm statistics in f32,
+streams views one at a time through an online softmax (a ray's [V, S, 64]
+token set never has to fit in shared memory), and holds one ray's S samples
+in shared memory for ray attention. Offline, only exact-by-linearity weight
+compositions are made (wk@wv, wk@wa0, wq@wa0, p1@wa0).
+
+Not carried from the TPU kernel: 128-lane sample-pair packing, the
+log2(e)/exp2 fold, the LayerNorm selection matmul, the evens-then-odds ray
+order, ray_block / precompute_kv and the VMEM budget.
+
+``gnt_fused_mono4`` runs the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+
+from pgdvs_tpu_torch.core.cameras import pixel_inbound, project_with, ray_diff_features
+from pgdvs_tpu_torch.models.gnt.network import GNT, POSENC
+
+NW, PH, DEPTH, HEADS = 64, 8, 8, 4
+
+
+@dataclasses.dataclass
+class Mono4Weights:
+    """GNT weights packed for the kernel on one device (see the .cu order)."""
+
+    gnt: GNT
+    device: torch.device
+    tensors: List[Optional[torch.Tensor]]
+    cp: int  # rgb_feat channels padded to a multiple of 16
+
+
+def _k(linear) -> torch.Tensor:
+    """nn.Linear -> its [in, out] kernel in float32."""
+    return linear.weight.detach().float().T
+
+
+@torch.no_grad()
+def pack_mono4_weights(gnt: GNT, device) -> Mono4Weights:
+    """Compose and lay out the GNT weights in the kernel's pointer order."""
+    if gnt.netwidth != NW or gnt.depth != DEPTH:
+        raise ValueError("the kernel serves netwidth 64, depth 8 only")
+    device = torch.device(device)
+
+    def f32(x):
+        return x.detach().to(device=device, dtype=torch.float32).contiguous()
+
+    def b16(x):
+        return f32(x).to(torch.bfloat16).contiguous()
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=gnt.norm.weight.device)
+
+    c = 3 + gnt.in_feat_ch
+    cp = -(-c // 16) * 16
+    fc0, fc1 = gnt.rgbfeat_fc[0], gnt.rgbfeat_fc[2]
+    w0 = zeros(cp, NW)
+    w0[:c] = _k(fc0)
+    out = [b16(w0), f32(fc0.bias), b16(_k(fc1)), f32(fc1.bias)]
+    for blk in range(DEPTH):
+        vt = gnt.view_crosstrans[blk]
+        a = vt.attn
+        wk, wa0 = _k(a.k_fc), _k(a.attn_fc[0])
+        p0, p1, a0, a1 = a.pos_fc[0], a.pos_fc[2], a.attn_fc[0], a.attn_fc[2]
+        wqa0 = zeros(NW, 16)
+        wqa0[:, :PH] = _k(a.q_fc) @ wa0
+        wbig = zeros(80, 80)  # rows [h | pos_in | 0], cols [val | a0 | 0]
+        wbig[:NW, :NW] = wk @ _k(a.v_fc)
+        wbig[:NW, NW:NW + PH] = wk @ wa0
+        wbig[NW:NW + PH, :NW] = _k(p1)
+        wbig[NW:NW + PH, NW:NW + PH] = _k(p1) @ wa0
+        bbig = torch.cat([p1.bias.float(), p1.bias.float() @ wa0 + a0.bias.float()])
+        out += [
+            f32(vt.attn_norm.weight), f32(vt.attn_norm.bias), b16(wqa0),
+            b16(wbig), f32(bbig), f32(_k(p0)), f32(p0.bias), f32(_k(a1)),
+            f32(a1.bias), b16(_k(a.out_fc)), f32(a.out_fc.bias),
+            f32(vt.ff_norm.weight), f32(vt.ff_norm.bias), b16(_k(vt.ff.fc1)),
+            f32(vt.ff.fc1.bias), b16(_k(vt.ff.fc2)), f32(vt.ff.fc2.bias),
+        ]
+        if blk % 2 == 0:
+            qf = gnt.q_fcs[blk // 2]
+            wq0 = zeros(192, NW)  # rows [q (64) | pts code (63) | view code (63) | 0]
+            wq0[:NW + 2 * POSENC] = _k(qf[0])
+            out += [b16(wq0), f32(qf[0].bias), b16(_k(qf[2])), f32(qf[2].bias)]
+        else:
+            out += [None] * 4
+        rt = gnt.view_selftrans[blk]
+        ra = rt.attn
+        rq, rk, rv = _k(ra.q_fc), _k(ra.k_fc), _k(ra.v_fc)
+        # head-major columns: [q_h | k_h | v_h] for h = 0..3
+        wqkv = torch.cat(
+            [m[:, h * 16:(h + 1) * 16] for h in range(HEADS) for m in (rq, rk, rv)],
+            dim=1,
+        )
+        out += [
+            f32(rt.attn_norm.weight), f32(rt.attn_norm.bias), b16(wqkv),
+            b16(_k(ra.out_fc)), f32(ra.out_fc.bias), f32(rt.ff_norm.weight),
+            f32(rt.ff_norm.bias), b16(_k(rt.ff.fc1)), f32(rt.ff.fc1.bias),
+            b16(_k(rt.ff.fc2)), f32(rt.ff.fc2.bias),
+        ]
+    out += [f32(gnt.norm.weight), f32(gnt.norm.bias), f32(_k(gnt.rgb_fc)),
+            f32(gnt.rgb_fc.bias)]
+    return Mono4Weights(gnt, device, out, cp)
+
+
+@torch.no_grad()
+def gnt_fused_mono4_plain(gnt: GNT, rgb_feat, pts, view_code, centers, proj,
+                          hw: Tuple[float, float]):
+    """The same function in plain torch (float32): folds from the camera
+    helpers, then the ``GNT`` module."""
+    v = rgb_feat.shape[0]
+    pts = pts.float()
+    p = proj.float()[:, None, None]                       # [V, 1, 1, 4, 4]
+    uv, _z, front = project_with(p, pts[None])
+    valid = (pixel_inbound(uv, float(hw[0]), float(hw[1])) & front).float()
+    centers = centers.float()
+    rd = ray_diff_features(pts[None], centers[0], centers[1:, None, None, :])
+    out = gnt.forward_codes(
+        rgb_feat.float().permute(1, 2, 0, 3),
+        rd.permute(1, 2, 0, 3),
+        valid.permute(1, 2, 0)[..., None],
+        pts,
+        view_code.float(),
+    )
+    cnt = torch.sum(out["weights"] * valid.sum(0) / v, dim=-1)
+    return {"rgb": out["rgb"], "weights": out["weights"], "inbound_cnt_raw": cnt}
+
+
+def gnt_fused_mono4(params, rgb_feat, pts, view_code, centers, proj,
+                    hw: Tuple[float, float]):
+    """K1 on the card for CUDA tensors; the plain version for CPU tensors.
+
+    params: the ``GNT`` module, or ``Mono4Weights`` packed for the device.
+    """
+    packed = params if isinstance(params, Mono4Weights) else None
+    gnt = packed.gnt if packed is not None else params
+    dev = rgb_feat.device
+    if dev.type == "cpu":
+        return gnt_fused_mono4_plain(gnt, rgb_feat, pts, view_code, centers,
+                                     proj, hw)
+    if dev.type != "cuda":
+        raise ValueError(f"gnt_fused_mono4: unsupported device {dev}")
+    from pgdvs_tpu_torch.kernels._build import load_library
+
+    v, r, s, c = rgb_feat.shape
+    if rgb_feat.dtype != torch.bfloat16:
+        raise ValueError("rgb_feat must be bfloat16")
+    if c != 3 + gnt.in_feat_ch:
+        raise ValueError(f"rgb_feat has {c} channels, GNT expects {3 + gnt.in_feat_ch}")
+    if pts.shape != (r, s, 3) or view_code.shape != (r, POSENC):
+        raise ValueError("pts must be [R, S, 3] and view_code [R, 63]")
+    if centers.shape != (v + 1, 3) or proj.shape[0] != v or proj.shape[-1] != 4:
+        raise ValueError("centers must be [V+1, 3] and proj [V, 3|4, 4]")
+    for t in (pts, view_code, centers, proj):
+        if t.device != dev:
+            raise ValueError("all operands must be on the same device")
+    lib = load_library().lib
+    if v > lib.gnt_mono4_max_views():
+        raise ValueError(f"at most {lib.gnt_mono4_max_views()} views, got {v}")
+    sp = -(-s // 16) * 16
+    smem = lib.gnt_mono4_ray_smem(sp)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"S={s} samples need {smem} B of shared memory per "
+                         f"ray block; the device allows {limit}")
+    if packed is None or packed.device != dev:
+        packed = pack_mono4_weights(gnt, dev)
+    n_ptrs = lib.gnt_mono4_n_ptrs()
+    if len(packed.tensors) != n_ptrs:
+        raise RuntimeError(f"packed {len(packed.tensors)} weights, kernel wants {n_ptrs}")
+
+    rf = rgb_feat.contiguous()
+    pts32 = pts.float().contiguous()
+    vc = view_code.float().contiguous()
+    ctr = centers.float().contiguous()
+    pj = proj[:, :3, :].float().contiguous()
+    n = r * s
+    h_scr = torch.empty((v, n, NW), dtype=torch.bfloat16, device=dev)
+    q_scr = torch.empty((n, NW), dtype=torch.float32, device=dev)
+    rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    weights = torch.empty((r, s), dtype=torch.float32, device=dev)
+    cnt = torch.empty((r,), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_uint64 * n_ptrs)(
+        *[0 if t is None else t.data_ptr() for t in packed.tensors]
+    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.gnt_mono4_forward(
+        rf.data_ptr(), pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr(),
+        pj.data_ptr(), v, r, s, c, packed.cp, float(hw[0]), float(hw[1]),
+        ctypes.cast(ptrs, ctypes.c_void_p), n_ptrs, h_scr.data_ptr(),
+        q_scr.data_ptr(), rgb.data_ptr(), weights.data_ptr(), cnt.data_ptr(),
+        stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"gnt_fused_mono4 launch failed: cudaError {err}")
+    gnt_fused_mono4.launches += 1
+    return {"rgb": rgb, "weights": weights, "inbound_cnt_raw": cnt}
+
+
+gnt_fused_mono4.launches = 0

@@ -1,0 +1,88 @@
+"""Render configuration of the port.
+
+Carries the semantic fields of ``pgdvs_tpu.renderers.config.RenderConfig``
+(the reference's ``render_cfg`` block) plus ``ray_tile`` and
+``epipolar_mode``. The JAX package's TPU knobs are not carried:
+``use_pallas_gnt``, ``pallas_kernel``, ``pallas_ray_block``,
+``pallas_precompute_kv``, ``pallas_ablate``, ``pallas_fold_*``,
+``pallas_patch_block``, ``dyn_point_capacity``, ``track_queries_per_frame``,
+``knn_tile`` and ``compiler_options_for``. On CUDA the port always runs its
+hand kernel (K1), with every fold inside it.
+
+The port renders one slice of the configuration space so far: static GNT
+without the dyn mask, quad epipolar sampling, coarse samples only, softsplat
+dynamic layer, no outlier removal, no tracker. ``check_slice`` raises
+ValueError for anything outside it; nothing falls back silently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    # --- image / ray sampling -------------------------------------------
+    render_stride: int = 1
+    sample_inv_uniform: bool = True
+    n_coarse_samples_per_ray: int = 256
+    n_fine_samples_per_ray: int = 0
+
+    # --- static (GNT) branch --------------------------------------------
+    pure_gnt: bool = False
+    pure_gnt_with_dyn_mask: bool = False
+    gnt_use_dyn_mask: bool = False
+    gnt_use_masked_spatial_src: bool = True
+    mask_oob_n_proj_thres: int = 1
+    mask_invalid_n_proj_thres: int = 4
+
+    # --- static point-cloud branch (pure-geometry ablations) -------------
+    st_pcl_remove_outlier: bool = False
+    st_pcl_outlier_knn: int = 50
+    st_pcl_outlier_std_thres: float = 0.1
+    st_render_pcl_pt_radius: float = 0.01
+    st_render_pcl_pts_per_pixel: int = 1
+
+    # --- dynamic branch ---------------------------------------------------
+    dyn_pcl_remove_outlier: bool = False
+    dyn_pcl_outlier_knn: int = 50
+    dyn_pcl_outlier_std_thres: float = 0.1
+    dyn_render_type: str = "softsplat"  # softsplat | pcl | mesh
+    dyn_render_pcl_pt_radius: float = 0.01
+    dyn_render_pcl_pts_per_pixel: int = 1
+    dyn_render_track_temporal: str = "none"  # none | no_tgt
+    dyn_pcl_track_track2base_thres_mult: float = 50.0
+    dyn_render_use_flow_consistency: bool = False
+    softsplat_metric_abs_alpha: float = 100.0
+
+    # --- execution ---------------------------------------------------------
+    ray_tile: int = 2048        # rays per GNT call
+    epipolar_mode: str = "exact"  # the port samples 'quad' only
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def apply_perf_preset(cfg: RenderConfig) -> RenderConfig:
+    """The fast sampler for ``cfg``: quad epipolar sampling (one bilinear
+    tap set per sample and view on the fused full-resolution map)."""
+    return cfg.replace(epipolar_mode="quad")
+
+
+def check_slice(cfg: RenderConfig, static_mode: str = "gnt") -> None:
+    """Raise ValueError unless the port renders ``cfg``."""
+    unsupported = {
+        "static_mode != 'gnt'": static_mode != "gnt",
+        "gnt_use_dyn_mask": cfg.gnt_use_dyn_mask,
+        "n_fine_samples_per_ray > 0": cfg.n_fine_samples_per_ray > 0,
+        "epipolar_mode != 'quad'": cfg.epipolar_mode != "quad",
+        "render_stride != 1": cfg.render_stride != 1,
+        "dyn_render_type != 'softsplat'": cfg.dyn_render_type != "softsplat",
+        "dyn_pcl_remove_outlier": cfg.dyn_pcl_remove_outlier,
+        "dyn_render_track_temporal != 'none'": cfg.dyn_render_track_temporal != "none",
+    }
+    bad = [name for name, hit in unsupported.items() if hit]
+    if bad:
+        raise ValueError(
+            "configuration outside the ported slice: " + ", ".join(bad)
+        )

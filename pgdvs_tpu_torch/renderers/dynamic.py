@@ -1,0 +1,131 @@
+"""Dynamic-foreground rendering: depth + flow point cloud, softmax-splatted.
+
+Counterpart of ``pgdvs_tpu.renderers.dynamic`` on the ported slice (no KNN
+outlier removal, no tracker, softsplat only). Every pixel of temporal source
+1 is a candidate point: lifted by its depth, advected by flow into frame 2,
+lifted again there, interpolated linearly to the target time, projected into
+the target camera, and splatted with static-region colours replaced by
+clamped gaussian noise so they lose contested pixels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from pgdvs_tpu_torch.core import cameras
+from pgdvs_tpu_torch.core.geometry import uv_depth_to_world
+from pgdvs_tpu_torch.core.interpolate import bilinear_sample, nearest_sample
+from pgdvs_tpu_torch.kernels.softsplat import brightness_metric, softsplat
+from pgdvs_tpu_torch.renderers.config import RenderConfig
+
+
+def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
+                           flow_12_occ_mask, rgb_2, depth_2, cam_1, cam_2,
+                           cam_tgt, time_1, time_2, time_tgt,
+                           cfg: RenderConfig):
+    """The time-interpolated dynamic point cloud (dense, masked).
+
+    Images [H, W, C]; cams flat-34; times scalars. Returns points [H*W, 3],
+    colors [H*W, 3], valid [H*W] bool, flow_to_tgt [H, W, 2],
+    valid_mask_img [H, W, 1].
+    """
+    if cfg.dyn_pcl_remove_outlier or cfg.dyn_render_track_temporal != "none":
+        raise ValueError("outlier removal and tracking are outside the ported slice")
+    h, w, _ = rgb_1.shape
+    k2, c2w2 = cameras.flat_cam_intrinsics(cam_2), cameras.flat_cam_c2w(cam_2)
+    rays_o, rays_d, uv, _ = cameras.get_rays(
+        h, w, cameras.flat_cam_intrinsics(cam_1), cameras.flat_cam_c2w(cam_1)
+    )
+    pcl_1 = rays_o + rays_d * depth_1.reshape(-1, 1)
+
+    dyn = dyn_mask_1.reshape(-1) > 0
+    if cfg.dyn_render_use_flow_consistency:
+        dyn = dyn & ~(flow_12_occ_mask.reshape(-1) > 0)
+    uv_flow = uv + flow_12.reshape(-1, 2)
+    flow_ok = (
+        (uv_flow[:, 0] >= 0) & (uv_flow[:, 0] <= w - 1.0)
+        & (uv_flow[:, 1] >= 0) & (uv_flow[:, 1] <= h - 1.0)
+    )
+    valid = dyn & flow_ok
+
+    # frame-2 lookups at the advected uv (align_corners=False == uv - 0.5)
+    x2, y2 = uv_flow[:, 0] - 0.5, uv_flow[:, 1] - 0.5
+    depth_f2 = nearest_sample(depth_2, x2, y2)[..., 0]
+    rgb_f2 = bilinear_sample(rgb_2, x2, y2)
+    pcl_2 = uv_depth_to_world(uv_flow, depth_f2, k2, c2w2)
+
+    same_time = bool(abs(float(time_2) - float(time_1)) < 1e-9)
+    if same_time:
+        points, colors = pcl_1, rgb_1.reshape(-1, 3)
+    else:
+        denom = time_2 - time_1
+        points = ((time_2 - time_tgt) / denom) * pcl_1 + (
+            (time_tgt - time_1) / denom) * pcl_2
+        colors = rgb_f2
+
+    uv_tgt, _z, _front = cameras.project_points(points, cam_tgt)
+    flow_to_tgt = torch.where(valid[:, None], uv_tgt - uv,
+                              torch.zeros_like(uv)).reshape(h, w, 2)
+    return {
+        "points": points,
+        "colors": colors,
+        "valid": valid,
+        "flow_to_tgt": flow_to_tgt,
+        "valid_mask_img": valid.float().reshape(h, w, 1),
+    }
+
+
+def render_dynamic(data, cfg: RenderConfig,
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None):
+    """Render the dynamic layer for one novel view (softsplat).
+
+    The static-region colours are replaced by ``clamp(noise, 0, 1)``, where
+    noise is a standard normal [H, W, 3] drawn from ``generator`` unless it
+    is given directly.
+
+    Returns rgb [H, W, 3], mask [H, W, 1] and the per-branch intermediates.
+    """
+    if cfg.dyn_render_type != "softsplat":
+        raise ValueError(f"dyn_render_type={cfg.dyn_render_type!r} is outside "
+                         "the ported slice (softsplat only)")
+    rgb_t = data["rgb_src_temporal"]
+    pcl = compute_dyn_pointcloud(
+        rgb_1=rgb_t[0],
+        dyn_mask_1=data["dyn_mask_src_temporal"][0],
+        depth_1=data["depth_src_temporal"][0],
+        flow_12=data["flow_fwd"],
+        flow_12_occ_mask=data["flow_fwd_occ_mask"],
+        rgb_2=rgb_t[1],
+        depth_2=data["depth_src_temporal"][1],
+        cam_1=data["flat_cam_src_temporal"][0],
+        cam_2=data["flat_cam_src_temporal"][1],
+        cam_tgt=data["flat_cam_tgt"],
+        time_1=data["time_src_temporal"][0],
+        time_2=data["time_src_temporal"][1],
+        time_tgt=data["time_tgt"][0],
+        cfg=cfg,
+    )
+    dyn_mask = pcl["valid_mask_img"]
+    if noise is None:
+        noise = torch.randn(rgb_t[0].shape, generator=generator,
+                            dtype=rgb_t.dtype, device=rgb_t.device)
+    noise = torch.clamp(noise, 0.0, 1.0)
+    rgb_1_rand = rgb_t[0] * dyn_mask + noise * (1.0 - dyn_mask)
+    metric = brightness_metric(rgb_1_rand, rgb_t[1], data["flow_fwd"],
+                               cfg.softsplat_metric_abs_alpha)
+    splat_rgb = softsplat(rgb_1_rand, pcl["flow_to_tgt"], metric, mode="soft")
+    splat_mask = softsplat(dyn_mask, pcl["flow_to_tgt"], metric, mode="soft")
+    mask = (splat_mask > 1e-3).float()
+    rgb = splat_rgb * mask
+    return {
+        "rgb": rgb,
+        "mask": mask,
+        "temporal_closest_rgb": rgb,
+        "temporal_closest_mask": mask,
+        "temporal_track_rgb": torch.zeros_like(rgb),
+        "temporal_track_mask": torch.zeros_like(mask),
+        "pcl": pcl,
+    }

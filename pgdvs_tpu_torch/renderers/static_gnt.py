@@ -1,0 +1,133 @@
+"""Static-background rendering with GNT (torch).
+
+Counterpart of ``pgdvs_tpu.renderers.static_gnt`` on the ported slice: source
+features once per image (ResUNet), fused full-resolution sampling maps,
+then a Python loop over ray tiles. Per tile: deterministic sample placement,
+quad epipolar sampling over all source views, the fused GNT transformer
+(K1: the hand kernel on CUDA, its plain version on the CPU), and per-ray rgb,
+depth = sum_s w_s z_s and the weighted in-bounds view count.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from pgdvs_tpu_torch.core import cameras, sampling
+from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4, pack_mono4_weights
+from pgdvs_tpu_torch.models.gnt.feature_net import ResUNet
+from pgdvs_tpu_torch.models.gnt.network import GNT, sinusoidal_embed
+from pgdvs_tpu_torch.models.gnt.projector import build_fused_maps, epipolar_sample_quad
+from pgdvs_tpu_torch.renderers.config import RenderConfig, check_slice
+
+
+def make_gnt_models(netwidth: int = 64, depth: int = 8, feat_ch: int = 32):
+    """The (feature_net, gnt) pair, freshly initialised by torch."""
+    return ResUNet(out_channels=feat_ch), GNT(netwidth, depth, feat_ch)
+
+
+def init_gnt_models(seed: int = 0, device="cpu", **kw):
+    """(feature_net, gnt) with random weights drawn from ``seed`` (torch's
+    default initialisers), in eval mode on ``device``. The caller's global
+    RNG state is left as it was."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        fnet, gnt = make_gnt_models(**kw)
+    return fnet.to(device).eval(), gnt.to(device).eval()
+
+
+def render_rays_gnt(gnt_params, rays_o, rays_d, depth_range, tgt_cam, src_cams,
+                    fused_maps, cfg: RenderConfig) -> Dict[str, torch.Tensor]:
+    """Render a batch of rays.
+
+    Args:
+      gnt_params: the GNT module, or its ``Mono4Weights`` packed for the
+        rays' device.
+      rays_o/rays_d [R, 3]; depth_range [R, 2]; tgt_cam [34];
+      src_cams [V, 34]; fused_maps [V, H, W, 3+F] (build_fused_maps).
+
+    Returns rgb [R, 3], depth [R], weights [R, S], inbound_cnt [R],
+    dyn_cnt [R] (zero: no dyn mask), view_std / view_std_normalized
+    [R, depth+1] (zero: the diagnostics are not computed).
+    """
+    pts, z_vals = sampling.sample_along_rays(
+        rays_o, rays_d, depth_range, cfg.n_coarse_samples_per_ray,
+        inv_uniform=cfg.sample_inv_uniform,
+    )
+    proj = cameras.flat_cam_projection(src_cams)
+    rgb_feat = epipolar_sample_quad(pts, proj, fused_maps)
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    centers = torch.cat([
+        cameras.flat_cam_c2w(tgt_cam)[None, :3, 3],
+        cameras.flat_cam_c2w(src_cams)[:, :3, 3],
+    ])
+    _, map_h, map_w, _ = fused_maps.shape
+    out = gnt_fused_mono4(gnt_params, rgb_feat, pts, sinusoidal_embed(viewdirs),
+                          centers, proj, (map_h, map_w))
+    weights = out["weights"]
+    inbound_cnt = out["inbound_cnt_raw"]
+    gnt = gnt_params if isinstance(gnt_params, GNT) else gnt_params.gnt
+    std = torch.zeros(weights.shape[:-1] + (gnt.depth + 1,),
+                      dtype=torch.float32, device=weights.device)
+    return {
+        "rgb": out["rgb"],
+        "depth": torch.sum(weights * z_vals, dim=-1),
+        "weights": weights,
+        "inbound_cnt": inbound_cnt,
+        "dyn_cnt": torch.zeros_like(inbound_cnt),
+        "view_std": std,
+        "view_std_normalized": std,
+    }
+
+
+def render_rays_tiled(gnt_params, rays_o, rays_d, dr, tgt_cam, src_cams,
+                      fused_maps, cfg: RenderConfig):
+    """Loop ``render_rays_gnt`` over tiles of ``cfg.ray_tile`` rays (the
+    last tile may be short); returns flat [n_rays, ...] outputs."""
+    n_rays = rays_o.shape[0]
+    outs = [
+        render_rays_gnt(gnt_params, rays_o[i:i + cfg.ray_tile],
+                        rays_d[i:i + cfg.ray_tile], dr[i:i + cfg.ray_tile],
+                        tgt_cam, src_cams, fused_maps, cfg)
+        for i in range(0, n_rays, cfg.ray_tile)
+    ]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+@torch.no_grad()
+def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
+                     cfg: RenderConfig):
+    """Render a full novel view with GNT.
+
+    Args:
+      models: (feature_net, gnt); tgt_cam [34]; src_cams [V, 34];
+      src_rgbs [V, H, W, 3]; image_hw (H, W) of the target;
+      depth_range [2] or [H, W, 2].
+
+    Returns [H, W, C] maps: rgb, depth, weights, inbound_cnt, dyn_cnt,
+    view_std(+normalized) and oob_mask.
+    """
+    check_slice(cfg)
+    feature_net, gnt = models
+    h, w = image_hw
+    feats = feature_net(src_rgbs)
+    fused_maps = build_fused_maps(src_rgbs, feats)
+    rays_o, rays_d, _uv, (rh, rw) = cameras.get_rays(
+        h, w, cameras.flat_cam_intrinsics(tgt_cam), cameras.flat_cam_c2w(tgt_cam),
+    )
+    n_rays = rh * rw
+    if depth_range.ndim == 1:
+        dr = depth_range.expand(n_rays, 2)
+    else:
+        dr = depth_range.reshape(-1, 2)
+    params = (pack_mono4_weights(gnt, rays_o.device)
+              if rays_o.device.type == "cuda" else gnt)
+    flat = render_rays_tiled(params, rays_o, rays_d, dr, tgt_cam, src_cams,
+                             fused_maps, cfg)
+    out = {k: v.reshape((rh, rw) + v.shape[1:]) for k, v in flat.items()}
+    n_src = src_rgbs.shape[0]
+    out["oob_mask"] = (
+        out["inbound_cnt"] < (cfg.mask_oob_n_proj_thres / n_src)
+    ).float()
+    return out

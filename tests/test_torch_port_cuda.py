@@ -1,0 +1,99 @@
+"""K1's hand kernel against its plain version, on a CUDA card only.
+
+No JAX here, so the file runs on the GPU machine:
+
+    python -m pytest tests/test_torch_port_cuda.py -q -m cuda
+
+Without a card every test skips. Tolerances: rgb atol/rtol 0.02, weights
+0.01, count 0.01 (bf16 operands with f32 accumulation against the float32
+plain network); the tiny render is held to the slice's bounds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pgdvs_tpu_torch.core import cameras as cam
+from pgdvs_tpu_torch.kernels import gnt_fused as k1
+from pgdvs_tpu_torch.models.gnt.network import sinusoidal_embed
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _operands(v, r, s, behind=False, seed=13, hw=(20, 28)):
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    k = np.eye(4)
+    k[0, 0] = k[1, 1] = 25.0
+    k[0, 2], k[1, 2] = w / 2, h / 2
+    cams = []
+    for i in range(v):
+        c2w = np.eye(4)
+        c2w[:3, 3] = [0.2 * i - 0.3, 0.1 * i, -0.2 * i]
+        cams.append(cam.make_flat_cam(h, w, k, c2w))
+    cams = torch.stack(cams)
+    if behind:
+        pts = np.full((r, s, 3), -50.0, np.float32)
+    else:
+        pts = (rng.normal(0, 1.2, (r, s, 3)) + [0, 0, 2.5]).astype(np.float32)
+    ray_d = torch.from_numpy(rng.normal(size=(r, 3)).astype(np.float32))
+    return (
+        torch.from_numpy(rng.normal(size=(v, r, s, 35)).astype(np.float32)).to(torch.bfloat16),
+        torch.from_numpy(pts),
+        sinusoidal_embed(ray_d / ray_d.norm(dim=-1, keepdim=True)),
+        torch.cat([cam.flat_cam_c2w(cams[0])[None, :3, 3], cam.flat_cam_c2w(cams)[:, :3, 3]]),
+        cam.flat_cam_projection(cams),
+        hw,
+    )
+
+
+@pytest.mark.parametrize("v,r,s,behind", [(5, 16, 32, False), (5, 16, 23, False),
+                                          (5, 16, 32, True), (10, 64, 256, False)])
+def test_kernel_matches_plain(card, v, r, s, behind):
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    _fnet, gnt = init_gnt_models(seed=0, device=card)
+    ops = [o.to(card) if torch.is_tensor(o) else o for o in _operands(v, r, s, behind)]
+    before = k1.gnt_fused_mono4.launches
+    got = k1.gnt_fused_mono4(gnt, *ops)
+    torch.cuda.synchronize()
+    assert k1.gnt_fused_mono4.launches == before + 1
+    ref = k1.gnt_fused_mono4_plain(gnt, *ops)
+    torch.testing.assert_close(got["rgb"], ref["rgb"], atol=0.02, rtol=0.02)
+    torch.testing.assert_close(got["weights"], ref["weights"], atol=0.01, rtol=0)
+    torch.testing.assert_close(got["inbound_cnt_raw"], ref["inbound_cnt_raw"],
+                               atol=0.01, rtol=0)
+
+
+def test_render_on_card_matches_cpu(card):
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.renderers.compose import render_novel_view
+    from pgdvs_tpu_torch.renderers.config import RenderConfig, apply_perf_preset
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    data = make_contract_data(h=24, w=32, n_spatial=3, n_frames=6)
+    cfg = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=16, ray_tile=256))
+    noise = torch.from_numpy(np.random.default_rng(0).normal(size=(24, 32, 3)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", card):
+        tdata = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in data.items()
+                 if isinstance(v, np.ndarray)}
+        before = k1.gnt_fused_mono4.launches
+        outs[str(dev)] = render_novel_view(init_gnt_models(seed=0, device=dev), tdata,
+                                           cfg, noise=noise.to(dev))
+        launched = k1.gnt_fused_mono4.launches - before
+        # one launch per ray tile: 24 * 32 rays in tiles of 256
+        assert launched == (0 if dev == "cpu" else 3)
+    got, ref = outs["cuda"], outs["cpu"]
+    for key, tol in (("combined_rgb", 0.04), ("static_coarse_depth", 0.1),
+                     ("static_coarse_inbound_cnt", 0.02)):
+        torch.testing.assert_close(got[key].cpu(), ref[key], atol=tol, rtol=0)
