@@ -8,17 +8,25 @@ exits non-zero without printing a result:
 
   1. device: the card's name and power limit, TF32 switched off;
   2. build: the CUDA kernels compiled from ``pgdvs_tpu_torch/csrc`` with nvcc;
-  3. kernel vs plain: K1 (the fused GNT transformer) against its plain torch
-     version on the card at small shapes and at one main-path ray tile, with
-     both times at that tile;
-  4. main path: ``render_novel_view`` on the 288x550, 10-source, 256-sample
-     synthetic scene with random weights from a fixed seed; the kernel's
-     launch count, finite output of the right shape, a crop of rays held
-     against the plain path on the CPU, and seconds per view.
+  3. K1 vs plain: K1 (the fused GNT transformer, validity recomputed
+     in-kernel) against its plain torch version on the card at small shapes
+     and at one main-path ray tile, with both times at that tile;
+  3b. K2 vs plain: K2 (the same transformer with an explicit validity mask)
+     likewise, including tokens whose views are all invalid from geometry
+     and from the dynamic mask alone;
+  4. K1 path: ``render_novel_view`` with the unmasked slice config on the
+     288x550, 10-source, 256-sample synthetic scene with random weights from
+     a fixed seed; the kernels' launch counts, finite output of the right
+     shape, a crop of rays held against the plain path on the CPU, seconds
+     per view and peak device memory;
+  5. K2 path: the same for the paper's ``default`` bundle (masked view
+     attention + outlier removal of the dynamic cloud), plus the count of
+     dynamic points the outlier removal keeps.
 
-The second-to-last line is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``. Needs a CUDA device: without one
-it exits non-zero before doing anything. Imports nothing of JAX.
+The second-to-last line is a JSON object describing each kernel (its times,
+its launches on its path and its bound on the card); the last line is
+``{"ok": true, "device": {...}}``. Needs a CUDA device: without one it exits
+non-zero before doing anything. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,8 +42,41 @@ import time
 # holds its own bf16 kernels to: tests/test_gnt_fused.py)
 KERNEL_TOL = {"rgb": 0.02, "weights": 0.01, "inbound_cnt_raw": 0.01}
 # the slice's end-to-end bounds (tests/test_gnt_model.py)
-SLICE_TOL = {"rgb": 0.04, "depth": 0.1, "inbound_cnt": 0.02}
+SLICE_TOL = {"rgb": 0.04, "depth": 0.1, "inbound_cnt": 0.02, "dyn_cnt": 0.02}
 SEED = 0
+# NVIDIA H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3), at the
+# card's full 700 W power limit
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def gnt_cost(v, r, s, c, masked):
+    """(FLOP, bytes) of one GNT forward over R rays x S samples x V views
+    with C input channels, as the kernels compute it: the dense products
+    only (softmax, layer norms and embeddings are left out, so the bound is
+    a lower one), with the weight compositions the kernels use (wk@wv,
+    wk@wa0, wq@wa0, p1@wa0; exact by linearity); bytes read once (bf16
+    features, f32 points / view code / centres, the uint8 mask of K2) and
+    written once (f32 rgb, weights, count)."""
+    n, nw, depth = r * s, 64, 8
+    mac = n * v * (c * nw + nw * nw)                      # rgbfeat_fc_0/1
+    mac += depth * n * v * (nw * (nw + 8) + 8 * (nw + 8) + 4 * 8 + 8 * nw)
+    mac += depth * n * (nw * 8 + nw * nw + 2 * nw * 4 * nw)  # q side, out, ff
+    mac += depth // 2 * n * ((nw + 126) * nw + nw * nw)   # q_fc on even blocks
+    mac += depth * n * (nw * 3 * nw + nw * nw + 2 * nw * 4 * nw)  # qkv, out, ff
+    mac += depth * r * 2 * s * s * nw                     # QK^T and PV, 4 heads
+    mac += r * nw * 3                                     # rgb_fc
+    nbytes = v * n * c * 2 + n * 3 * 4 + r * 63 * 4 + (v + 1) * 3 * 4
+    nbytes += v * n if masked else v * 12 * 4             # mask, or K @ w2c
+    nbytes += r * 3 * 4 + n * 4 + r * 4
+    return 2 * mac, nbytes
+
+
+def bound_ms(flops, nbytes):
+    """The least time the card could take: the larger of the compute and
+    the memory time at the data-sheet peaks; and which of the two it is."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def log(msg: str) -> None:
@@ -124,6 +165,24 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _check_against_plain(name, kw, got, ref, worst):
+    import torch
+
+    errs = {}
+    for key, tol in KERNEL_TOL.items():
+        a, b = got[key], ref[key]
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{name}/{key}: shape {tuple(a.shape)} "
+                                 f"vs {tuple(b.shape)} or non-finite")
+        err = (a - b).abs()
+        bound = tol + (0.02 * b.abs() if key == "rgb" else 0.0)
+        errs[key] = float(err.max())
+        worst[key] = max(worst[key], errs[key])
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{name}/{key}: max err {errs[key]} over tol {tol}")
+    log(f"[kernel] {name} {kw}: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+
+
 def phase_kernel_vs_plain(gnt):
     import torch
 
@@ -147,32 +206,85 @@ def phase_kernel_vs_plain(gnt):
         got = gnt_fused_mono4(packed, *args)
         torch.cuda.synchronize()
         ref = gnt_fused_mono4_plain(gnt, *args)
-        errs = {}
-        for key, tol in KERNEL_TOL.items():
-            a, b = got[key], ref[key]
-            if a.shape != b.shape or not torch.isfinite(a).all():
-                raise AssertionError(f"{name}/{key}: shape {tuple(a.shape)} "
-                                     f"vs {tuple(b.shape)} or non-finite")
-            err = (a - b).abs()
-            bound = tol + (0.02 * b.abs() if key == "rgb" else 0.0)
-            errs[key] = float(err.max())
-            worst[key] = max(worst[key], errs[key])
-            if not bool((err <= bound).all()):
-                raise AssertionError(f"{name}/{key}: max err {errs[key]} over tol {tol}")
-        log(f"[kernel] {name} {kw}: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+        _check_against_plain(name, kw, got, ref, worst)
         if name == "main_tile":
-            times["ms"] = _time_ms(lambda: gnt_fused_mono4(packed, *args), 5)
-            times["plain_ms"] = _time_ms(
-                lambda: gnt_fused_mono4_plain(gnt, *args), 3)
-            log(f"[kernel] main tile R=2048 S=256 V=10: kernel {times['ms']:.3f} ms, "
-                f"plain {times['plain_ms']:.3f} ms")
+            _time_main_tile("K1", times, ops["rgb_feat"].shape, False,
+                            lambda: gnt_fused_mono4(packed, *args),
+                            lambda: gnt_fused_mono4_plain(gnt, *args))
     return worst, times
 
 
-def slice_config(n_samples=256):
+def _time_main_tile(label, times, shape, masked, kernel, plain):
+    v, r, s, c = shape
+    times["ms"] = _time_ms(kernel, 5)
+    times["plain_ms"] = _time_ms(plain, 3)
+    times["bound_ms"], times["bound_by"] = bound_ms(*gnt_cost(v, r, s, c, masked))
+    log(f"[kernel] {label} main tile R={r} S={s} V={v}: kernel {times['ms']:.3f} ms, "
+        f"plain {times['plain_ms']:.3f} ms, bound {times['bound_ms']:.4f} ms "
+        f"({times['bound_by']}; {times['bound_ms'] / times['ms']:.2%} of it)")
+
+
+def _k2_mask(ops, hw, dyn_frac, seed=3):
+    """K2's mask [V, R, S]: in bounds & in front (K1's projection test) and
+    not dynamic, with a fraction of the taps dynamic."""
+    import torch
+
+    from pgdvs_tpu_torch.core.cameras import pixel_inbound, project_with
+
+    pts, proj = ops["pts"], ops["proj"]
+    uv, _z, front = project_with(proj[:, None, None], pts[None])
+    inbound = pixel_inbound(uv, float(hw[0]), float(hw[1])) & front
+    gen = torch.Generator(device=pts.device).manual_seed(seed)
+    dyn = torch.rand(inbound.shape, generator=gen, device=pts.device) < dyn_frac
+    return inbound & ~dyn
+
+
+def phase_k2_vs_plain(gnt):
+    import torch
+
+    from pgdvs_tpu_torch.kernels.gnt_fused import pack_mono4_weights
+    from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import (
+        gnt_fused_mono3, gnt_fused_mono3_plain,
+    )
+
+    packed = pack_mono4_weights(gnt, "cuda")
+    worst = {k: 0.0 for k in KERNEL_TOL}
+    cases = [
+        ("small", dict(v=5, r=64, s=32), 0.3),
+        ("odd_s", dict(v=5, r=64, s=23), 0.3),
+        ("all_invalid_geometry", dict(v=5, r=16, s=32, behind=True), 0.3),
+        ("all_invalid_dyn_mask", dict(v=5, r=16, s=32), 1.0),
+        ("main_tile", dict(v=10, r=2048, s=256, hw=(288, 550)), 0.2),
+    ]
+    times = {}
+    for name, kw, dyn_frac in cases:
+        ops, hw = _rig(**kw)
+        mask = _k2_mask(ops, hw, dyn_frac)
+        if name.startswith("all_invalid") and bool(mask.any()):
+            raise AssertionError(f"{name}: the rig left valid views")
+        if not name.startswith("all_invalid") and not bool(mask.any()):
+            raise AssertionError(f"{name}: the rig left no valid view")
+        args = (ops["rgb_feat"], mask, ops["pts"], ops["view_code"], ops["centers"])
+        got = gnt_fused_mono3(packed, *args)
+        torch.cuda.synchronize()
+        ref = gnt_fused_mono3_plain(gnt, *args)
+        _check_against_plain(name, dict(kw, dyn_frac=dyn_frac), got, ref, worst)
+        if name == "main_tile":
+            _time_main_tile("K2", times, ops["rgb_feat"].shape, True,
+                            lambda: gnt_fused_mono3(packed, *args),
+                            lambda: gnt_fused_mono3_plain(gnt, *args))
+    return worst, times
+
+
+def slice_config(bundle=None, n_samples=256):
+    """The unmasked slice config (bundle None) or a named bundle, on the
+    port's preset, with ``n_samples`` coarse samples."""
+    from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
     from pgdvs_tpu_torch.renderers.config import RenderConfig, apply_perf_preset
 
-    return apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=n_samples))
+    cfg = (apply_perf_preset(RenderConfig()) if bundle is None
+           else resolve_benchmark(bundle)[0])
+    return cfg.replace(n_coarse_samples_per_ray=n_samples)
 
 
 def crop_on_cpu(models, data, cfg, rows, cols):
@@ -187,11 +299,13 @@ def crop_on_cpu(models, data, cfg, rows, cols):
     from pgdvs_tpu_torch.renderers.static_gnt import render_rays_gnt
 
     fnet, gnt = models
-    src = data["static_rgb_src_spatial"]
+    src = (data["static_rgb_src_spatial"] if cfg.gnt_use_masked_spatial_src
+           else data["rgb_src_spatial"])
+    masks = data["dyn_mask_src_spatial"] if cfg.gnt_use_dyn_mask else None
     h, w = src.shape[1:3]
     tgt = data["flat_cam_tgt"]
     with torch.no_grad():
-        maps = build_fused_maps(src, fnet(src))
+        maps = build_fused_maps(src, fnet(src), masks)
         rays_o, rays_d, _uv, _ = cameras.get_rays(
             h, w, cameras.flat_cam_intrinsics(tgt), cameras.flat_cam_c2w(tgt))
         idx = (torch.arange(*rows)[:, None] * w + torch.arange(*cols)[None]).reshape(-1)
@@ -204,18 +318,43 @@ def crop_on_cpu(models, data, cfg, rows, cols):
     return {k: out[k].reshape(shape + out[k].shape[1:]) for k in SLICE_TOL}
 
 
-def phase_main_path(models, device="cuda", h=288, w=550, n_spatial=10,
-                    n_frames=12, n_samples=256, rows=(140, 144), cols=(200, 264),
-                    n_timed=2):
-    """Drive render_novel_view once (counted), check it, then time it."""
+def dyn_points_kept(data, cfg):
+    """(kept, candidates): dynamic points of the render's cloud with and
+    without the configured outlier removal."""
+    from pgdvs_tpu_torch.renderers.dynamic import compute_dyn_pointcloud
+
+    kw = dict(
+        rgb_1=data["rgb_src_temporal"][0], dyn_mask_1=data["dyn_mask_src_temporal"][0],
+        depth_1=data["depth_src_temporal"][0], flow_12=data["flow_fwd"],
+        flow_12_occ_mask=data["flow_fwd_occ_mask"], rgb_2=data["rgb_src_temporal"][1],
+        depth_2=data["depth_src_temporal"][1], cam_1=data["flat_cam_src_temporal"][0],
+        cam_2=data["flat_cam_src_temporal"][1], cam_tgt=data["flat_cam_tgt"],
+        time_1=data["time_src_temporal"][0], time_2=data["time_src_temporal"][1],
+        time_tgt=data["time_tgt"][0])
+    kept = int(compute_dyn_pointcloud(cfg=cfg, **kw)["valid"].sum())
+    cand = int(compute_dyn_pointcloud(
+        cfg=cfg.replace(dyn_pcl_remove_outlier=False), **kw)["valid"].sum())
+    return kept, cand
+
+
+def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
+                    n_spatial=10, n_frames=12, n_samples=256, rows=(140, 144),
+                    cols=(200, 264), n_timed=2):
+    """Drive render_novel_view once for the unmasked slice config (bundle
+    None, K1's path) or a named bundle (``default``: K2's path), with the
+    kernels' launch counts set to 0 just before and read just after; check
+    it, then time it. Returns ({kernel name: launches}, seconds per view)."""
     import numpy as np
     import torch
 
     from pgdvs_tpu_torch.data.synthetic import make_contract_data
     from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4
+    from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_mono3
     from pgdvs_tpu_torch.renderers.compose import render_novel_view
 
-    cfg = slice_config(n_samples)
+    cfg = slice_config(bundle, n_samples)
+    tag = f"[{bundle or 'main'}]"
+    want = "gnt_fused_mono3" if cfg.gnt_use_dyn_mask else "gnt_fused_mono4"
     data_np = make_contract_data(h=h, w=w, n_spatial=n_spatial,
                                  n_frames=n_frames, tgt_time=0.5)
     data = {k: torch.as_tensor(v).to(device) for k, v in data_np.items()
@@ -231,36 +370,59 @@ def phase_main_path(models, device="cuda", h=288, w=550, n_spatial=10,
         sync()
         return out
 
-    gnt_fused_mono4.launches = 0
+    kernels = {"gnt_fused_mono4": gnt_fused_mono4, "gnt_fused_mono3": gnt_fused_mono3}
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     out = render()
     first = time.perf_counter() - t0
-    launches = gnt_fused_mono4.launches
-    if device == "cuda" and launches <= 0:
-        raise AssertionError("the main path launched K1 no time")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    if device == "cuda":
+        if launches[want] <= 0:
+            raise AssertionError(f"{tag} the path launched {want} no time")
+        if any(n for name, n in launches.items() if name != want):
+            raise AssertionError(f"{tag} the path launched another kernel: {launches}")
     rgb = out["combined_rgb"]
     if tuple(rgb.shape) != (h, w, 3) or not bool(torch.isfinite(rgb).all()):
         raise AssertionError(f"combined_rgb {tuple(rgb.shape)} not finite/[{h},{w},3]")
-    log(f"[main] {h}x{w}, {n_spatial} sources, {n_samples} samples: first render "
-        f"{first:.3f} s (warm-up), K1 launches {launches}")
+    log(f"{tag} {h}x{w}, {n_spatial} sources, {n_samples} samples: first render "
+        f"{first:.3f} s (warm-up), launches {launches}")
 
     crop = crop_on_cpu(models, data, cfg, rows, cols)
     errs = {}
     for key, tol in SLICE_TOL.items():
+        if key == "dyn_cnt" and not cfg.gnt_use_dyn_mask:
+            continue
         a = out[f"static_coarse_{key}"][rows[0]:rows[1], cols[0]:cols[1]].float().cpu()
         errs[key] = float((a - crop[key]).abs().max())
         if not errs[key] <= tol:
-            raise AssertionError(f"crop {key}: max err {errs[key]} over {tol}")
-    log(f"[main] crop rows {rows} cols {cols} vs plain path on CPU: "
+            raise AssertionError(f"{tag} crop {key}: max err {errs[key]} over {tol}")
+    log(f"{tag} crop rows {rows} cols {cols} vs plain path on CPU: "
         + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    if cfg.gnt_use_dyn_mask:
+        dyn = out["static_coarse_dyn_cnt"][rows[0]:rows[1], cols[0]:cols[1]]
+        if not bool((dyn > 0).any()):
+            raise AssertionError(f"{tag} the crop saw no dynamic view")
+        log(f"{tag} crop rays with a dynamic view: {int((dyn > 0).sum())} of {dyn.numel()}; "
+            f"image rays: {int((out['static_coarse_dyn_cnt'] > 0).sum())} of {h * w}")
+    if cfg.dyn_pcl_remove_outlier:
+        kept, cand = dyn_points_kept(data, cfg)
+        if not 0 < kept < cand:
+            raise AssertionError(f"{tag} outlier removal kept {kept} of {cand}")
+        log(f"{tag} dynamic points kept by outlier removal: {kept} of {cand}")
 
     secs = []
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     for _ in range(n_timed):
         t0 = time.perf_counter()
         render()
         secs.append(time.perf_counter() - t0)
-    log(f"[main] s/view over {n_timed} timed runs: mean {statistics.mean(secs):.4f} "
+    log(f"{tag} s/view over {n_timed} timed runs: mean {statistics.mean(secs):.4f} "
         f"min {min(secs):.4f} max {max(secs):.4f} runs {secs}")
+    if device == "cuda":
+        log(f"{tag} peak device memory of a render: "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     return launches, secs
 
 
@@ -280,20 +442,33 @@ def main() -> int:
     name, _smi = phase_device()
     phase_build()
     models = init_gnt_models(seed=SEED, device="cuda")
-    worst, times = phase_kernel_vs_plain(models[1])
-    launches, _secs = phase_main_path(models)
+    k1_worst, k1_times = phase_kernel_vs_plain(models[1])
+    k2_worst, k2_times = phase_k2_vs_plain(models[1])
+    k1_launches, _ = phase_main_path(models)
+    k2_launches, _ = phase_main_path(models, bundle="default", cols=(160, 224))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    log(json.dumps({"kernels": [{
-        "name": "gnt_fused_mono4",
-        "route": "cuda",
-        "source": "pgdvs_tpu_torch/csrc/gnt_fused.cu",
-        "replaces": "pgdvs_tpu/kernels/gnt_fused_mono4.py:736",
-        "launches": launches,
-        "max_abs_err": max(worst.values()),
-        "ms": times["ms"],
-        "plain_ms": times["plain_ms"],
-    }]}))
+    rows = []
+    for kname, replaces, worst, times, launches in (
+            ("gnt_fused_mono4", "pgdvs_tpu/kernels/gnt_fused_mono4.py:736",
+             k1_worst, k1_times, k1_launches),
+            ("gnt_fused_mono3", "pgdvs_tpu/kernels/gnt_fused_mono3.py:444",
+             k2_worst, k2_times, k2_launches)):
+        rows.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "pgdvs_tpu_torch/csrc/gnt_fused.cu",
+            "replaces": replaces,
+            "launches": launches[kname],
+            "max_abs_err": max(worst.values()),
+            "ms": times["ms"],
+            "plain_ms": times["plain_ms"],
+            "bound_ms": times["bound_ms"],
+            "bound_by": times["bound_by"],
+            # no single PyTorch call computes the GNT forward
+            "library_ms": None,
+        })
+    log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

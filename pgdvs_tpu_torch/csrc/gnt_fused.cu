@@ -1,9 +1,20 @@
 // Fused GNT transformer forward (depth 8, width 64) for Hopper (sm_90a).
 //
-// Replaces the TPU kernel pgdvs_tpu/kernels/gnt_fused_mono4.py:
-// gnt_fused_apply_mono4 on its rgb_feat contract. The Python wrapper is
-// pgdvs_tpu_torch/kernels/gnt_fused.py, which also holds the plain torch
-// version this kernel is checked against.
+// Two entry points share the kernels below; they differ only in where the
+// per-(view, token) validity comes from (the MASKED template parameter):
+//
+//   gnt_mono4_forward  replaces pgdvs_tpu/kernels/gnt_fused_mono4.py:
+//                      gnt_fused_apply_mono4 on its rgb_feat contract;
+//                      validity recomputed from pts and the K @ w2c rows.
+//                      Wrapper: pgdvs_tpu_torch/kernels/gnt_fused.py.
+//   gnt_mono3_forward  replaces pgdvs_tpu/kernels/gnt_fused_mono3.py:
+//                      gnt_fused_apply_mono3 (separate_mask, fold_ray_diff,
+//                      fold_pos_code, views outer); validity read from an
+//                      explicit uint8 mask [V, R, S] (in bounds, in front and
+//                      not dynamic). Wrapper: kernels/gnt_fused_mono3.py.
+//
+// Each wrapper module also holds the plain torch version its kernel is
+// checked against.
 //
 // Work: about 1e4 FLOP per (view, ray, sample) token per block (the 64x64
 // value projection dominates), plus 4-head attention over the samples of
@@ -12,8 +23,9 @@
 //   k_prologue   rgbfeat_fc_0/1 per view token -> h [V, N, 64] bf16 and the
 //                max-pool over views -> q [N, 64] f32 (N = R * S tokens).
 //   k_view       one view transformer (+ q_fc on even blocks) for 64
-//                tokens: validity and ray-diff recomputed from pts and the
-//                cameras, views streamed one at a time through an online
+//                tokens: validity (recomputed, or read from the mask) and
+//                the ray-diff code from pts and the camera centres, views
+//                streamed one at a time through an online
 //                per-channel softmax, so a token's [V, 64] set never has to
 //                sit in shared memory at once.
 //   k_ray        one ray transformer for one ray (all S samples in shared
@@ -249,6 +261,16 @@ k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int Cp, HeadW w,
   }
 }
 
+// Validity of view v at token n: the explicit mask (MASKED) or the
+// projection test of the token's point.
+template <bool MASKED>
+__device__ __forceinline__ bool view_valid(const uint8_t* mask, const float* proj,
+                                           int v, size_t N, size_t n, float px,
+                                           float py, float pz, float hf, float wf) {
+  if (MASKED) return mask[(size_t)v * N + n] != 0;
+  return point_valid(proj + v * 12, px, py, pz, hf, wf);
+}
+
 // ---------------------------------------------------------------------------
 // k_view: one view transformer block (+ q_fc_0/1 when has_qfc)
 // ---------------------------------------------------------------------------
@@ -256,11 +278,13 @@ k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int Cp, HeadW w,
 #define VIEW_LDC 84
 #define VIEW_LDH 264
 
+template <bool MASKED>
 __global__ void __launch_bounds__(NTHREADS)
 k_view(const bf16* __restrict__ h, float* __restrict__ q,
        const float* __restrict__ pts, const float* __restrict__ vcode,
        const float* __restrict__ centers, const float* __restrict__ proj,
-       int V, int N, int S, float hf, float wf, ViewW w, int has_qfc) {
+       const uint8_t* __restrict__ mask, int V, int N, int S, float hf,
+       float wf, ViewW w, int has_qfc) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* A = (bf16*)smem;                                  // [TT x 88]
   float* Cs = (float*)(A + TT * VIEW_LDA);                // [TT x 84]
@@ -291,7 +315,7 @@ k_view(const bf16* __restrict__ h, float* __restrict__ q,
     unsigned m = 0;
     int cnt = 0;
     for (int v = 0; v < V; ++v) {
-      if (point_valid(proj + v * 12, px, py, pz, hf, wf)) {
+      if (view_valid<MASKED>(mask, proj, v, N, n, px, py, pz, hf, wf)) {
         m |= 1u << v;
         ++cnt;
       }
@@ -485,10 +509,12 @@ __host__ __device__ inline RayLayout ray_layout(int sp) {
   return L;
 }
 
+template <bool MASKED>
 __global__ void __launch_bounds__(NTHREADS)
 k_ray(float* __restrict__ q, const float* __restrict__ pts,
-      const float* __restrict__ proj, int V, int S, int Sp, float hf, float wf,
-      RayW w, int last, FinalW fw, float* __restrict__ rgb_out,
+      const float* __restrict__ proj, const uint8_t* __restrict__ mask, int V,
+      int S, int Sp, float hf, float wf, RayW w, int last, FinalW fw,
+      float* __restrict__ rgb_out,
       float* __restrict__ w_out, float* __restrict__ cnt_out) {
   extern __shared__ __align__(128) unsigned char smem[];
   const RayLayout L = ray_layout(Sp);
@@ -605,10 +631,13 @@ k_ray(float* __restrict__ q, const float* __restrict__ pts,
   atomicAdd(&pool[2 * lane], pa);
   atomicAdd(&pool[2 * lane + 1], pb);
   float cnt = 0.f;
+  const size_t N = (size_t)gridDim.x * S;
   for (int k = tid; k < S; k += NTHREADS) {
-    const float* p = pts + ((size_t)r * S + k) * 3;
+    const size_t n = (size_t)r * S + k;
+    const float* p = pts + n * 3;
     int nv = 0;
-    for (int v = 0; v < V; ++v) nv += point_valid(proj + v * 12, p[0], p[1], p[2], hf, wf);
+    for (int v = 0; v < V; ++v)
+      nv += view_valid<MASKED>(mask, proj, v, N, n, p[0], p[1], p[2], hf, wf);
     cnt += wacc[k] * (float)nv;
   }
   for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
@@ -635,25 +664,16 @@ static inline size_t view_smem() {
          (size_t)PH * NW * 4;
 }
 
-extern "C" {
-
-// Shared memory one ray block needs for Sp (padded) samples; the wrapper
-// checks it against the device limit before launching.
-size_t gnt_mono4_ray_smem(int sp) { return ray_layout(sp).total; }
-
-int gnt_mono4_max_views() { return MAX_VIEWS; }
-
-int gnt_mono4_n_ptrs() { return N_PTRS; }
-
-// Runs the whole forward on `stream`. wptrs: N_PTRS device pointers in the
-// order of pack_mono4_weights (pgdvs_tpu_torch/kernels/gnt_fused.py).
-// Returns a cudaError_t (0 = launched).
-int gnt_mono4_forward(const void* rf, const void* pts, const void* vcode,
-                      const void* centers, const void* proj, int V, int R,
-                      int S, int C, int Cp, float hf, float wf,
-                      const uint64_t* wptrs, int n_ptrs, void* h_scratch,
-                      void* q_scratch, void* rgb_out, void* w_out,
-                      void* cnt_out, void* stream_ptr) {
+// The whole forward on `stream`: the prologue, then 8 x (view block, ray
+// block). wptrs: N_PTRS device pointers in the order of pack_mono4_weights
+// (pgdvs_tpu_torch/kernels/gnt_fused.py). Returns a cudaError_t.
+template <bool MASKED>
+static int run_forward(const void* rf, const void* mask, const void* pts,
+                       const void* vcode, const void* centers, const void* proj,
+                       int V, int R, int S, int C, int Cp, float hf, float wf,
+                       const uint64_t* wptrs, int n_ptrs, void* h_scratch,
+                       void* q_scratch, void* rgb_out, void* w_out,
+                       void* cnt_out, void* stream_ptr) {
   if (n_ptrs != N_PTRS || V > MAX_VIEWS || V < 1 || S < 1 || R < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -686,26 +706,62 @@ int gnt_mono4_forward(const void* rf, const void* pts, const void* vcode,
   const size_t sm_pro = prologue_smem(Cp), sm_view = view_smem();
   const size_t sm_ray = ray_layout(Sp).total;
   if ((err = cudaFuncSetAttribute(k_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
-  if ((err = cudaFuncSetAttribute(k_view, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_view))) return (int)err;
-  if ((err = cudaFuncSetAttribute(k_ray, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_ray))) return (int)err;
+  if ((err = cudaFuncSetAttribute(k_view<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_view))) return (int)err;
+  if ((err = cudaFuncSetAttribute(k_ray<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_ray))) return (int)err;
 
   const int nblk = (N + TT - 1) / TT;
   k_prologue<<<nblk, NTHREADS, sm_pro, stream>>>(
       (const bf16*)rf, V, N, C, Cp, hw, (bf16*)h_scratch, (float*)q_scratch);
   if ((err = cudaGetLastError())) return (int)err;
   for (int b = 0; b < DEPTH; ++b) {
-    k_view<<<nblk, NTHREADS, sm_view, stream>>>(
+    k_view<MASKED><<<nblk, NTHREADS, sm_view, stream>>>(
         (const bf16*)h_scratch, (float*)q_scratch, (const float*)pts,
-        (const float*)vcode, (const float*)centers, (const float*)proj, V, N, S,
-        hf, wf, vw[b], b % 2 == 0);
+        (const float*)vcode, (const float*)centers, (const float*)proj,
+        (const uint8_t*)mask, V, N, S, hf, wf, vw[b], b % 2 == 0);
     if ((err = cudaGetLastError())) return (int)err;
-    k_ray<<<R, NTHREADS, sm_ray, stream>>>(
-        (float*)q_scratch, (const float*)pts, (const float*)proj, V, S, Sp, hf,
-        wf, rw[b], b == DEPTH - 1, fw, (float*)rgb_out, (float*)w_out,
-        (float*)cnt_out);
+    k_ray<MASKED><<<R, NTHREADS, sm_ray, stream>>>(
+        (float*)q_scratch, (const float*)pts, (const float*)proj,
+        (const uint8_t*)mask, V, S, Sp, hf, wf, rw[b], b == DEPTH - 1, fw,
+        (float*)rgb_out, (float*)w_out, (float*)cnt_out);
     if ((err = cudaGetLastError())) return (int)err;
   }
   return 0;
+}
+
+extern "C" {
+
+// Shared memory one ray block needs for Sp (padded) samples; the wrappers
+// check it against the device limit before launching.
+size_t gnt_mono4_ray_smem(int sp) { return ray_layout(sp).total; }
+
+int gnt_mono4_max_views() { return MAX_VIEWS; }
+
+int gnt_mono4_n_ptrs() { return N_PTRS; }
+
+// K1: validity recomputed from pts and proj ([V, 3, 4] K @ w2c rows) against
+// the (hf, wf) map size.
+int gnt_mono4_forward(const void* rf, const void* pts, const void* vcode,
+                      const void* centers, const void* proj, int V, int R,
+                      int S, int C, int Cp, float hf, float wf,
+                      const uint64_t* wptrs, int n_ptrs, void* h_scratch,
+                      void* q_scratch, void* rgb_out, void* w_out,
+                      void* cnt_out, void* stream_ptr) {
+  return run_forward<false>(rf, nullptr, pts, vcode, centers, proj, V, R, S,
+                            C, Cp, hf, wf, wptrs, n_ptrs, h_scratch, q_scratch,
+                            rgb_out, w_out, cnt_out, stream_ptr);
+}
+
+// K2: validity read from mask (uint8 [V, R, S], nonzero = valid);
+// cnt_out = sum_s w_s * (mask views at s) / V.
+int gnt_mono3_forward(const void* rf, const void* mask, const void* pts,
+                      const void* vcode, const void* centers, int V, int R,
+                      int S, int C, int Cp, const uint64_t* wptrs, int n_ptrs,
+                      void* h_scratch, void* q_scratch, void* rgb_out,
+                      void* w_out, void* cnt_out, void* stream_ptr) {
+  if (mask == nullptr) return (int)cudaErrorInvalidValue;
+  return run_forward<true>(rf, mask, pts, vcode, centers, nullptr, V, R, S, C,
+                           Cp, 0.f, 0.f, wptrs, n_ptrs, h_scratch, q_scratch,
+                           rgb_out, w_out, cnt_out, stream_ptr);
 }
 
 }  // extern "C"

@@ -39,6 +39,10 @@ SIGNATURES = {
         + [c_void_p] * 6,
         c_int,
     ),
+    "gnt_mono3_forward": (
+        [c_void_p] * 5 + [c_int] * 5 + [c_void_p, c_int] + [c_void_p] * 6,
+        c_int,
+    ),
     "gnt_mono4_ray_smem": ([c_int], c_size_t),
     "gnt_mono4_max_views": ([], c_int),
     "gnt_mono4_n_ptrs": ([], c_int),
@@ -73,10 +77,11 @@ def load_library() -> "KernelLibrary":
     t0 = time.perf_counter()
     built = not so.exists()
     if built:
+        nvcc = _nvcc()
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:

@@ -154,20 +154,22 @@ def gnt_fused_mono4_plain(gnt: GNT, rgb_feat, pts, view_code, centers, proj,
     return {"rgb": out["rgb"], "weights": out["weights"], "inbound_cnt_raw": cnt}
 
 
-def gnt_fused_mono4(params, rgb_feat, pts, view_code, centers, proj,
-                    hw: Tuple[float, float]):
-    """K1 on the card for CUDA tensors; the plain version for CPU tensors.
+def prepare_launch(params, rgb_feat, pts, view_code, centers):
+    """Checks, packing and allocation shared by the K1 and K2 wrappers.
 
-    params: the ``GNT`` module, or ``Mono4Weights`` packed for the device.
+    Validates the operands common to both (rgb_feat [V, R, S, C] bf16,
+    pts [R, S, 3], view_code [R, 63], centers [V+1, 3], all on one CUDA
+    device), builds or loads the kernel library, checks the view and
+    shared-memory limits, packs the weights for the device and allocates
+    the outputs and scratch. Returns ``(lib, head, dims, tail, outs, keep)``:
+    the C entry's leading pointers (rgb_feat, pts, view_code, centers), its
+    shape ints (V, R, S, C, Cp), its trailing arguments (weight pointers,
+    their count, scratch, outputs, stream), the output dict, and the
+    tensors that must stay referenced until the launch call returns.
     """
     packed = params if isinstance(params, Mono4Weights) else None
     gnt = packed.gnt if packed is not None else params
     dev = rgb_feat.device
-    if dev.type == "cpu":
-        return gnt_fused_mono4_plain(gnt, rgb_feat, pts, view_code, centers,
-                                     proj, hw)
-    if dev.type != "cuda":
-        raise ValueError(f"gnt_fused_mono4: unsupported device {dev}")
     from pgdvs_tpu_torch.kernels._build import load_library
 
     v, r, s, c = rgb_feat.shape
@@ -177,9 +179,9 @@ def gnt_fused_mono4(params, rgb_feat, pts, view_code, centers, proj,
         raise ValueError(f"rgb_feat has {c} channels, GNT expects {3 + gnt.in_feat_ch}")
     if pts.shape != (r, s, 3) or view_code.shape != (r, POSENC):
         raise ValueError("pts must be [R, S, 3] and view_code [R, 63]")
-    if centers.shape != (v + 1, 3) or proj.shape[0] != v or proj.shape[-1] != 4:
-        raise ValueError("centers must be [V+1, 3] and proj [V, 3|4, 4]")
-    for t in (pts, view_code, centers, proj):
+    if centers.shape != (v + 1, 3):
+        raise ValueError("centers must be [V+1, 3]")
+    for t in (pts, view_code, centers):
         if t.device != dev:
             raise ValueError("all operands must be on the same device")
     lib = load_library().lib
@@ -201,28 +203,52 @@ def gnt_fused_mono4(params, rgb_feat, pts, view_code, centers, proj,
     pts32 = pts.float().contiguous()
     vc = view_code.float().contiguous()
     ctr = centers.float().contiguous()
-    pj = proj[:, :3, :].float().contiguous()
     n = r * s
     h_scr = torch.empty((v, n, NW), dtype=torch.bfloat16, device=dev)
     q_scr = torch.empty((n, NW), dtype=torch.float32, device=dev)
-    rgb = torch.empty((r, 3), dtype=torch.float32, device=dev)
-    weights = torch.empty((r, s), dtype=torch.float32, device=dev)
-    cnt = torch.empty((r,), dtype=torch.float32, device=dev)
+    outs = {
+        "rgb": torch.empty((r, 3), dtype=torch.float32, device=dev),
+        "weights": torch.empty((r, s), dtype=torch.float32, device=dev),
+        "inbound_cnt_raw": torch.empty((r,), dtype=torch.float32, device=dev),
+    }
     ptrs = (ctypes.c_uint64 * n_ptrs)(
         *[0 if t is None else t.data_ptr() for t in packed.tensors]
     )
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.gnt_mono4_forward(
-        rf.data_ptr(), pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr(),
-        pj.data_ptr(), v, r, s, c, packed.cp, float(hw[0]), float(hw[1]),
-        ctypes.cast(ptrs, ctypes.c_void_p), n_ptrs, h_scr.data_ptr(),
-        q_scr.data_ptr(), rgb.data_ptr(), weights.data_ptr(), cnt.data_ptr(),
-        stream,
-    )
+    head = [rf.data_ptr(), pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr()]
+    dims = [v, r, s, c, packed.cp]
+    tail = [ctypes.cast(ptrs, ctypes.c_void_p), n_ptrs, h_scr.data_ptr(),
+            q_scr.data_ptr(), outs["rgb"].data_ptr(), outs["weights"].data_ptr(),
+            outs["inbound_cnt_raw"].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream]
+    keep = (rf, pts32, vc, ctr, h_scr, q_scr, ptrs, packed)
+    return lib, head, dims, tail, outs, keep
+
+
+def gnt_fused_mono4(params, rgb_feat, pts, view_code, centers, proj,
+                    hw: Tuple[float, float]):
+    """K1 on the card for CUDA tensors; the plain version for CPU tensors.
+
+    params: the ``GNT`` module, or ``Mono4Weights`` packed for the device.
+    """
+    gnt = params.gnt if isinstance(params, Mono4Weights) else params
+    dev = rgb_feat.device
+    if dev.type == "cpu":
+        return gnt_fused_mono4_plain(gnt, rgb_feat, pts, view_code, centers,
+                                     proj, hw)
+    if dev.type != "cuda":
+        raise ValueError(f"gnt_fused_mono4: unsupported device {dev}")
+    v = rgb_feat.shape[0]
+    if proj.shape[0] != v or proj.shape[-1] != 4 or proj.device != dev:
+        raise ValueError("proj must be [V, 3|4, 4] on the operands' device")
+    lib, head, dims, tail, outs, _keep = prepare_launch(
+        params, rgb_feat, pts, view_code, centers)
+    pj = proj[:, :3, :].float().contiguous()
+    err = lib.gnt_mono4_forward(*head, pj.data_ptr(), *dims, float(hw[0]),
+                                float(hw[1]), *tail)
     if err != 0:
         raise RuntimeError(f"gnt_fused_mono4 launch failed: cudaError {err}")
     gnt_fused_mono4.launches += 1
-    return {"rgb": rgb, "weights": weights, "inbound_cnt_raw": cnt}
+    return outs
 
 
 gnt_fused_mono4.launches = 0

@@ -2,35 +2,59 @@
 
 Counterpart of ``pgdvs_tpu.models.gnt.projector`` for the quad sampler as
 the static renderer calls it (``epipolar_sample_fused(quad=True,
-views_outer=True, with_ray_diff=False, emit_mask=False)``): each sample
-point is projected into every source view and the fused full-resolution
-[V, H, W, 3+F] map (rgb + align-corners-upsampled features) is sampled with
-a zero-padded bilinear tap, stencil corner clamped to (W-2, H-2). The JAX
-package packs the 2x2 stencil into channels to cut TPU gather rows; here
-the four taps are gathered from the fused map directly — the same values.
-Validity and the ray-difference code are left to the GNT kernel.
+views_outer=True, with_ray_diff=False)``): each sample point is projected
+into every source view and the fused full-resolution [V, H, W, 3+F(+1)]
+map (rgb + align-corners-upsampled features + optionally the dynamic mask)
+is sampled with a zero-padded bilinear tap, stencil corner clamped to
+(W-2, H-2). The JAX package packs the 2x2 stencil into channels to cut TPU
+gather rows; here the four taps are gathered from the fused map directly —
+the same values. Without the dyn mask (``epipolar_sample_quad``) validity
+and the ray-difference code are left to the GNT kernel; with it
+(``epipolar_sample_quad_masked``) the sampler returns the validity masks
+the masked kernel reads.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pgdvs_tpu_torch.core.cameras import project_with
+from pgdvs_tpu_torch.core.cameras import pixel_inbound, project_with
 from pgdvs_tpu_torch.core.interpolate import resize_bilinear
 
 
 def build_fused_maps(src_rgbs: torch.Tensor, src_feats: torch.Tensor,
-                     dtype=torch.bfloat16) -> torch.Tensor:
-    """[V, H, W, 3] rgb + [V, Hf, Wf, F] features -> [V, H, W, 3+F] maps,
-    features upsampled to full resolution (bilinear, align_corners)."""
+                     src_invalid_masks=None, dtype=torch.bfloat16) -> torch.Tensor:
+    """[V, H, W, 3] rgb + [V, Hf, Wf, F] features (+ [V, H, W, 1] dynamic
+    masks, 1 = invalid) -> [V, H, W, 3+F(+1)] maps, features upsampled to
+    full resolution (bilinear, align_corners), the mask as the trailing
+    channel."""
     v, h, w, _ = src_rgbs.shape
     feats_up = torch.stack([resize_bilinear(f, h, w) for f in src_feats.float()])
-    return torch.cat([src_rgbs.float(), feats_up], dim=-1).to(dtype).contiguous()
+    parts = [src_rgbs.float(), feats_up]
+    if src_invalid_masks is not None:
+        parts.append(src_invalid_masks.float())
+    return torch.cat(parts, dim=-1).to(dtype).contiguous()
 
 
 def project_all_views(pts: torch.Tensor, proj: torch.Tensor):
     """[R, S, 3] points, [V, 4, 4] K @ w2c -> uv [V, R, S, 2], z, in_front."""
     return project_with(proj[:, None, None], pts[None])
+
+
+def _quad_taps(uv: torch.Tensor, v: int, h: int, w: int):
+    """Flat row indices of the stencil corner and the four zero-pad bilinear
+    tap weights [(0,0), (0,1), (1,0), (1,1)] at pixel coordinates uv."""
+    x, y = uv[..., 0], uv[..., 1]
+    sx = torch.clamp(torch.floor(x), 0, max(w - 2, 0))
+    sy = torch.clamp(torch.floor(y), 0, max(h - 2, 0))
+    wx0 = torch.clamp(1.0 - torch.abs(x - sx), min=0.0)
+    wx1 = torch.clamp(1.0 - torch.abs(x - (sx + 1.0)), min=0.0)
+    wy0 = torch.clamp(1.0 - torch.abs(y - sy), min=0.0)
+    wy1 = torch.clamp(1.0 - torch.abs(y - (sy + 1.0)), min=0.0)
+    offs = (torch.arange(v, device=uv.device) * (h * w)).view(v, 1, 1)
+    base = (sy.long() * w + sx.long() + offs).reshape(-1)
+    return base, ((0, wy0 * wx0), (1, wy0 * wx1), (w, wy1 * wx0),
+                  (w + 1, wy1 * wx1))
 
 
 def epipolar_sample_quad(pts: torch.Tensor, proj: torch.Tensor,
@@ -43,19 +67,54 @@ def epipolar_sample_quad(pts: torch.Tensor, proj: torch.Tensor,
     """
     v, h, w, c = fused_maps.shape
     uv, _z, _front = project_all_views(pts, proj)
-    x, y = uv[..., 0], uv[..., 1]
-    sx = torch.clamp(torch.floor(x), 0, max(w - 2, 0))
-    sy = torch.clamp(torch.floor(y), 0, max(h - 2, 0))
-    wx0 = torch.clamp(1.0 - torch.abs(x - sx), min=0.0)
-    wx1 = torch.clamp(1.0 - torch.abs(x - (sx + 1.0)), min=0.0)
-    wy0 = torch.clamp(1.0 - torch.abs(y - sy), min=0.0)
-    wy1 = torch.clamp(1.0 - torch.abs(y - (sy + 1.0)), min=0.0)
-    offs = (torch.arange(v, device=pts.device) * (h * w)).view(v, 1, 1)
-    base = (sy.long() * w + sx.long() + offs).reshape(-1)
+    base, taps = _quad_taps(uv, v, h, w)
     flat = fused_maps.reshape(v * h * w, c)
     out = None
-    for dd, wgt in ((0, wy0 * wx0), (1, wy0 * wx1), (w, wy1 * wx0),
-                    (w + 1, wy1 * wx1)):
+    for dd, wgt in taps:
         tap = flat[base + dd].float() * wgt.reshape(-1, 1)
         out = tap if out is None else out + tap
-    return out.reshape(x.shape + (c,)).to(fused_maps.dtype)
+    return out.reshape(uv.shape[:-1] + (c,)).to(fused_maps.dtype)
+
+
+def epipolar_sample_quad_masked(pts: torch.Tensor, proj: torch.Tensor,
+                                fused_maps: torch.Tensor):
+    """``epipolar_sample_quad`` on maps whose trailing channel is the
+    dynamic mask (``build_fused_maps(..., src_invalid_masks)``).
+
+    Args: pts [R, S, 3]; proj [V, 4, 4]; fused_maps [V, H, W, C+1].
+    Returns a dict, every entry views outer:
+      rgb_feat [V, R, S, C] in the maps' dtype;
+      mask_inbound [V, R, S] bool: in front and inside [0, W-1] x [0, H-1];
+      mask_invalid [V, R, S] bool: the lerped mask channel > 1e-3;
+      mask [V, R, S] bool: mask_inbound and not mask_invalid.
+
+    The mask channel is lerped with the JAX package's bf16 arithmetic on its
+    quad rows (``projector.quad_bilinear``: every product and partial sum
+    rounded to bf16, (top pair) + (bottom pair)), so a tap whose value lies
+    near the threshold falls on the same side.
+    """
+    v, h, w, c1 = fused_maps.shape
+    c = c1 - 1
+    uv, _z, in_front = project_all_views(pts, proj)
+    base, taps = _quad_taps(uv, v, h, w)
+    flat = fused_maps.reshape(v * h * w, c1)
+
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    feat, dyn = None, []
+    for dd, wgt in taps:
+        rows = flat[base + dd]
+        f = rows[:, :c].float() * wgt.reshape(-1, 1)
+        feat = f if feat is None else feat + f
+        dyn.append(bf(rows[:, c].float() * bf(wgt.reshape(-1))))
+    shape = uv.shape[:-1]
+    inbound = pixel_inbound(uv, float(h), float(w)) & in_front
+    lerped = bf(bf(dyn[0] + dyn[1]) + bf(dyn[2] + dyn[3]))
+    invalid = lerped.reshape(shape) > 1e-3
+    return {
+        "rgb_feat": feat.reshape(shape + (c,)).to(fused_maps.dtype),
+        "mask_inbound": inbound,
+        "mask_invalid": invalid,
+        "mask": inbound & ~invalid,
+    }

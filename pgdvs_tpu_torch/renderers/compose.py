@@ -1,9 +1,11 @@
 """Top-level novel-view renderer: static GNT + dynamic softsplat + composite.
 
 Counterpart of ``pgdvs_tpu.renderers.compose.render_novel_view`` on the
-ported slice, with the same output keys: the static background from GNT,
-the dynamic foreground from softmax splatting, composited as
-``(1 - dyn_mask) * static + dyn_mask * dyn``.
+ported slices, with the same output keys: the static background from GNT
+(masked view attention reads ``dyn_mask_src_spatial``), the dynamic
+foreground from softmax splatting, composited as
+``(1 - dyn_mask) * static + dyn_mask * dyn``; ``pure_gnt`` and
+``pure_gnt_with_dyn_mask`` return the static layer alone.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ def render_novel_view(models, data, cfg: RenderConfig,
                 else data["rgb_src_spatial"])
     st = render_image_gnt(models, data["flat_cam_tgt"],
                           data["flat_cam_src_spatial"], src_rgbs, (h, w),
-                          data["depth_range"], cfg)
+                          data["depth_range"], cfg,
+                          src_invalid_masks=data.get("dyn_mask_src_spatial"))
     ret = {f"static_coarse_{k}": v for k, v in st.items()}
     static_rgb = st["rgb"]
     if cfg.pure_gnt or cfg.pure_gnt_with_dyn_mask:

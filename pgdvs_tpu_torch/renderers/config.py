@@ -6,13 +6,17 @@ Carries the semantic fields of ``pgdvs_tpu.renderers.config.RenderConfig``
 ``use_pallas_gnt``, ``pallas_kernel``, ``pallas_ray_block``,
 ``pallas_precompute_kv``, ``pallas_ablate``, ``pallas_fold_*``,
 ``pallas_patch_block``, ``dyn_point_capacity``, ``track_queries_per_frame``,
-``knn_tile`` and ``compiler_options_for``. On CUDA the port always runs its
-hand kernel (K1), with every fold inside it.
+``knn_tile`` and ``compiler_options_for``. On CUDA the port always runs a
+hand kernel, with every fold inside it; which one follows from the
+semantic flags alone: K1 (``kernels/gnt_fused.py``) without the dyn mask,
+K2 (``kernels/gnt_fused_mono3.py``) with it.
 
-The port renders one slice of the configuration space so far: static GNT
-without the dyn mask, quad epipolar sampling, coarse samples only, softsplat
-dynamic layer, no outlier removal, no tracker. ``check_slice`` raises
-ValueError for anything outside it; nothing falls back silently.
+The port renders these slices of the configuration space so far: static
+GNT with or without masked view attention (``gnt_use_dyn_mask``,
+``pure_gnt_with_dyn_mask``), quad epipolar sampling, coarse samples only,
+softsplat dynamic layer with or without statistical outlier removal
+(``dyn_pcl_remove_outlier``), no tracker. ``check_slice`` raises ValueError
+for anything outside them; nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -73,12 +77,10 @@ def check_slice(cfg: RenderConfig, static_mode: str = "gnt") -> None:
     """Raise ValueError unless the port renders ``cfg``."""
     unsupported = {
         "static_mode != 'gnt'": static_mode != "gnt",
-        "gnt_use_dyn_mask": cfg.gnt_use_dyn_mask,
         "n_fine_samples_per_ray > 0": cfg.n_fine_samples_per_ray > 0,
         "epipolar_mode != 'quad'": cfg.epipolar_mode != "quad",
         "render_stride != 1": cfg.render_stride != 1,
         "dyn_render_type != 'softsplat'": cfg.dyn_render_type != "softsplat",
-        "dyn_pcl_remove_outlier": cfg.dyn_pcl_remove_outlier,
         "dyn_render_track_temporal != 'none'": cfg.dyn_render_track_temporal != "none",
     }
     bad = [name for name, hit in unsupported.items() if hit]

@@ -1,11 +1,12 @@
 """Dynamic-foreground rendering: depth + flow point cloud, softmax-splatted.
 
-Counterpart of ``pgdvs_tpu.renderers.dynamic`` on the ported slice (no KNN
-outlier removal, no tracker, softsplat only). Every pixel of temporal source
-1 is a candidate point: lifted by its depth, advected by flow into frame 2,
-lifted again there, interpolated linearly to the target time, projected into
-the target camera, and splatted with static-region colours replaced by
-clamped gaussian noise so they lose contested pixels.
+Counterpart of ``pgdvs_tpu.renderers.dynamic`` on the ported slices (no
+tracker, softsplat only). Every pixel of temporal source 1 is a candidate
+point: lifted by its depth, advected by flow into frame 2, lifted again
+there, interpolated linearly to the target time, optionally cleaned by
+statistical outlier removal (``dyn_pcl_remove_outlier``), projected into the
+target camera, and splatted with static-region colours replaced by clamped
+gaussian noise so they lose contested pixels.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from pgdvs_tpu_torch.core import cameras
 from pgdvs_tpu_torch.core.geometry import uv_depth_to_world
 from pgdvs_tpu_torch.core.interpolate import bilinear_sample, nearest_sample
+from pgdvs_tpu_torch.kernels.knn import statistical_outlier_mask
 from pgdvs_tpu_torch.kernels.softsplat import brightness_metric, softsplat
 from pgdvs_tpu_torch.renderers.config import RenderConfig
 
@@ -28,11 +30,12 @@ def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
     """The time-interpolated dynamic point cloud (dense, masked).
 
     Images [H, W, C]; cams flat-34; times scalars. Returns points [H*W, 3],
-    colors [H*W, 3], valid [H*W] bool, flow_to_tgt [H, W, 2],
+    colors [H*W, 3], valid [H*W] bool (dynamic, flow in bounds and, with
+    ``dyn_pcl_remove_outlier``, not an outlier), flow_to_tgt [H, W, 2],
     valid_mask_img [H, W, 1].
     """
-    if cfg.dyn_pcl_remove_outlier or cfg.dyn_render_track_temporal != "none":
-        raise ValueError("outlier removal and tracking are outside the ported slice")
+    if cfg.dyn_render_track_temporal != "none":
+        raise ValueError("tracking is outside the ported slices")
     h, w, _ = rgb_1.shape
     k2, c2w2 = cameras.flat_cam_intrinsics(cam_2), cameras.flat_cam_c2w(cam_2)
     rays_o, rays_d, uv, _ = cameras.get_rays(
@@ -64,6 +67,12 @@ def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
         points = ((time_2 - time_tgt) / denom) * pcl_1 + (
             (time_tgt - time_1) / denom) * pcl_2
         colors = rgb_f2
+
+    if cfg.dyn_pcl_remove_outlier:
+        valid, _thres = statistical_outlier_mask(
+            points, valid, k=cfg.dyn_pcl_outlier_knn,
+            std_thres=cfg.dyn_pcl_outlier_std_thres,
+        )
 
     uv_tgt, _z, _front = cameras.project_points(points, cam_tgt)
     flow_to_tgt = torch.where(valid[:, None], uv_tgt - uv,

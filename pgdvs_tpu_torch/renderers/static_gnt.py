@@ -1,11 +1,17 @@
 """Static-background rendering with GNT (torch).
 
-Counterpart of ``pgdvs_tpu.renderers.static_gnt`` on the ported slice: source
-features once per image (ResUNet), fused full-resolution sampling maps,
-then a Python loop over ray tiles. Per tile: deterministic sample placement,
-quad epipolar sampling over all source views, the fused GNT transformer
-(K1: the hand kernel on CUDA, its plain version on the CPU), and per-ray rgb,
-depth = sum_s w_s z_s and the weighted in-bounds view count.
+Counterpart of ``pgdvs_tpu.renderers.static_gnt`` on the ported slices:
+source features once per image (ResUNet), fused full-resolution sampling
+maps (with the dynamic masks as a trailing channel when ``gnt_use_dyn_mask``
+is set), then a Python loop over ray tiles. Per tile: deterministic sample
+placement, quad epipolar sampling over all source views, the fused GNT
+transformer, and per-ray rgb, depth = sum_s w_s z_s, the weighted
+in-bounds view count and the weighted dynamic view count.
+
+The transformer is a hand kernel on CUDA and its plain version on the CPU:
+K1 (validity recomputed in-kernel) without the dyn mask, K2 (validity read
+from the sampler's mask: in bounds, in front and not dynamic) with it, as
+the JAX package's preset splits them (mono4 / mono3).
 """
 
 from __future__ import annotations
@@ -16,9 +22,14 @@ import torch
 
 from pgdvs_tpu_torch.core import cameras, sampling
 from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4, pack_mono4_weights
+from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_mono3
 from pgdvs_tpu_torch.models.gnt.feature_net import ResUNet
 from pgdvs_tpu_torch.models.gnt.network import GNT, sinusoidal_embed
-from pgdvs_tpu_torch.models.gnt.projector import build_fused_maps, epipolar_sample_quad
+from pgdvs_tpu_torch.models.gnt.projector import (
+    build_fused_maps,
+    epipolar_sample_quad,
+    epipolar_sample_quad_masked,
+)
 from pgdvs_tpu_torch.renderers.config import RenderConfig, check_slice
 
 
@@ -27,7 +38,7 @@ def make_gnt_models(netwidth: int = 64, depth: int = 8, feat_ch: int = 32):
     return ResUNet(out_channels=feat_ch), GNT(netwidth, depth, feat_ch)
 
 
-def init_gnt_models(seed: int = 0, device="cpu", **kw):
+def init_gnt_models(seed: int = 0, device="cuda", **kw):
     """(feature_net, gnt) with random weights drawn from ``seed`` (torch's
     default initialisers), in eval mode on ``device``. The caller's global
     RNG state is left as it was."""
@@ -45,28 +56,42 @@ def render_rays_gnt(gnt_params, rays_o, rays_d, depth_range, tgt_cam, src_cams,
       gnt_params: the GNT module, or its ``Mono4Weights`` packed for the
         rays' device.
       rays_o/rays_d [R, 3]; depth_range [R, 2]; tgt_cam [34];
-      src_cams [V, 34]; fused_maps [V, H, W, 3+F] (build_fused_maps).
+      src_cams [V, 34]; fused_maps [V, H, W, 3+F] (build_fused_maps), with
+      the dynamic mask as a trailing channel when ``cfg.gnt_use_dyn_mask``.
 
     Returns rgb [R, 3], depth [R], weights [R, S], inbound_cnt [R],
-    dyn_cnt [R] (zero: no dyn mask), view_std / view_std_normalized
-    [R, depth+1] (zero: the diagnostics are not computed).
+    dyn_cnt [R] (zero without the dyn mask), view_std /
+    view_std_normalized [R, depth+1] (zero: the diagnostics are not
+    computed).
     """
     pts, z_vals = sampling.sample_along_rays(
         rays_o, rays_d, depth_range, cfg.n_coarse_samples_per_ray,
         inv_uniform=cfg.sample_inv_uniform,
     )
     proj = cameras.flat_cam_projection(src_cams)
-    rgb_feat = epipolar_sample_quad(pts, proj, fused_maps)
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     centers = torch.cat([
         cameras.flat_cam_c2w(tgt_cam)[None, :3, 3],
         cameras.flat_cam_c2w(src_cams)[:, :3, 3],
     ])
-    _, map_h, map_w, _ = fused_maps.shape
-    out = gnt_fused_mono4(gnt_params, rgb_feat, pts, sinusoidal_embed(viewdirs),
-                          centers, proj, (map_h, map_w))
-    weights = out["weights"]
-    inbound_cnt = out["inbound_cnt_raw"]
+    if cfg.gnt_use_dyn_mask:
+        smp = epipolar_sample_quad_masked(pts, proj, fused_maps)
+        out = gnt_fused_mono3(gnt_params, smp["rgb_feat"], smp["mask"], pts,
+                              sinusoidal_embed(viewdirs), centers)
+        weights = out["weights"]
+        # the kernel's count is of mask views; the renderer's counts are of
+        # in-bounds and of dynamic views (static_gnt.py:366-377 in JAX)
+        n_src = src_cams.shape[0]
+        inbound_cnt = torch.sum(weights * smp["mask_inbound"].sum(0) / n_src, dim=-1)
+        dyn_cnt = torch.sum(weights * smp["mask_invalid"].sum(0) / n_src, dim=-1)
+    else:
+        rgb_feat = epipolar_sample_quad(pts, proj, fused_maps)
+        _, map_h, map_w, _ = fused_maps.shape
+        out = gnt_fused_mono4(gnt_params, rgb_feat, pts, sinusoidal_embed(viewdirs),
+                              centers, proj, (map_h, map_w))
+        weights = out["weights"]
+        inbound_cnt = out["inbound_cnt_raw"]
+        dyn_cnt = torch.zeros_like(inbound_cnt)
     gnt = gnt_params if isinstance(gnt_params, GNT) else gnt_params.gnt
     std = torch.zeros(weights.shape[:-1] + (gnt.depth + 1,),
                       dtype=torch.float32, device=weights.device)
@@ -75,7 +100,7 @@ def render_rays_gnt(gnt_params, rays_o, rays_d, depth_range, tgt_cam, src_cams,
         "depth": torch.sum(weights * z_vals, dim=-1),
         "weights": weights,
         "inbound_cnt": inbound_cnt,
-        "dyn_cnt": torch.zeros_like(inbound_cnt),
+        "dyn_cnt": dyn_cnt,
         "view_std": std,
         "view_std_normalized": std,
     }
@@ -97,22 +122,27 @@ def render_rays_tiled(gnt_params, rays_o, rays_d, dr, tgt_cam, src_cams,
 
 @torch.no_grad()
 def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
-                     cfg: RenderConfig):
+                     cfg: RenderConfig, src_invalid_masks=None):
     """Render a full novel view with GNT.
 
     Args:
       models: (feature_net, gnt); tgt_cam [34]; src_cams [V, 34];
       src_rgbs [V, H, W, 3]; image_hw (H, W) of the target;
-      depth_range [2] or [H, W, 2].
+      depth_range [2] or [H, W, 2]; src_invalid_masks [V, H, W, 1]
+      (1 = dynamic), read when ``cfg.gnt_use_dyn_mask``.
 
     Returns [H, W, C] maps: rgb, depth, weights, inbound_cnt, dyn_cnt,
-    view_std(+normalized) and oob_mask.
+    view_std(+normalized), oob_mask and, with the dyn mask,
+    dyn_mask_any / dyn_mask_all / dyn_mask_thres.
     """
     check_slice(cfg)
+    if cfg.gnt_use_dyn_mask and src_invalid_masks is None:
+        raise ValueError("gnt_use_dyn_mask needs the sources' dynamic masks")
     feature_net, gnt = models
     h, w = image_hw
     feats = feature_net(src_rgbs)
-    fused_maps = build_fused_maps(src_rgbs, feats)
+    fused_maps = build_fused_maps(
+        src_rgbs, feats, src_invalid_masks if cfg.gnt_use_dyn_mask else None)
     rays_o, rays_d, _uv, (rh, rw) = cameras.get_rays(
         h, w, cameras.flat_cam_intrinsics(tgt_cam), cameras.flat_cam_c2w(tgt_cam),
     )
@@ -130,4 +160,11 @@ def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
     out["oob_mask"] = (
         out["inbound_cnt"] < (cfg.mask_oob_n_proj_thres / n_src)
     ).float()
+    if cfg.gnt_use_dyn_mask:
+        dyn_cnt = out["dyn_cnt"]
+        out["dyn_mask_any"] = (dyn_cnt > 0.0).float()
+        out["dyn_mask_all"] = (dyn_cnt == 1.0).float()
+        out["dyn_mask_thres"] = (
+            dyn_cnt >= (cfg.mask_invalid_n_proj_thres / n_src)
+        ).float()
     return out

@@ -1,4 +1,5 @@
-"""K1's hand kernel against its plain version, on a CUDA card only.
+"""The hand kernels (K1, K2) against their plain versions, on a CUDA card
+only.
 
 No JAX here, so the file runs on the GPU machine:
 
@@ -15,6 +16,7 @@ import torch
 
 from pgdvs_tpu_torch.core import cameras as cam
 from pgdvs_tpu_torch.kernels import gnt_fused as k1
+from pgdvs_tpu_torch.kernels import gnt_fused_mono3 as k2
 from pgdvs_tpu_torch.models.gnt.network import sinusoidal_embed
 
 pytestmark = pytest.mark.cuda
@@ -96,4 +98,66 @@ def test_render_on_card_matches_cpu(card):
     got, ref = outs["cuda"], outs["cpu"]
     for key, tol in (("combined_rgb", 0.04), ("static_coarse_depth", 0.1),
                      ("static_coarse_inbound_cnt", 0.02)):
+        torch.testing.assert_close(got[key].cpu(), ref[key], atol=tol, rtol=0)
+
+
+def _mask(ops, dyn_frac, all_dyn_rays=0, seed=3):
+    """K2's mask [V, R, S]: in bounds & in front (the projection test K1
+    runs) & not dynamic, dynamic at a random fraction of taps and at every
+    view of the first ``all_dyn_rays`` rays."""
+    from pgdvs_tpu_torch.core.cameras import pixel_inbound, project_with
+
+    rgb_feat, pts, _vc, _ctr, proj, hw = ops
+    uv, _z, front = project_with(proj[:, None, None], pts[None])
+    inbound = pixel_inbound(uv, float(hw[0]), float(hw[1])) & front
+    gen = torch.Generator(device=pts.device).manual_seed(seed)
+    dyn = torch.rand(inbound.shape, generator=gen, device=pts.device) < dyn_frac
+    dyn[:, :all_dyn_rays] = True
+    return inbound & ~dyn
+
+
+@pytest.mark.parametrize("v,r,s,behind,dyn_frac,all_dyn", [
+    (5, 16, 32, False, 0.3, 2), (5, 16, 23, False, 0.3, 2), (5, 16, 32, True, 0.3, 0),
+    (5, 16, 32, False, 1.0, 0), (10, 64, 256, False, 0.2, 4)])
+def test_k2_matches_plain(card, v, r, s, behind, dyn_frac, all_dyn):
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    _fnet, gnt = init_gnt_models(seed=0, device=card)
+    ops = [o.to(card) if torch.is_tensor(o) else o for o in _operands(v, r, s, behind)]
+    mask = _mask(ops, dyn_frac, all_dyn)
+    args = (ops[0], mask, ops[1], ops[2], ops[3])
+    before = k2.gnt_fused_mono3.launches
+    got = k2.gnt_fused_mono3(gnt, *args)
+    torch.cuda.synchronize()
+    assert k2.gnt_fused_mono3.launches == before + 1
+    ref = k2.gnt_fused_mono3_plain(gnt, *args)
+    torch.testing.assert_close(got["rgb"], ref["rgb"], atol=0.02, rtol=0.02)
+    torch.testing.assert_close(got["weights"], ref["weights"], atol=0.01, rtol=0)
+    torch.testing.assert_close(got["inbound_cnt_raw"], ref["inbound_cnt_raw"],
+                               atol=0.01, rtol=0)
+
+
+def test_default_render_on_card_matches_cpu(card):
+    from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.renderers.compose import render_novel_view
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    data = make_contract_data(h=24, w=32, n_spatial=3, n_frames=6)
+    cfg = resolve_benchmark("default")[0].replace(n_coarse_samples_per_ray=16,
+                                                  ray_tile=256)
+    noise = torch.from_numpy(np.random.default_rng(0).normal(size=(24, 32, 3)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", card):
+        tdata = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in data.items()
+                 if isinstance(v, np.ndarray)}
+        k1.gnt_fused_mono4.launches = k2.gnt_fused_mono3.launches = 0
+        outs[str(dev)] = render_novel_view(init_gnt_models(seed=0, device=dev), tdata,
+                                           cfg, noise=noise.to(dev))
+        # one K2 launch per ray tile (24 * 32 rays in tiles of 256), no K1
+        assert k2.gnt_fused_mono3.launches == (0 if dev == "cpu" else 3)
+        assert k1.gnt_fused_mono4.launches == 0
+    got, ref = outs["cuda"], outs["cpu"]
+    for key, tol in (("combined_rgb", 0.04), ("static_coarse_depth", 0.1),
+                     ("static_coarse_inbound_cnt", 0.02), ("static_coarse_dyn_cnt", 0.02)):
         torch.testing.assert_close(got[key].cpu(), ref[key], atol=tol, rtol=0)

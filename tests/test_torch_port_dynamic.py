@@ -68,6 +68,6 @@ def test_render_dynamic_matches(data):
 def test_render_dynamic_refuses_other_branches(data):
     tdata = {k: _t(v) for k, v in data.items() if isinstance(v, np.ndarray)}
     for cfg in (RenderConfig(dyn_render_type="pcl"),
-                RenderConfig(dyn_pcl_remove_outlier=True)):
+                RenderConfig(dyn_render_track_temporal="no_tgt")):
         with pytest.raises(ValueError):
             render_dynamic(tdata, cfg, generator=torch.Generator().manual_seed(0))

@@ -108,7 +108,7 @@ def test_slice_refuses_configs_outside_it(both):
              if isinstance(v, np.ndarray)}
     models = init_gnt_models(device="cpu")
     base = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=4))
-    for cfg, mode in ((base.replace(gnt_use_dyn_mask=True), "gnt"),
+    for cfg, mode in ((base.replace(dyn_render_type="pcl"), "gnt"),
                       (base.replace(n_fine_samples_per_ray=4), "gnt"),
                       (base, "geo"),
                       (base.replace(dyn_render_type="mesh"), "gnt"),
