@@ -38,9 +38,14 @@ import sys
 import time
 
 # tolerances of the kernel against its plain version: bf16 operands with f32
-# accumulation against the float32 plain network (the bounds the JAX package
-# holds its own bf16 kernels to: tests/test_gnt_fused.py)
-KERNEL_TOL = {"rgb": 0.02, "weights": 0.01, "inbound_cnt_raw": 0.01}
+# accumulation against the float32 plain network (rgb and count: the bounds
+# the JAX package holds its own bf16 kernels to, tests/test_gnt_fused.py).
+# The weights are a softmax over S samples, near 1/S each with random
+# weights, so their bound is a share of that mean: 0.05 / S. On the H100 the
+# error is 13x and more below it; a kernel that wrote the weights uniform,
+# reversed or evens-then-odds would exceed it, which _check_against_plain
+# confirms case by case.
+KERNEL_TOL = {"rgb": 0.02, "weights": 0.05, "inbound_cnt_raw": 0.01}
 # the slice's end-to-end bounds (tests/test_gnt_model.py)
 SLICE_TOL = {"rgb": 0.04, "depth": 0.1, "inbound_cnt": 0.02, "dyn_cnt": 0.02}
 SEED = 0
@@ -165,12 +170,34 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _check_against_plain(name, kw, got, ref, worst):
+def kernel_tol(key, s):
+    """The bound of output ``key`` at S samples per ray."""
+    return KERNEL_TOL[key] / s if key == "weights" else KERNEL_TOL[key]
+
+
+def _wrong_weight_errs(ref):
+    """The max error of a kernel that wrote the weights [R, S] uniform, in
+    reversed sample order or evens then odds."""
     import torch
 
+    s = ref.shape[-1]
+    eo = torch.cat([torch.arange(0, s, 2), torch.arange(1, s, 2)]).to(ref.device)
+    return {"uniform": float((ref - 1.0 / s).abs().max()),
+            "reversed": float((ref - ref.flip(-1)).abs().max()),
+            "evens_odds": float((ref - ref[:, eo]).abs().max())}
+
+
+def _check_against_plain(name, kw, got, ref, worst):
+    """Hold the kernel's outputs to the plain version's; where the samples
+    of a ray differ (every case but points all at one place), show too that
+    the weights bound rejects wrong weights."""
+    import torch
+
+    s = ref["weights"].shape[-1]
     errs = {}
-    for key, tol in KERNEL_TOL.items():
+    for key in KERNEL_TOL:
         a, b = got[key], ref[key]
+        tol = kernel_tol(key, s)
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise AssertionError(f"{name}/{key}: shape {tuple(a.shape)} "
                                  f"vs {tuple(b.shape)} or non-finite")
@@ -180,7 +207,14 @@ def _check_against_plain(name, kw, got, ref, worst):
         worst[key] = max(worst[key], errs[key])
         if not bool((err <= bound).all()):
             raise AssertionError(f"{name}/{key}: max err {errs[key]} over tol {tol}")
-    log(f"[kernel] {name} {kw}: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    wrong = {} if kw.get("behind") else _wrong_weight_errs(ref["weights"])
+    for label, e in wrong.items():
+        if not e > kernel_tol("weights", s):
+            raise AssertionError(f"{name}: weights written {label} would pass "
+                                 f"the bound {kernel_tol('weights', s)} (err {e})")
+    log(f"[kernel] {name} {kw}: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (weights tol {kernel_tol('weights', s):.3e}"
+        + "".join(f", {k} {v:.3e}" for k, v in wrong.items()) + ")")
 
 
 def phase_kernel_vs_plain(gnt):

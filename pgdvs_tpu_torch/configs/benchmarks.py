@@ -218,19 +218,11 @@ BENCHMARK_TYPES: Dict[str, Dict[str, Any]] = {
 BENCHMARK_TYPES["st_gnt_masked_attn_dy_cvd_pcl_clean"] = BENCHMARK_TYPES["default"]
 
 
-def resolve_benchmark(name: str, preset: str = "fast"):
-    """Return (render_cfg, spec dict) for a named benchmark bundle.
-
-    preset='fast' (default) applies ``apply_perf_preset`` (the quad sampler
-    the port renders with); preset='exact' keeps the reference-faithful
-    exact sampler, which the port does not render yet.
-    """
+def resolve_benchmark(name: str):
+    """Return (render_cfg, spec dict) for a named benchmark bundle, on
+    ``apply_perf_preset`` (the quad sampler, the only one the port renders;
+    the JAX package's ``preset="exact"`` waits for the exact sampler)."""
     if name not in BENCHMARK_TYPES:
         raise KeyError(f"unknown benchmark {name!r}; known: {sorted(BENCHMARK_TYPES)}")
-    if preset not in ("fast", "exact"):
-        raise KeyError(f"unknown perf preset {preset!r}; valid: fast | exact")
     spec = dict(BENCHMARK_TYPES[name])
-    cfg = RenderConfig(**spec.get("render_cfg", {}))
-    if preset == "fast":
-        cfg = apply_perf_preset(cfg)
-    return cfg, spec
+    return apply_perf_preset(RenderConfig(**spec.get("render_cfg", {}))), spec

@@ -752,15 +752,17 @@ int gnt_mono4_forward(const void* rf, const void* pts, const void* vcode,
 }
 
 // K2: validity read from mask (uint8 [V, R, S], nonzero = valid);
-// cnt_out = sum_s w_s * (mask views at s) / V.
-int gnt_mono3_forward(const void* rf, const void* mask, const void* pts,
-                      const void* vcode, const void* centers, int V, int R,
-                      int S, int C, int Cp, const uint64_t* wptrs, int n_ptrs,
-                      void* h_scratch, void* q_scratch, void* rgb_out,
-                      void* w_out, void* cnt_out, void* stream_ptr) {
+// cnt_out = sum_s w_s * (mask views at s) / V. K1's argument list, with the
+// mask in proj's place; hf and wf are not read.
+int gnt_mono3_forward(const void* rf, const void* pts, const void* vcode,
+                      const void* centers, const void* mask, int V, int R,
+                      int S, int C, int Cp, float hf, float wf,
+                      const uint64_t* wptrs, int n_ptrs, void* h_scratch,
+                      void* q_scratch, void* rgb_out, void* w_out,
+                      void* cnt_out, void* stream_ptr) {
   if (mask == nullptr) return (int)cudaErrorInvalidValue;
   return run_forward<true>(rf, mask, pts, vcode, centers, nullptr, V, R, S, C,
-                           Cp, 0.f, 0.f, wptrs, n_ptrs, h_scratch, q_scratch,
+                           Cp, hf, wf, wptrs, n_ptrs, h_scratch, q_scratch,
                            rgb_out, w_out, cnt_out, stream_ptr);
 }
 

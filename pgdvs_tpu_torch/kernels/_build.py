@@ -32,17 +32,17 @@ c_void_p, c_int, c_float, c_size_t = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 )
 
+# the argument list K1 and K2 share (csrc/gnt_fused.cu: the fifth pointer is
+# K1's projection or K2's mask)
+_FORWARD = (
+    [c_void_p] * 5 + [c_int] * 5 + [c_float, c_float, c_void_p, c_int]
+    + [c_void_p] * 6,
+    c_int,
+)
 # C signatures of the library's entry points (csrc/gnt_fused.cu)
 SIGNATURES = {
-    "gnt_mono4_forward": (
-        [c_void_p] * 5 + [c_int] * 5 + [c_float, c_float, c_void_p, c_int]
-        + [c_void_p] * 6,
-        c_int,
-    ),
-    "gnt_mono3_forward": (
-        [c_void_p] * 5 + [c_int] * 5 + [c_void_p, c_int] + [c_void_p] * 6,
-        c_int,
-    ),
+    "gnt_mono4_forward": _FORWARD,
+    "gnt_mono3_forward": _FORWARD,
     "gnt_mono4_ray_smem": ([c_int], c_size_t),
     "gnt_mono4_max_views": ([], c_int),
     "gnt_mono4_n_ptrs": ([], c_int),

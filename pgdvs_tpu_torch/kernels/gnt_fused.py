@@ -154,18 +154,18 @@ def gnt_fused_mono4_plain(gnt: GNT, rgb_feat, pts, view_code, centers, proj,
     return {"rgb": out["rgb"], "weights": out["weights"], "inbound_cnt_raw": cnt}
 
 
-def prepare_launch(params, rgb_feat, pts, view_code, centers):
-    """Checks, packing and allocation shared by the K1 and K2 wrappers.
+def launch(entry, params, rgb_feat, pts, view_code, centers, validity, hw):
+    """Check, pack, allocate and launch K1 or K2; the outputs dict.
 
+    ``entry`` is the C entry point (``gnt_mono4_forward`` or
+    ``gnt_mono3_forward``), which share one argument list; ``validity`` is
+    its fifth pointer, K1's projection rows [V, 3, 4] f32 or K2's uint8 mask
+    [V, R, S], and ``hw`` the map size K1 tests the projection against.
     Validates the operands common to both (rgb_feat [V, R, S, C] bf16,
     pts [R, S, 3], view_code [R, 63], centers [V+1, 3], all on one CUDA
     device), builds or loads the kernel library, checks the view and
-    shared-memory limits, packs the weights for the device and allocates
-    the outputs and scratch. Returns ``(lib, head, dims, tail, outs, keep)``:
-    the C entry's leading pointers (rgb_feat, pts, view_code, centers), its
-    shape ints (V, R, S, C, Cp), its trailing arguments (weight pointers,
-    their count, scratch, outputs, stream), the output dict, and the
-    tensors that must stay referenced until the launch call returns.
+    shared-memory limits and packs the weights for the device. Raises on any
+    failure, the launch's included.
     """
     packed = params if isinstance(params, Mono4Weights) else None
     gnt = packed.gnt if packed is not None else params
@@ -181,7 +181,7 @@ def prepare_launch(params, rgb_feat, pts, view_code, centers):
         raise ValueError("pts must be [R, S, 3] and view_code [R, 63]")
     if centers.shape != (v + 1, 3):
         raise ValueError("centers must be [V+1, 3]")
-    for t in (pts, view_code, centers):
+    for t in (pts, view_code, centers, validity):
         if t.device != dev:
             raise ValueError("all operands must be on the same device")
     lib = load_library().lib
@@ -203,6 +203,7 @@ def prepare_launch(params, rgb_feat, pts, view_code, centers):
     pts32 = pts.float().contiguous()
     vc = view_code.float().contiguous()
     ctr = centers.float().contiguous()
+    validity = validity.contiguous()
     n = r * s
     h_scr = torch.empty((v, n, NW), dtype=torch.bfloat16, device=dev)
     q_scr = torch.empty((n, NW), dtype=torch.float32, device=dev)
@@ -214,14 +215,15 @@ def prepare_launch(params, rgb_feat, pts, view_code, centers):
     ptrs = (ctypes.c_uint64 * n_ptrs)(
         *[0 if t is None else t.data_ptr() for t in packed.tensors]
     )
-    head = [rf.data_ptr(), pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr()]
-    dims = [v, r, s, c, packed.cp]
-    tail = [ctypes.cast(ptrs, ctypes.c_void_p), n_ptrs, h_scr.data_ptr(),
-            q_scr.data_ptr(), outs["rgb"].data_ptr(), outs["weights"].data_ptr(),
-            outs["inbound_cnt_raw"].data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream]
-    keep = (rf, pts32, vc, ctr, h_scr, q_scr, ptrs, packed)
-    return lib, head, dims, tail, outs, keep
+    err = getattr(lib, entry)(
+        rf.data_ptr(), pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr(),
+        validity.data_ptr(), v, r, s, c, packed.cp, float(hw[0]), float(hw[1]),
+        ctypes.cast(ptrs, ctypes.c_void_p), n_ptrs, h_scr.data_ptr(),
+        q_scr.data_ptr(), outs["rgb"].data_ptr(), outs["weights"].data_ptr(),
+        outs["inbound_cnt_raw"].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    return outs
 
 
 def gnt_fused_mono4(params, rgb_feat, pts, view_code, centers, proj,
@@ -240,13 +242,8 @@ def gnt_fused_mono4(params, rgb_feat, pts, view_code, centers, proj,
     v = rgb_feat.shape[0]
     if proj.shape[0] != v or proj.shape[-1] != 4 or proj.device != dev:
         raise ValueError("proj must be [V, 3|4, 4] on the operands' device")
-    lib, head, dims, tail, outs, _keep = prepare_launch(
-        params, rgb_feat, pts, view_code, centers)
-    pj = proj[:, :3, :].float().contiguous()
-    err = lib.gnt_mono4_forward(*head, pj.data_ptr(), *dims, float(hw[0]),
-                                float(hw[1]), *tail)
-    if err != 0:
-        raise RuntimeError(f"gnt_fused_mono4 launch failed: cudaError {err}")
+    outs = launch("gnt_mono4_forward", params, rgb_feat, pts, view_code,
+                  centers, proj[:, :3, :].float(), hw)
     gnt_fused_mono4.launches += 1
     return outs
 

@@ -41,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from pgdvs_tpu_torch.core.cameras import ray_diff_features
-from pgdvs_tpu_torch.kernels.gnt_fused import Mono4Weights, prepare_launch
+from pgdvs_tpu_torch.kernels.gnt_fused import Mono4Weights, launch
 from pgdvs_tpu_torch.models.gnt.network import GNT
 
 
@@ -79,13 +79,8 @@ def gnt_fused_mono3(params, rgb_feat, mask, pts, view_code, centers):
         raise ValueError(f"gnt_fused_mono3: unsupported device {dev}")
     if mask.shape != rgb_feat.shape[:3] or mask.device != dev:
         raise ValueError("mask must be [V, R, S] on the operands' device")
-    lib, head, dims, tail, outs, _keep = prepare_launch(
-        params, rgb_feat, pts, view_code, centers)
-    m8 = (mask != 0).to(torch.uint8).contiguous()
-    rf, rest = head[0], head[1:]
-    err = lib.gnt_mono3_forward(rf, m8.data_ptr(), *rest, *dims, *tail)
-    if err != 0:
-        raise RuntimeError(f"gnt_fused_mono3 launch failed: cudaError {err}")
+    outs = launch("gnt_mono3_forward", params, rgb_feat, pts, view_code,
+                  centers, (mask != 0).to(torch.uint8), (0.0, 0.0))
     gnt_fused_mono3.launches += 1
     return outs
 
