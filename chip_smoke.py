@@ -14,6 +14,10 @@ exits non-zero without printing a result:
   3b. K2 vs plain: K2 (the same transformer with an explicit validity mask)
      likewise, including tokens whose views are all invalid from geometry
      and from the dynamic mask alone;
+  3c. K3 vs plain: K3a and K3b (the split view and ray half-blocks, which
+     read the ray-diff code and the mask from memory) against their plain
+     versions on the same cases, then the whole split forward against its
+     plain loop; per-launch times and bounds at the main tile;
   4. K1 path: ``render_novel_view`` with the unmasked slice config on the
      288x550, 10-source, 256-sample synthetic scene with random weights from
      a fixed seed; the kernels' launch counts, finite output of the right
@@ -21,7 +25,10 @@ exits non-zero without printing a result:
      per view and peak device memory;
   5. K2 path: the same for the paper's ``default`` bundle (masked view
      attention + outlier removal of the dynamic cloud), plus the count of
-     dynamic points the outlier removal keeps.
+     dynamic points the outlier removal keeps;
+  6. K3 path (``[exact]``): the same for ``default`` on the exact preset
+     (the reference-faithful sampler), plus PSNR / SSIM of its image
+     against phase 5's quad render of the same view.
 
 The second-to-last line is a JSON object describing each kernel (its times,
 its launches on its path and its bound on the card); the last line is
@@ -46,6 +53,9 @@ import time
 # reversed or evens-then-odds would exceed it, which _check_against_plain
 # confirms case by case.
 KERNEL_TOL = {"rgb": 0.02, "weights": 0.05, "inbound_cnt_raw": 0.01}
+# one half-block's q (K3a, K3b) against its plain version: atol, plus the
+# same share of |q| as rgb (bf16 operands, f32 accumulation, one block deep)
+Q_TOL = 0.02
 # the slice's end-to-end bounds (tests/test_gnt_model.py)
 SLICE_TOL = {"rgb": 0.04, "depth": 0.1, "inbound_cnt": 0.02, "dyn_cnt": 0.02}
 SEED = 0
@@ -74,6 +84,27 @@ def gnt_cost(v, r, s, c, masked):
     nbytes = v * n * c * 2 + n * 3 * 4 + r * 63 * 4 + (v + 1) * 3 * 4
     nbytes += v * n if masked else v * 12 * 4             # mask, or K @ w2c
     nbytes += r * 3 * 4 + n * 4 + r * 4
+    return 2 * mac, nbytes
+
+
+def split_cost(kind, v, r, s):
+    """(FLOP, bytes) of one K3a ("view") or K3b ("ray") launch over R rays x
+    S samples x V views: the dense products and ray attention only, with
+    K1's weight compositions; bytes at the function's contract (JAX's
+    ``_run_view`` / ``_run_ray``), each read once (q, h and the ray-diff
+    code in bf16, the mask in uint8) and written once (q in bf16, the f32
+    weights row). The port's kernels keep q and the ray-diff code in f32,
+    which moves more: 1.03 GB per K3a launch at the main tile, not 0.85."""
+    n, nw = r * s, 64
+    if kind == "view":
+        # per (view, token): pos_fc_0, the composed [72 -> 72] product, attn_fc_1
+        mac = n * v * (4 * 8 + (nw + 8) * (nw + 8) + 8 * nw)
+        mac += n * (nw * 8 + nw * nw + 2 * nw * 4 * nw)   # wq@wa0, out, ff
+        nbytes = v * n * (nw + 4) * 2 + v * n + 2 * n * nw * 2
+    else:
+        mac = n * (nw * 3 * nw + nw * nw + 2 * nw * 4 * nw)  # qkv, out, ff
+        mac += r * 2 * s * s * nw                         # QK^T and PV, 4 heads
+        nbytes = 2 * n * nw * 2 + n * 4
     return 2 * mac, nbytes
 
 
@@ -187,33 +218,37 @@ def _wrong_weight_errs(ref):
             "evens_odds": float((ref - ref[:, eo]).abs().max())}
 
 
-def _check_against_plain(name, kw, got, ref, worst):
-    """Hold the kernel's outputs to the plain version's; where the samples
-    of a ray differ (every case but points all at one place), show too that
-    the weights bound rejects wrong weights."""
+def _check_against_plain(name, kw, got, ref, worst, spread=None):
+    """Hold the kernel's outputs (those of KERNEL_TOL's keys and "q" that
+    the plain version has) to the plain version's; where the samples of a
+    ray differ (``spread``, by default every case but points all at one
+    place), show too that the weights bound rejects wrong weights."""
     import torch
 
-    s = ref["weights"].shape[-1]
+    s = ref["weights"].shape[-1] if "weights" in ref else None
     errs = {}
-    for key in KERNEL_TOL:
+    for key in [k for k in (*KERNEL_TOL, "q") if k in ref]:
         a, b = got[key], ref[key]
-        tol = kernel_tol(key, s)
+        tol = Q_TOL if key == "q" else kernel_tol(key, s)
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise AssertionError(f"{name}/{key}: shape {tuple(a.shape)} "
                                  f"vs {tuple(b.shape)} or non-finite")
         err = (a - b).abs()
-        bound = tol + (0.02 * b.abs() if key == "rgb" else 0.0)
+        bound = tol + (0.02 * b.abs() if key in ("rgb", "q") else 0.0)
         errs[key] = float(err.max())
-        worst[key] = max(worst[key], errs[key])
+        worst[key] = max(worst.get(key, 0.0), errs[key])
         if not bool((err <= bound).all()):
-            raise AssertionError(f"{name}/{key}: max err {errs[key]} over tol {tol}")
-    wrong = {} if kw.get("behind") else _wrong_weight_errs(ref["weights"])
+            raise AssertionError(f"{name}/{key}: max err {errs[key]} over tol {tol}"
+                                 + (" + 2 %" if key in ("rgb", "q") else ""))
+    if spread is None:
+        spread = not kw.get("behind")
+    wrong = _wrong_weight_errs(ref["weights"]) if spread and s else {}
     for label, e in wrong.items():
         if not e > kernel_tol("weights", s):
             raise AssertionError(f"{name}: weights written {label} would pass "
                                  f"the bound {kernel_tol('weights', s)} (err {e})")
     log(f"[kernel] {name} {kw}: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
-        + f" (weights tol {kernel_tol('weights', s):.3e}"
+        + (f" (weights tol {kernel_tol('weights', s):.3e}" if s else " (")
         + "".join(f", {k} {v:.3e}" for k, v in wrong.items()) + ")")
 
 
@@ -242,17 +277,18 @@ def phase_kernel_vs_plain(gnt):
         ref = gnt_fused_mono4_plain(gnt, *args)
         _check_against_plain(name, kw, got, ref, worst)
         if name == "main_tile":
-            _time_main_tile("K1", times, ops["rgb_feat"].shape, False,
+            v, r, s, c = ops["rgb_feat"].shape
+            _time_main_tile("K1", times, (v, r, s), gnt_cost(v, r, s, c, False),
                             lambda: gnt_fused_mono4(packed, *args),
                             lambda: gnt_fused_mono4_plain(gnt, *args))
     return worst, times
 
 
-def _time_main_tile(label, times, shape, masked, kernel, plain):
-    v, r, s, c = shape
-    times["ms"] = _time_ms(kernel, 5)
+def _time_main_tile(label, times, vrs, cost, kernel, plain, iters=5):
+    v, r, s = vrs
+    times["ms"] = _time_ms(kernel, iters)
     times["plain_ms"] = _time_ms(plain, 3)
-    times["bound_ms"], times["bound_by"] = bound_ms(*gnt_cost(v, r, s, c, masked))
+    times["bound_ms"], times["bound_by"] = bound_ms(*cost)
     log(f"[kernel] {label} main tile R={r} S={s} V={v}: kernel {times['ms']:.3f} ms, "
         f"plain {times['plain_ms']:.3f} ms, bound {times['bound_ms']:.4f} ms "
         f"({times['bound_by']}; {times['bound_ms'] / times['ms']:.2%} of it)")
@@ -304,20 +340,92 @@ def phase_k2_vs_plain(gnt):
         ref = gnt_fused_mono3_plain(gnt, *args)
         _check_against_plain(name, dict(kw, dyn_frac=dyn_frac), got, ref, worst)
         if name == "main_tile":
-            _time_main_tile("K2", times, ops["rgb_feat"].shape, True,
+            v, r, s, c = ops["rgb_feat"].shape
+            _time_main_tile("K2", times, (v, r, s), gnt_cost(v, r, s, c, True),
                             lambda: gnt_fused_mono3(packed, *args),
                             lambda: gnt_fused_mono3_plain(gnt, *args))
     return worst, times
 
 
-def slice_config(bundle=None, n_samples=256):
+K3_CASES = [
+    ("small", dict(v=5, r=64, s=32), 0.3),
+    ("odd_s", dict(v=5, r=64, s=23), 0.3),
+    ("all_invalid_geometry", dict(v=5, r=16, s=32, behind=True), 0.3),
+    ("all_invalid_dyn_mask", dict(v=5, r=16, s=32), 1.0),
+    ("main_tile", dict(v=10, r=2048, s=256, hw=(288, 550)), 0.2),
+]
+
+
+def phase_k3_vs_plain(gnt, blk=2):
+    """K3a and K3b (block ``blk``'s half-blocks) against their plain
+    versions on random q and h and the rig's ray-diff code and mask, then
+    the whole split forward against its plain loop, on K3_CASES; times at
+    the main tile. Returns ({"view": worst, "ray": worst},
+    {"view": times, "ray": times})."""
+    import torch
+
+    from pgdvs_tpu_torch.core.cameras import ray_diff_features
+    from pgdvs_tpu_torch.kernels.gnt_fused_split import (
+        gnt_fused_split, gnt_fused_split_plain, gnt_split_ray, gnt_split_view,
+        pack_split_weights, split_ray_plain, split_view_plain,
+    )
+    from pgdvs_tpu_torch.models.gnt.network import sinusoidal_embed
+
+    packed = pack_split_weights(gnt, "cuda")
+    vblk, rblk = packed.view[blk], packed.ray[blk]
+    worst = {"view": {}, "ray": {}, "forward": {}}
+    times = {"view": {}, "ray": {}}
+    for name, kw, dyn_frac in K3_CASES:
+        ops, hw = _rig(**kw)
+        mask = _k2_mask(ops, hw, dyn_frac)
+        if name.startswith("all_invalid") == bool(mask.any()):
+            raise AssertionError(f"{name}: the rig's mask is wrong for the case")
+        pts, ctr = ops["pts"], ops["centers"]
+        rd = ray_diff_features(pts[None], ctr[0], ctr[1:, None, None, :])
+        v, r, s, _ = ops["rgb_feat"].shape
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        q = torch.randn((r, s, 64), generator=gen, device="cuda")
+        h = torch.randn((v, r, s, 64), generator=gen, device="cuda").to(torch.bfloat16)
+        kwd = dict(kw, dyn_frac=dyn_frac)
+
+        got = gnt_split_view(q, h, rd, mask, vblk)
+        torch.cuda.synchronize()
+        _check_against_plain(f"K3a {name}", kwd, {"q": got},
+                             {"q": split_view_plain(q, h, rd, mask, vblk)}, worst["view"])
+        got_q, got_w = gnt_split_ray(q, rblk)
+        torch.cuda.synchronize()
+        ref_q, ref_w = split_ray_plain(q, rblk)
+        # random q spreads the weights in every case
+        _check_against_plain(f"K3b {name}", kwd, {"q": got_q, "weights": got_w},
+                             {"q": ref_q, "weights": ref_w}, worst["ray"], spread=True)
+        args = (ops["rgb_feat"], rd, mask, sinusoidal_embed(pts), ops["view_code"])
+        got = gnt_fused_split(packed, *args)
+        torch.cuda.synchronize()
+        _check_against_plain(f"K3 forward {name}", kwd, got,
+                             gnt_fused_split_plain(gnt, *args), worst["forward"])
+        if name == "main_tile":
+            _time_main_tile("K3a", times["view"], (v, r, s), split_cost("view", v, r, s),
+                            lambda: gnt_split_view(q, h, rd, mask, vblk),
+                            lambda: split_view_plain(q, h, rd, mask, vblk), iters=20)
+            _time_main_tile("K3b", times["ray"], (v, r, s), split_cost("ray", v, r, s),
+                            lambda: gnt_split_ray(q, rblk),
+                            lambda: split_ray_plain(q, rblk), iters=20)
+            fwd = _time_ms(lambda: gnt_fused_split(packed, *args), 3)
+            log(f"[kernel] K3 whole split forward, main tile: {fwd:.3f} ms "
+                "(8 K3a + 8 K3b launches, torch prologue / q_fc / epilogue)")
+    return {p: worst[p] for p in ("view", "ray")}, times
+
+
+def slice_config(bundle=None, n_samples=256, preset="fast"):
     """The unmasked slice config (bundle None) or a named bundle, on the
-    port's preset, with ``n_samples`` coarse samples."""
+    fast (quad) or exact preset, with ``n_samples`` coarse samples."""
     from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
     from pgdvs_tpu_torch.renderers.config import RenderConfig, apply_perf_preset
 
-    cfg = (apply_perf_preset(RenderConfig()) if bundle is None
-           else resolve_benchmark(bundle)[0])
+    if bundle is not None:
+        cfg = resolve_benchmark(bundle, preset=preset)[0]
+    else:
+        cfg = apply_perf_preset(RenderConfig()) if preset == "fast" else RenderConfig()
     return cfg.replace(n_coarse_samples_per_ray=n_samples)
 
 
@@ -329,8 +437,7 @@ def crop_on_cpu(models, data, cfg, rows, cols):
     import torch
 
     from pgdvs_tpu_torch.core import cameras
-    from pgdvs_tpu_torch.models.gnt.projector import build_fused_maps
-    from pgdvs_tpu_torch.renderers.static_gnt import render_rays_gnt
+    from pgdvs_tpu_torch.renderers.static_gnt import build_sampling_maps, render_rays_gnt
 
     fnet, gnt = models
     src = (data["static_rgb_src_spatial"] if cfg.gnt_use_masked_spatial_src
@@ -339,7 +446,9 @@ def crop_on_cpu(models, data, cfg, rows, cols):
     h, w = src.shape[1:3]
     tgt = data["flat_cam_tgt"]
     with torch.no_grad():
-        maps = build_fused_maps(src, fnet(src), masks)
+        maps = build_sampling_maps(cfg, src, fnet(src), masks)
+        maps = (maps.cpu() if torch.is_tensor(maps)
+                else type(maps)(*(None if t is None else t.cpu() for t in maps)))
         rays_o, rays_d, _uv, _ = cameras.get_rays(
             h, w, cameras.flat_cam_intrinsics(tgt), cameras.flat_cam_c2w(tgt))
         idx = (torch.arange(*rows)[:, None] * w + torch.arange(*cols)[None]).reshape(-1)
@@ -347,7 +456,7 @@ def crop_on_cpu(models, data, cfg, rows, cols):
         out = render_rays_gnt(
             copy.deepcopy(gnt).cpu(), rays_o[idx].cpu(), rays_d[idx].cpu(),
             data["depth_range"].expand(idx.numel(), 2).cpu(), tgt.cpu(),
-            data["flat_cam_src_spatial"].cpu(), maps.cpu(), cfg)
+            data["flat_cam_src_spatial"].cpu(), maps, cfg)
     shape = (rows[1] - rows[0], cols[1] - cols[0])
     return {k: out[k].reshape(shape + out[k].shape[1:]) for k in SLICE_TOL}
 
@@ -371,24 +480,38 @@ def dyn_points_kept(data, cfg):
     return kept, cand
 
 
+def expected_launches(cfg, n_rays):
+    """{kernel name: launches} of one render of ``n_rays`` rays under
+    ``cfg``: K1 or K2 once per ray tile on quad, K3a and K3b once per block
+    and tile (8 each) on exact, every other kernel none."""
+    tiles = -(-n_rays // cfg.ray_tile)
+    if cfg.epipolar_mode == "exact":
+        want = {"gnt_split_view": 8 * tiles, "gnt_split_ray": 8 * tiles}
+    else:
+        want = {"gnt_fused_mono3" if cfg.gnt_use_dyn_mask else "gnt_fused_mono4": tiles}
+    return {name: want.get(name, 0) for name in
+            ("gnt_fused_mono4", "gnt_fused_mono3", "gnt_split_view", "gnt_split_ray")}
+
+
 def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
                     n_spatial=10, n_frames=12, n_samples=256, rows=(140, 144),
-                    cols=(200, 264), n_timed=2):
+                    cols=(200, 264), n_timed=2, preset="fast", tag=None):
     """Drive render_novel_view once for the unmasked slice config (bundle
-    None, K1's path) or a named bundle (``default``: K2's path), with the
-    kernels' launch counts set to 0 just before and read just after; check
-    it, then time it. Returns ({kernel name: launches}, seconds per view)."""
+    None, K1's path) or a named bundle (``default``: K2's path; on the
+    exact preset K3's), with the kernels' launch counts set to 0 just
+    before and read just after; check it, then time it. Returns
+    ({kernel name: launches}, seconds per view, the timed render's output)."""
     import numpy as np
     import torch
 
     from pgdvs_tpu_torch.data.synthetic import make_contract_data
     from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4
     from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_mono3
+    from pgdvs_tpu_torch.kernels.gnt_fused_split import gnt_split_ray, gnt_split_view
     from pgdvs_tpu_torch.renderers.compose import render_novel_view
 
-    cfg = slice_config(bundle, n_samples)
-    tag = f"[{bundle or 'main'}]"
-    want = "gnt_fused_mono3" if cfg.gnt_use_dyn_mask else "gnt_fused_mono4"
+    cfg = slice_config(bundle, n_samples, preset)
+    tag = tag or f"[{bundle or 'main'}]"
     data_np = make_contract_data(h=h, w=w, n_spatial=n_spatial,
                                  n_frames=n_frames, tgt_time=0.5)
     data = {k: torch.as_tensor(v).to(device) for k, v in data_np.items()
@@ -404,18 +527,17 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
         sync()
         return out
 
-    kernels = {"gnt_fused_mono4": gnt_fused_mono4, "gnt_fused_mono3": gnt_fused_mono3}
+    kernels = {"gnt_fused_mono4": gnt_fused_mono4, "gnt_fused_mono3": gnt_fused_mono3,
+               "gnt_split_view": gnt_split_view, "gnt_split_ray": gnt_split_ray}
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
     out = render()
     first = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
-    if device == "cuda":
-        if launches[want] <= 0:
-            raise AssertionError(f"{tag} the path launched {want} no time")
-        if any(n for name, n in launches.items() if name != want):
-            raise AssertionError(f"{tag} the path launched another kernel: {launches}")
+    if device == "cuda" and launches != expected_launches(cfg, h * w):
+        raise AssertionError(f"{tag} launches {launches}, expected "
+                             f"{expected_launches(cfg, h * w)}")
     rgb = out["combined_rgb"]
     if tuple(rgb.shape) != (h, w, 3) or not bool(torch.isfinite(rgb).all()):
         raise AssertionError(f"combined_rgb {tuple(rgb.shape)} not finite/[{h},{w},3]")
@@ -450,14 +572,38 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
         torch.cuda.reset_peak_memory_stats()
     for _ in range(n_timed):
         t0 = time.perf_counter()
-        render()
+        out = render()
         secs.append(time.perf_counter() - t0)
     log(f"{tag} s/view over {n_timed} timed runs: mean {statistics.mean(secs):.4f} "
         f"min {min(secs):.4f} max {max(secs):.4f} runs {secs}")
     if device == "cuda":
         log(f"{tag} peak device memory of a render: "
             f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    return launches, secs
+    return launches, secs, out
+
+
+# the JAX package's fast-against-exact delta of the masked bundle at this
+# scale, random weights (docs/BENCHMARK.md:60-66): a quality anchor, not a time
+JAX_QUAD_VS_EXACT = {"psnr_db": 37.19, "ssim": 0.9963}
+
+
+def exact_vs_quad(exact_rgb, quad_rgb, tag="[exact]", what="combined_rgb"):
+    """Full-image PSNR and SSIM (uint8-quantized, full mask) of the exact
+    render's image ``what`` against the quad render's, same view."""
+    import numpy as np
+
+    from pgdvs_tpu_torch.metrics.psnr_ssim import masked_psnr, masked_ssim, quantize_uint8
+
+    a = quantize_uint8(exact_rgb.float().cpu().numpy())
+    b = quantize_uint8(quad_rgb.float().cpu().numpy())
+    full = np.ones_like(a)
+    psnr, ssim = masked_psnr(a, b, full), masked_ssim(a, b, full)
+    log(f"{tag} exact vs quad ({what}): PSNR {psnr:.3f} dB, SSIM {ssim:.5f}; "
+        f"the JAX package's fast-vs-exact anchor (masked bundle, random weights): "
+        f"{JAX_QUAD_VS_EXACT['psnr_db']} dB / {JAX_QUAD_VS_EXACT['ssim']}")
+    if not (np.isfinite(psnr) and psnr > 25.0 and ssim > 0.9):
+        raise AssertionError(f"{tag} exact and quad renders disagree: {psnr} dB, {ssim}")
+    return psnr, ssim
 
 
 def main() -> int:
@@ -478,8 +624,13 @@ def main() -> int:
     models = init_gnt_models(seed=SEED, device="cuda")
     k1_worst, k1_times = phase_kernel_vs_plain(models[1])
     k2_worst, k2_times = phase_k2_vs_plain(models[1])
-    k1_launches, _ = phase_main_path(models)
-    k2_launches, _ = phase_main_path(models, bundle="default", cols=(160, 224))
+    k3_worst, k3_times = phase_k3_vs_plain(models[1])
+    k1_launches, _, _ = phase_main_path(models)
+    k2_launches, _, quad = phase_main_path(models, bundle="default", cols=(160, 224))
+    k3_launches, _, exact = phase_main_path(models, bundle="default", cols=(160, 224),
+                                            preset="exact", tag="[exact]")
+    for what in ("combined_rgb", "static_coarse_rgb"):
+        exact_vs_quad(exact[what], quad[what], what=what)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     rows = []
@@ -487,7 +638,11 @@ def main() -> int:
             ("gnt_fused_mono4", "pgdvs_tpu/kernels/gnt_fused_mono4.py:736",
              k1_worst, k1_times, k1_launches),
             ("gnt_fused_mono3", "pgdvs_tpu/kernels/gnt_fused_mono3.py:444",
-             k2_worst, k2_times, k2_launches)):
+             k2_worst, k2_times, k2_launches),
+            ("gnt_split_view", "pgdvs_tpu/kernels/gnt_fused.py:345",
+             k3_worst["view"], k3_times["view"], k3_launches),
+            ("gnt_split_ray", "pgdvs_tpu/kernels/gnt_fused.py:375",
+             k3_worst["ray"], k3_times["ray"], k3_launches)):
         rows.append({
             "name": kname,
             "route": "cuda",
@@ -499,7 +654,8 @@ def main() -> int:
             "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"],
             "bound_by": times["bound_by"],
-            # no single PyTorch call computes the GNT forward
+            # no single PyTorch call computes the GNT forward, or a
+            # half-block with its weights row
             "library_ms": None,
         })
     log(json.dumps({"kernels": rows}))

@@ -4,7 +4,8 @@ The reference's curated ``benchmark_type`` names
 (the reference's ``scripts/benchmark.sh:56-269``), copied whole from
 ``pgdvs_tpu.configs.benchmarks`` (the table is data): render_cfg overrides
 plus static mode, dataset, dataset arguments, engine and tracker selection.
-``resolve_benchmark(name)`` turns one into the port's ``RenderConfig``.
+``resolve_benchmark(name, preset)`` turns one into the port's
+``RenderConfig`` on the fast (quad) or the exact sampler.
 
 Name legend: st = static branch (cvd = consistent-video-depth point cloud,
 gnt = transformer), dy = dynamic branch, pcl_clean = statistical outlier
@@ -218,11 +219,16 @@ BENCHMARK_TYPES: Dict[str, Dict[str, Any]] = {
 BENCHMARK_TYPES["st_gnt_masked_attn_dy_cvd_pcl_clean"] = BENCHMARK_TYPES["default"]
 
 
-def resolve_benchmark(name: str):
-    """Return (render_cfg, spec dict) for a named benchmark bundle, on
-    ``apply_perf_preset`` (the quad sampler, the only one the port renders;
-    the JAX package's ``preset="exact"`` waits for the exact sampler)."""
+def resolve_benchmark(name: str, preset: str = "fast"):
+    """Return (render_cfg, spec dict) for a named benchmark bundle.
+
+    preset="fast" (default) applies ``apply_perf_preset`` (the quad
+    sampler); preset="exact" keeps the reference-faithful exact sampler.
+    """
     if name not in BENCHMARK_TYPES:
         raise KeyError(f"unknown benchmark {name!r}; known: {sorted(BENCHMARK_TYPES)}")
+    if preset not in ("fast", "exact"):
+        raise KeyError(f"unknown perf preset {preset!r}; valid: fast | exact")
     spec = dict(BENCHMARK_TYPES[name])
-    return apply_perf_preset(RenderConfig(**spec.get("render_cfg", {}))), spec
+    cfg = RenderConfig(**spec.get("render_cfg", {}))
+    return (apply_perf_preset(cfg) if preset == "fast" else cfg), spec

@@ -1,7 +1,8 @@
 // Fused GNT transformer forward (depth 8, width 64) for Hopper (sm_90a).
 //
-// Two entry points share the kernels below; they differ only in where the
-// per-(view, token) validity comes from (the MASKED template parameter):
+// Four entry points share the kernels below. The two whole forwards differ
+// only in where the per-(view, token) validity comes from (the VSRC
+// template parameter of k_view / k_ray):
 //
 //   gnt_mono4_forward  replaces pgdvs_tpu/kernels/gnt_fused_mono4.py:
 //                      gnt_fused_apply_mono4 on its rgb_feat contract;
@@ -12,6 +13,17 @@
 //                      fold_pos_code, views outer); validity read from an
 //                      explicit uint8 mask [V, R, S] (in bounds, in front and
 //                      not dynamic). Wrapper: kernels/gnt_fused_mono3.py.
+//
+// The two split entry points run one half-block each, with the ray-diff
+// code and the validity mask read from memory (VSRC_SPLIT), as the exact
+// sampler materializes them; the host loops over the 8 blocks:
+//
+//   gnt_split_view_forward  K3a, replaces pgdvs_tpu/kernels/gnt_fused.py:
+//                           _run_view (_view_kernel): one view block, no q_fc.
+//   gnt_split_ray_forward   K3b, replaces gnt_fused.py: _run_ray (_ray_kernel):
+//                           one ray block, writing its head-mean first-query
+//                           weights row; no epilogue, no count.
+//                           Wrapper of both: kernels/gnt_fused_split.py.
 //
 // Each wrapper module also holds the plain torch version its kernel is
 // checked against.
@@ -24,19 +36,23 @@
 //                max-pool over views -> q [N, 64] f32 (N = R * S tokens).
 //   k_view       one view transformer (+ q_fc on even blocks) for 64
 //                tokens: validity (recomputed, or read from the mask) and
-//                the ray-diff code from pts and the camera centres, views
+//                the ray-diff code from pts and the camera centres (or both
+//                read from memory: K3a), views
 //                streamed one at a time through an online
 //                per-channel softmax, so a token's [V, 64] set never has to
 //                sit in shared memory at once.
 //   k_ray        one ray transformer for one ray (all S samples in shared
-//                memory, heads one at a time); the last block also writes
-//                the head-mean first-query weights, rgb and the weighted
-//                valid-view count.
+//                memory, heads one at a time); the last block (every K3b
+//                launch) also writes the head-mean first-query weights, and
+//                the last block of K1 / K2 rgb and the weighted valid-view
+//                count.
 //
 // Bounds on the card: the products are bf16 WMMA tiles (16x16x16, f32
 // accumulate); the per-channel view softmax and the layer norms are f32 CUDA
 // core work. q stays f32 in global memory between kernels (it is small next
-// to h); h is written once and read once per block.
+// to h); h is written once and read once per block. K3a is the one kernel
+// here bound by bytes: per launch it reads h [V, N, 64] bf16 and the f32
+// ray-diff code once, against ~0.1 TFLOP of products.
 //
 // All dense layers run here; the host only composes weights offline
 // (wk@wv, wk@wa0, wq@wa0, p1@wa0, exact by linearity).
@@ -261,30 +277,57 @@ k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int Cp, HeadW w,
   }
 }
 
-// Validity of view v at token n: the explicit mask (MASKED) or the
-// projection test of the token's point.
-template <bool MASKED>
+// Where validity and the ray-diff code come from.
+#define VSRC_PROJ 0   // K1: projection test and ray-diff from pts + cameras
+#define VSRC_MASK 1   // K2: uint8 mask [V, N]; ray-diff from pts + cameras
+#define VSRC_SPLIT 2  // K3a: uint8 mask [V, N] and f32 ray-diff [V, N, 4]
+
+// Validity of view v at token n: the explicit mask or the projection test
+// of the token's point.
+template <int VSRC>
 __device__ __forceinline__ bool view_valid(const uint8_t* mask, const float* proj,
                                            int v, size_t N, size_t n, float px,
                                            float py, float pz, float hf, float wf) {
-  if (MASKED) return mask[(size_t)v * N + n] != 0;
+  if (VSRC != VSRC_PROJ) return mask[(size_t)v * N + n] != 0;
   return point_valid(proj + v * 12, px, py, pz, hf, wf);
 }
 
+// Ray-difference code of point p for source view v: the unit direction of
+// (to target - to source) and their dot product (cameras.ray_diff_features).
+// centers: [V+1, 3], target first.
+__device__ __forceinline__ void ray_diff_code(const float* centers, int v, float px,
+                                              float py, float pz, float* rd) {
+  float ax = centers[0] - px, ay = centers[1] - py, az = centers[2] - pz;
+  const float an = sqrtf(ax * ax + ay * ay + az * az) + 1e-6f;
+  ax /= an; ay /= an; az /= an;
+  const float* cv = centers + 3 * (v + 1);
+  float bx = cv[0] - px, by = cv[1] - py, bz = cv[2] - pz;
+  const float bn = sqrtf(bx * bx + by * by + bz * bz) + 1e-6f;
+  bx /= bn; by /= bn; bz /= bn;
+  const float dx = ax - bx, dy = ay - by, dz = az - bz;
+  const float dn = fmaxf(sqrtf(dx * dx + dy * dy + dz * dz), 1e-6f);
+  rd[0] = dx / dn;
+  rd[1] = dy / dn;
+  rd[2] = dz / dn;
+  rd[3] = ax * bx + ay * by + az * bz;
+}
+
 // ---------------------------------------------------------------------------
-// k_view: one view transformer block (+ q_fc_0/1 when has_qfc)
+// k_view: one view transformer block (+ q_fc_0/1 when has_qfc), q_in -> q_out
+// (the same buffer in K1 / K2). VSRC_SPLIT reads no pts, centres or view code
+// and needs has_qfc == 0.
 // ---------------------------------------------------------------------------
 #define VIEW_LDA 88   // [h_v (64) | pos_in (8) | zero (16)]
 #define VIEW_LDC 84
 #define VIEW_LDH 264
 
-template <bool MASKED>
+template <int VSRC>
 __global__ void __launch_bounds__(NTHREADS)
-k_view(const bf16* __restrict__ h, float* __restrict__ q,
+k_view(const bf16* __restrict__ h, const float* q_in, float* q_out,
        const float* __restrict__ pts, const float* __restrict__ vcode,
        const float* __restrict__ centers, const float* __restrict__ proj,
-       const uint8_t* __restrict__ mask, int V, int N, int S, float hf,
-       float wf, ViewW w, int has_qfc) {
+       const uint8_t* __restrict__ mask, const float* __restrict__ ray_diff,
+       int V, int N, int S, float hf, float wf, ViewW w, int has_qfc) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* A = (bf16*)smem;                                  // [TT x 88]
   float* Cs = (float*)(A + TT * VIEW_LDA);                // [TT x 84]
@@ -304,18 +347,23 @@ k_view(const bf16* __restrict__ h, float* __restrict__ q,
   float qr[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i)
-    qr[i] = live ? q[(size_t)(n0 + t) * NW + g * 16 + i] : 0.f;
+    qr[i] = live ? q_in[(size_t)(n0 + t) * NW + g * 16 + i] : 0.f;
 
   if (tid < TT) {
     const int n = min(n0 + tid, N - 1);
-    const float px = pts[n * 3], py = pts[n * 3 + 1], pz = pts[n * 3 + 2];
+    float px = 0.f, py = 0.f, pz = 0.f;
+    if (VSRC != VSRC_SPLIT) {
+      px = pts[n * 3];
+      py = pts[n * 3 + 1];
+      pz = pts[n * 3 + 2];
+    }
     pts_s[tid * 3] = px;
     pts_s[tid * 3 + 1] = py;
     pts_s[tid * 3 + 2] = pz;
     unsigned m = 0;
     int cnt = 0;
     for (int v = 0; v < V; ++v) {
-      if (view_valid<MASKED>(mask, proj, v, N, n, px, py, pz, hf, wf)) {
+      if (view_valid<VSRC>(mask, proj, v, N, n, px, py, pz, hf, wf)) {
         m |= 1u << v;
         ++cnt;
       }
@@ -345,7 +393,6 @@ k_view(const bf16* __restrict__ h, float* __restrict__ q,
     den[i] = 0.f;
     agg[i] = 0.f;
   }
-  const float cx0 = centers[0], cy0 = centers[1], cz0 = centers[2];
 
   for (int v = 0; v < V; ++v) {
     // A = [h_v | relu(pos_fc_0(ray_diff_v)) | 0]
@@ -357,17 +404,13 @@ k_view(const bf16* __restrict__ h, float* __restrict__ q,
       *(uint4*)(A + r * VIEW_LDA + c8 * 8) = val;
     }
     if (tid < TT) {
-      const float px = pts_s[tid * 3], py = pts_s[tid * 3 + 1], pz = pts_s[tid * 3 + 2];
-      float ax = cx0 - px, ay = cy0 - py, az = cz0 - pz;
-      float an = sqrtf(ax * ax + ay * ay + az * az) + 1e-6f;
-      ax /= an; ay /= an; az /= an;
-      const float* cv = centers + 3 * (v + 1);
-      float bx = cv[0] - px, by = cv[1] - py, bz = cv[2] - pz;
-      float bn = sqrtf(bx * bx + by * by + bz * bz) + 1e-6f;
-      bx /= bn; by /= bn; bz /= bn;
-      const float dx = ax - bx, dy = ay - by, dz = az - bz;
-      const float dn = fmaxf(sqrtf(dx * dx + dy * dy + dz * dz), 1e-6f);
-      const float rd[4] = {dx / dn, dy / dn, dz / dn, ax * bx + ay * by + az * bz};
+      float rd[4];
+      if (VSRC == VSRC_SPLIT) {
+        const float4 r4 = ((const float4*)ray_diff)[(size_t)v * N + min(n0 + tid, N - 1)];
+        rd[0] = r4.x; rd[1] = r4.y; rd[2] = r4.z; rd[3] = r4.w;
+      } else {
+        ray_diff_code(centers, v, pts_s[tid * 3], pts_s[tid * 3 + 1], pts_s[tid * 3 + 2], rd);
+      }
 #pragma unroll
       for (int j = 0; j < PH; ++j) {
         float p = w.p0b[j];
@@ -473,12 +516,15 @@ k_view(const bf16* __restrict__ h, float* __restrict__ q,
   }
   if (live) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) q[(size_t)(n0 + t) * NW + g * 16 + i] = qr[i];
+    for (int i = 0; i < 16; ++i) q_out[(size_t)(n0 + t) * NW + g * 16 + i] = qr[i];
   }
 }
 
 // ---------------------------------------------------------------------------
-// k_ray: one ray transformer block for one ray (blockIdx.x)
+// k_ray: one ray transformer block for one ray (blockIdx.x), q_in -> q (the
+// same buffer in K1 / K2). want_w: write the head-mean first-query weights
+// row; final: then rgb and the weighted valid-view count (K1 / K2's last
+// block).
 // ---------------------------------------------------------------------------
 #define RAY_LDQKV 56   // [q_h (16) | k_h (16) | v_h (16) | pad (8)]
 #define RAY_LDH 264
@@ -509,11 +555,11 @@ __host__ __device__ inline RayLayout ray_layout(int sp) {
   return L;
 }
 
-template <bool MASKED>
+template <int VSRC>
 __global__ void __launch_bounds__(NTHREADS)
-k_ray(float* __restrict__ q, const float* __restrict__ pts,
+k_ray(const float* q_in, float* q, const float* __restrict__ pts,
       const float* __restrict__ proj, const uint8_t* __restrict__ mask, int V,
-      int S, int Sp, float hf, float wf, RayW w, int last, FinalW fw,
+      int S, int Sp, float hf, float wf, RayW w, int want_w, int final_, FinalW fw,
       float* __restrict__ rgb_out,
       float* __restrict__ w_out, float* __restrict__ cnt_out) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -532,6 +578,7 @@ k_ray(float* __restrict__ q, const float* __restrict__ pts,
   const int r = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* qg = q + (size_t)r * S * NW;
+  const float* qi = q_in + (size_t)r * S * NW;
   const int lds = Sp + 4, ldp = Sp + 8;
 
   for (int k = tid; k < Sp; k += NTHREADS) wacc[k] = 0.f;
@@ -540,8 +587,8 @@ k_ray(float* __restrict__ q, const float* __restrict__ pts,
   for (int row = warp; row < Sp; row += NWARPS) {
     float a = 0.f, b = 0.f;
     if (row < S) {
-      a = qg[row * NW + 2 * lane];
-      b = qg[row * NW + 2 * lane + 1];
+      a = qi[row * NW + 2 * lane];
+      b = qi[row * NW + 2 * lane + 1];
       ln_warp(a, b, w.ln_s, w.ln_b, lane);
     }
     X[row * 72 + 2 * lane] = __float2bfloat16(a);
@@ -573,7 +620,7 @@ k_ray(float* __restrict__ q, const float* __restrict__ pts,
         for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
         const float inv = 1.f / sum;
         if (lane == 0) rowinv[row] = inv;
-        if (last && q0 + row == 0) {
+        if (want_w && q0 + row == 0) {
           for (int k = lane; k < S; k += 32)
             wacc[k] += expf(Sc[k] * 0.25f - m) * inv * (1.0f / HEADS);
         }
@@ -587,9 +634,9 @@ k_ray(float* __restrict__ q, const float* __restrict__ pts,
     }
   }
 
-  // q += out_fc(O)
+  // q = q_in + out_fc(O)
   gemm_epi(O, 72, w.wo, NW, Sp, NW, NW, stage, [&](int rr, int c, float val) {
-    if (rr < S) qg[rr * NW + c] += val + w.bo[c];
+    if (rr < S) qg[rr * NW + c] = qi[rr * NW + c] + val + w.bo[c];
   });
   __syncthreads();
   // q += ff(ff_norm(q)), 64 rows at a time
@@ -617,10 +664,11 @@ k_ray(float* __restrict__ q, const float* __restrict__ pts,
              });
     __syncthreads();
   }
-  if (!last) return;
+  if (want_w)
+    for (int k = tid; k < S; k += NTHREADS) w_out[(size_t)r * S + k] = wacc[k];
+  if (!final_) return;
 
-  // weights, rgb = rgb_fc(mean_s norm(q)), cnt = sum_s w_s * valid_s / V
-  for (int k = tid; k < S; k += NTHREADS) w_out[(size_t)r * S + k] = wacc[k];
+  // rgb = rgb_fc(mean_s norm(q)), cnt = sum_s w_s * valid_s / V
   float pa = 0.f, pb = 0.f;
   for (int row = warp; row < S; row += NWARPS) {
     float a = qg[row * NW + 2 * lane], b = qg[row * NW + 2 * lane + 1];
@@ -637,7 +685,7 @@ k_ray(float* __restrict__ q, const float* __restrict__ pts,
     const float* p = pts + n * 3;
     int nv = 0;
     for (int v = 0; v < V; ++v)
-      nv += view_valid<MASKED>(mask, proj, v, N, n, p[0], p[1], p[2], hf, wf);
+      nv += view_valid<VSRC>(mask, proj, v, N, n, p[0], p[1], p[2], hf, wf);
     cnt += wacc[k] * (float)nv;
   }
   for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
@@ -664,10 +712,33 @@ static inline size_t view_smem() {
          (size_t)PH * NW * 4;
 }
 
+// Reads device pointers in the packing order of kernels/gnt_fused.py
+// (pack_view_block, pack_ray_block).
+struct PtrReader {
+  const uint64_t* p;
+  int k;
+  const bf16* b() { return (const bf16*)(uintptr_t)p[k++]; }
+  const float* f() { return (const float*)(uintptr_t)p[k++]; }
+};
+
+static void read_view(PtrReader& r, ViewW& a) {
+  a.ln_s = r.f(); a.ln_b = r.f(); a.wqa0 = r.b(); a.wbig = r.b(); a.bbig = r.f();
+  a.p0 = r.f(); a.p0b = r.f(); a.wa1 = r.f(); a.ba1 = r.f(); a.wout = r.b();
+  a.bout = r.f(); a.fln_s = r.f(); a.fln_b = r.f(); a.wf1 = r.b(); a.bf1 = r.f();
+  a.wf2 = r.b(); a.bf2 = r.f(); a.wq0 = r.b(); a.bq0 = r.f(); a.wq1 = r.b();
+  a.bq1 = r.f();
+}
+
+static void read_ray(PtrReader& r, RayW& y) {
+  y.ln_s = r.f(); y.ln_b = r.f(); y.wqkv = r.b(); y.wo = r.b(); y.bo = r.f();
+  y.fln_s = r.f(); y.fln_b = r.f(); y.wf1 = r.b(); y.bf1 = r.f(); y.wf2 = r.b();
+  y.bf2 = r.f();
+}
+
 // The whole forward on `stream`: the prologue, then 8 x (view block, ray
 // block). wptrs: N_PTRS device pointers in the order of pack_mono4_weights
 // (pgdvs_tpu_torch/kernels/gnt_fused.py). Returns a cudaError_t.
-template <bool MASKED>
+template <int VSRC>
 static int run_forward(const void* rf, const void* mask, const void* pts,
                        const void* vcode, const void* centers, const void* proj,
                        int V, int R, int S, int C, int Cp, float hf, float wf,
@@ -679,50 +750,41 @@ static int run_forward(const void* rf, const void* mask, const void* pts,
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int N = R * S;
   const int Sp = (S + 15) / 16 * 16;
-  int k = 0;
-  auto nb = [&]() { return (const bf16*)(uintptr_t)wptrs[k++]; };
-  auto nf = [&]() { return (const float*)(uintptr_t)wptrs[k++]; };
-
+  PtrReader rd{wptrs, 0};
   HeadW hw;
-  hw.w0 = nb(); hw.b0 = nf(); hw.w1 = nb(); hw.b1 = nf();
+  hw.w0 = rd.b(); hw.b0 = rd.f(); hw.w1 = rd.b(); hw.b1 = rd.f();
   ViewW vw[DEPTH];
   RayW rw[DEPTH];
   for (int b = 0; b < DEPTH; ++b) {
-    ViewW& a = vw[b];
-    a.ln_s = nf(); a.ln_b = nf(); a.wqa0 = nb(); a.wbig = nb(); a.bbig = nf();
-    a.p0 = nf(); a.p0b = nf(); a.wa1 = nf(); a.ba1 = nf(); a.wout = nb();
-    a.bout = nf(); a.fln_s = nf(); a.fln_b = nf(); a.wf1 = nb(); a.bf1 = nf();
-    a.wf2 = nb(); a.bf2 = nf(); a.wq0 = nb(); a.bq0 = nf(); a.wq1 = nb();
-    a.bq1 = nf();
-    RayW& y = rw[b];
-    y.ln_s = nf(); y.ln_b = nf(); y.wqkv = nb(); y.wo = nb(); y.bo = nf();
-    y.fln_s = nf(); y.fln_b = nf(); y.wf1 = nb(); y.bf1 = nf(); y.wf2 = nb();
-    y.bf2 = nf();
+    read_view(rd, vw[b]);
+    read_ray(rd, rw[b]);
   }
   FinalW fw;
-  fw.norm_s = nf(); fw.norm_b = nf(); fw.rgb_w = nf(); fw.rgb_b = nf();
+  fw.norm_s = rd.f(); fw.norm_b = rd.f(); fw.rgb_w = rd.f(); fw.rgb_b = rd.f();
 
   cudaError_t err;
   const size_t sm_pro = prologue_smem(Cp), sm_view = view_smem();
   const size_t sm_ray = ray_layout(Sp).total;
   if ((err = cudaFuncSetAttribute(k_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
-  if ((err = cudaFuncSetAttribute(k_view<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_view))) return (int)err;
-  if ((err = cudaFuncSetAttribute(k_ray<MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_ray))) return (int)err;
+  if ((err = cudaFuncSetAttribute(k_view<VSRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_view))) return (int)err;
+  if ((err = cudaFuncSetAttribute(k_ray<VSRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_ray))) return (int)err;
 
   const int nblk = (N + TT - 1) / TT;
   k_prologue<<<nblk, NTHREADS, sm_pro, stream>>>(
       (const bf16*)rf, V, N, C, Cp, hw, (bf16*)h_scratch, (float*)q_scratch);
   if ((err = cudaGetLastError())) return (int)err;
+  float* q = (float*)q_scratch;
   for (int b = 0; b < DEPTH; ++b) {
-    k_view<MASKED><<<nblk, NTHREADS, sm_view, stream>>>(
-        (const bf16*)h_scratch, (float*)q_scratch, (const float*)pts,
-        (const float*)vcode, (const float*)centers, (const float*)proj,
-        (const uint8_t*)mask, V, N, S, hf, wf, vw[b], b % 2 == 0);
+    k_view<VSRC><<<nblk, NTHREADS, sm_view, stream>>>(
+        (const bf16*)h_scratch, q, q, (const float*)pts, (const float*)vcode,
+        (const float*)centers, (const float*)proj, (const uint8_t*)mask,
+        nullptr, V, N, S, hf, wf, vw[b], b % 2 == 0);
     if ((err = cudaGetLastError())) return (int)err;
-    k_ray<MASKED><<<R, NTHREADS, sm_ray, stream>>>(
-        (float*)q_scratch, (const float*)pts, (const float*)proj,
-        (const uint8_t*)mask, V, S, Sp, hf, wf, rw[b], b == DEPTH - 1, fw,
-        (float*)rgb_out, (float*)w_out, (float*)cnt_out);
+    const int last = b == DEPTH - 1;
+    k_ray<VSRC><<<R, NTHREADS, sm_ray, stream>>>(
+        q, q, (const float*)pts, (const float*)proj, (const uint8_t*)mask, V,
+        S, Sp, hf, wf, rw[b], last, last, fw, (float*)rgb_out, (float*)w_out,
+        (float*)cnt_out);
     if ((err = cudaGetLastError())) return (int)err;
   }
   return 0;
@@ -746,7 +808,7 @@ int gnt_mono4_forward(const void* rf, const void* pts, const void* vcode,
                       const uint64_t* wptrs, int n_ptrs, void* h_scratch,
                       void* q_scratch, void* rgb_out, void* w_out,
                       void* cnt_out, void* stream_ptr) {
-  return run_forward<false>(rf, nullptr, pts, vcode, centers, proj, V, R, S,
+  return run_forward<VSRC_PROJ>(rf, nullptr, pts, vcode, centers, proj, V, R, S,
                             C, Cp, hf, wf, wptrs, n_ptrs, h_scratch, q_scratch,
                             rgb_out, w_out, cnt_out, stream_ptr);
 }
@@ -761,9 +823,55 @@ int gnt_mono3_forward(const void* rf, const void* pts, const void* vcode,
                       void* q_scratch, void* rgb_out, void* w_out,
                       void* cnt_out, void* stream_ptr) {
   if (mask == nullptr) return (int)cudaErrorInvalidValue;
-  return run_forward<true>(rf, mask, pts, vcode, centers, nullptr, V, R, S, C,
+  return run_forward<VSRC_MASK>(rf, mask, pts, vcode, centers, nullptr, V, R, S, C,
                            Cp, hf, wf, wptrs, n_ptrs, h_scratch, q_scratch,
                            rgb_out, w_out, cnt_out, stream_ptr);
 }
+
+// K3a: one view block over N tokens, q_in [N, 64] f32 -> q_out [N, 64] f32
+// (may be q_in), reading h [V, N, 64] bf16, ray_diff [V, N, 4] f32 (16-byte
+// aligned) and mask (uint8 [V, N], nonzero = valid). wptrs: N_VIEW_PTRS
+// pointers of pack_view_block; the q_fc ones are not read.
+int gnt_split_view_forward(const void* q_in, void* q_out, const void* h,
+                           const void* ray_diff, const void* mask, int V, int N,
+                           const uint64_t* wptrs, int n_ptrs, void* stream_ptr) {
+  if (n_ptrs != N_VIEW_PTRS || V > MAX_VIEWS || V < 1 || N < 1 || !mask || !ray_diff ||
+      ((uintptr_t)ray_diff & 15))
+    return (int)cudaErrorInvalidValue;
+  PtrReader rd{wptrs, 0};
+  ViewW a;
+  read_view(rd, a);
+  const size_t sm = view_smem();
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(k_view<VSRC_SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm))) return (int)err;
+  k_view<VSRC_SPLIT><<<(N + TT - 1) / TT, NTHREADS, sm, (cudaStream_t)stream_ptr>>>(
+      (const bf16*)h, (const float*)q_in, (float*)q_out, nullptr, nullptr, nullptr,
+      nullptr, (const uint8_t*)mask, (const float*)ray_diff, V, N, 1, 0.f, 0.f, a, 0);
+  return (int)cudaGetLastError();
+}
+
+// K3b: one ray block over R rays of S samples, q_in [R, S, 64] f32 ->
+// q_out (may be q_in), and w_out [R, S] f32, the head-mean of the first
+// query's attention row. wptrs: N_RAY_PTRS pointers of pack_ray_block.
+int gnt_split_ray_forward(const void* q_in, void* q_out, void* w_out, int R, int S,
+                          const uint64_t* wptrs, int n_ptrs, void* stream_ptr) {
+  if (n_ptrs != N_RAY_PTRS || R < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  PtrReader rd{wptrs, 0};
+  RayW y;
+  read_ray(rd, y);
+  const int Sp = (S + 15) / 16 * 16;
+  const size_t sm = ray_layout(Sp).total;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(k_ray<VSRC_SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm))) return (int)err;
+  FinalW none{};
+  k_ray<VSRC_SPLIT><<<R, NTHREADS, sm, (cudaStream_t)stream_ptr>>>(
+      (const float*)q_in, (float*)q_out, nullptr, nullptr, nullptr, 1, S, Sp, 0.f,
+      0.f, y, 1, 0, none, nullptr, (float*)w_out, nullptr);
+  return (int)cudaGetLastError();
+}
+
+int gnt_split_n_view_ptrs() { return N_VIEW_PTRS; }
+
+int gnt_split_n_ray_ptrs() { return N_RAY_PTRS; }
 
 }  // extern "C"

@@ -46,6 +46,10 @@ SIGNATURES = {
     "gnt_mono4_ray_smem": ([c_int], c_size_t),
     "gnt_mono4_max_views": ([], c_int),
     "gnt_mono4_n_ptrs": ([], c_int),
+    "gnt_split_view_forward": ([c_void_p] * 5 + [c_int] * 2 + [c_void_p, c_int, c_void_p], c_int),
+    "gnt_split_ray_forward": ([c_void_p] * 3 + [c_int] * 2 + [c_void_p, c_int, c_void_p], c_int),
+    "gnt_split_n_view_ptrs": ([], c_int),
+    "gnt_split_n_ray_ptrs": ([], c_int),
 }
 
 

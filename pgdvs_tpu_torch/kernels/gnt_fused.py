@@ -63,71 +63,91 @@ def _k(linear) -> torch.Tensor:
     return linear.weight.detach().float().T
 
 
+def _f32(x, device) -> torch.Tensor:
+    return x.detach().to(device=device, dtype=torch.float32).contiguous()
+
+
+def _b16(x, device) -> torch.Tensor:
+    return _f32(x, device).to(torch.bfloat16).contiguous()
+
+
+def tensor_device(device) -> torch.device:
+    """``device`` as its tensors report it ("cuda" -> "cuda:N", the current
+    card), so packed weights compare equal to the operands' device."""
+    return torch.empty(0, device=device).device
+
+
+@torch.no_grad()
+def pack_view_block(vt, qf, device) -> List[Optional[torch.Tensor]]:
+    """One view transformer ``vt`` and the q_fc MLP ``qf`` that follows it
+    (None: the four q_fc pointers are null) in the kernel's 21-pointer
+    order (``read_view`` in the .cu)."""
+    a = vt.attn
+    dev0 = a.k_fc.weight.device
+    wk, wa0 = _k(a.k_fc), _k(a.attn_fc[0])
+    p0, p1, a0, a1 = a.pos_fc[0], a.pos_fc[2], a.attn_fc[0], a.attn_fc[2]
+    wqa0 = torch.zeros(NW, 16, device=dev0)
+    wqa0[:, :PH] = _k(a.q_fc) @ wa0
+    wbig = torch.zeros(80, 80, device=dev0)  # rows [h | pos_in | 0], cols [val | a0 | 0]
+    wbig[:NW, :NW] = wk @ _k(a.v_fc)
+    wbig[:NW, NW:NW + PH] = wk @ wa0
+    wbig[NW:NW + PH, :NW] = _k(p1)
+    wbig[NW:NW + PH, NW:NW + PH] = _k(p1) @ wa0
+    bbig = torch.cat([p1.bias.float(), p1.bias.float() @ wa0 + a0.bias.float()])
+    f32, b16 = (lambda x: _f32(x, device)), (lambda x: _b16(x, device))
+    out = [
+        f32(vt.attn_norm.weight), f32(vt.attn_norm.bias), b16(wqa0),
+        b16(wbig), f32(bbig), f32(_k(p0)), f32(p0.bias), f32(_k(a1)),
+        f32(a1.bias), b16(_k(a.out_fc)), f32(a.out_fc.bias),
+        f32(vt.ff_norm.weight), f32(vt.ff_norm.bias), b16(_k(vt.ff.fc1)),
+        f32(vt.ff.fc1.bias), b16(_k(vt.ff.fc2)), f32(vt.ff.fc2.bias),
+    ]
+    if qf is None:
+        return out + [None] * 4
+    wq0 = torch.zeros(192, NW, device=dev0)  # rows [q (64) | pts code (63) | view code (63) | 0]
+    wq0[:NW + 2 * POSENC] = _k(qf[0])
+    return out + [b16(wq0), f32(qf[0].bias), b16(_k(qf[2])), f32(qf[2].bias)]
+
+
+@torch.no_grad()
+def pack_ray_block(rt, device) -> List[torch.Tensor]:
+    """One ray transformer in the kernel's 11-pointer order (``read_ray`` in
+    the .cu)."""
+    ra = rt.attn
+    rq, rk, rv = _k(ra.q_fc), _k(ra.k_fc), _k(ra.v_fc)
+    # head-major columns: [q_h | k_h | v_h] for h = 0..3
+    wqkv = torch.cat(
+        [m[:, h * 16:(h + 1) * 16] for h in range(HEADS) for m in (rq, rk, rv)],
+        dim=1,
+    )
+    f32, b16 = (lambda x: _f32(x, device)), (lambda x: _b16(x, device))
+    return [
+        f32(rt.attn_norm.weight), f32(rt.attn_norm.bias), b16(wqkv),
+        b16(_k(ra.out_fc)), f32(ra.out_fc.bias), f32(rt.ff_norm.weight),
+        f32(rt.ff_norm.bias), b16(_k(rt.ff.fc1)), f32(rt.ff.fc1.bias),
+        b16(_k(rt.ff.fc2)), f32(rt.ff.fc2.bias),
+    ]
+
+
 @torch.no_grad()
 def pack_mono4_weights(gnt: GNT, device) -> Mono4Weights:
     """Compose and lay out the GNT weights in the kernel's pointer order."""
     if gnt.netwidth != NW or gnt.depth != DEPTH:
         raise ValueError("the kernel serves netwidth 64, depth 8 only")
-    device = torch.device(device)
-
-    def f32(x):
-        return x.detach().to(device=device, dtype=torch.float32).contiguous()
-
-    def b16(x):
-        return f32(x).to(torch.bfloat16).contiguous()
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=gnt.norm.weight.device)
-
+    device = tensor_device(device)
     c = 3 + gnt.in_feat_ch
     cp = -(-c // 16) * 16
     fc0, fc1 = gnt.rgbfeat_fc[0], gnt.rgbfeat_fc[2]
-    w0 = zeros(cp, NW)
+    w0 = torch.zeros(cp, NW, device=fc0.weight.device)
     w0[:c] = _k(fc0)
-    out = [b16(w0), f32(fc0.bias), b16(_k(fc1)), f32(fc1.bias)]
+    out = [_b16(w0, device), _f32(fc0.bias, device), _b16(_k(fc1), device),
+           _f32(fc1.bias, device)]
     for blk in range(DEPTH):
-        vt = gnt.view_crosstrans[blk]
-        a = vt.attn
-        wk, wa0 = _k(a.k_fc), _k(a.attn_fc[0])
-        p0, p1, a0, a1 = a.pos_fc[0], a.pos_fc[2], a.attn_fc[0], a.attn_fc[2]
-        wqa0 = zeros(NW, 16)
-        wqa0[:, :PH] = _k(a.q_fc) @ wa0
-        wbig = zeros(80, 80)  # rows [h | pos_in | 0], cols [val | a0 | 0]
-        wbig[:NW, :NW] = wk @ _k(a.v_fc)
-        wbig[:NW, NW:NW + PH] = wk @ wa0
-        wbig[NW:NW + PH, :NW] = _k(p1)
-        wbig[NW:NW + PH, NW:NW + PH] = _k(p1) @ wa0
-        bbig = torch.cat([p1.bias.float(), p1.bias.float() @ wa0 + a0.bias.float()])
-        out += [
-            f32(vt.attn_norm.weight), f32(vt.attn_norm.bias), b16(wqa0),
-            b16(wbig), f32(bbig), f32(_k(p0)), f32(p0.bias), f32(_k(a1)),
-            f32(a1.bias), b16(_k(a.out_fc)), f32(a.out_fc.bias),
-            f32(vt.ff_norm.weight), f32(vt.ff_norm.bias), b16(_k(vt.ff.fc1)),
-            f32(vt.ff.fc1.bias), b16(_k(vt.ff.fc2)), f32(vt.ff.fc2.bias),
-        ]
-        if blk % 2 == 0:
-            qf = gnt.q_fcs[blk // 2]
-            wq0 = zeros(192, NW)  # rows [q (64) | pts code (63) | view code (63) | 0]
-            wq0[:NW + 2 * POSENC] = _k(qf[0])
-            out += [b16(wq0), f32(qf[0].bias), b16(_k(qf[2])), f32(qf[2].bias)]
-        else:
-            out += [None] * 4
-        rt = gnt.view_selftrans[blk]
-        ra = rt.attn
-        rq, rk, rv = _k(ra.q_fc), _k(ra.k_fc), _k(ra.v_fc)
-        # head-major columns: [q_h | k_h | v_h] for h = 0..3
-        wqkv = torch.cat(
-            [m[:, h * 16:(h + 1) * 16] for h in range(HEADS) for m in (rq, rk, rv)],
-            dim=1,
-        )
-        out += [
-            f32(rt.attn_norm.weight), f32(rt.attn_norm.bias), b16(wqkv),
-            b16(_k(ra.out_fc)), f32(ra.out_fc.bias), f32(rt.ff_norm.weight),
-            f32(rt.ff_norm.bias), b16(_k(rt.ff.fc1)), f32(rt.ff.fc1.bias),
-            b16(_k(rt.ff.fc2)), f32(rt.ff.fc2.bias),
-        ]
-    out += [f32(gnt.norm.weight), f32(gnt.norm.bias), f32(_k(gnt.rgb_fc)),
-            f32(gnt.rgb_fc.bias)]
+        qf = gnt.q_fcs[blk // 2] if blk % 2 == 0 else None
+        out += pack_view_block(gnt.view_crosstrans[blk], qf, device)
+        out += pack_ray_block(gnt.view_selftrans[blk], device)
+    out += [_f32(t, device) for t in (gnt.norm.weight, gnt.norm.bias, _k(gnt.rgb_fc),
+                                      gnt.rgb_fc.bias)]
     return Mono4Weights(gnt, device, out, cp)
 
 
@@ -152,6 +172,30 @@ def gnt_fused_mono4_plain(gnt: GNT, rgb_feat, pts, view_code, centers, proj,
     )
     cnt = torch.sum(out["weights"] * valid.sum(0) / v, dim=-1)
     return {"rgb": out["rgb"], "weights": out["weights"], "inbound_cnt_raw": cnt}
+
+
+def check_ray_smem(lib, s, dev):
+    """Raise if one ray block of ``s`` samples (padded to 16 inside) needs
+    more shared memory than device ``dev`` allows a block."""
+    smem = lib.gnt_mono4_ray_smem(-(-s // 16) * 16)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"S={s} samples need {smem} B of shared memory per "
+                         f"ray block; the device allows {limit}")
+
+
+def call_entry(lib, entry, n_ptrs, weights, head, tail, dev):
+    """Call the C entry point ``entry`` as ``entry(*head, weight pointer
+    array, n_ptrs, *tail, stream)`` on ``dev``'s current stream. Raises if
+    ``weights`` (packed tensors, None for a null pointer) are not the
+    ``n_ptrs`` the kernel wants, or if the launch returns a cudaError."""
+    if len(weights) != n_ptrs:
+        raise RuntimeError(f"packed {len(weights)} weights, kernel wants {n_ptrs}")
+    ptrs = (ctypes.c_uint64 * n_ptrs)(*[0 if t is None else t.data_ptr() for t in weights])
+    err = getattr(lib, entry)(*head, ctypes.cast(ptrs, ctypes.c_void_p), n_ptrs, *tail,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
 
 
 def launch(entry, params, rgb_feat, pts, view_code, centers, validity, hw):
@@ -187,17 +231,9 @@ def launch(entry, params, rgb_feat, pts, view_code, centers, validity, hw):
     lib = load_library().lib
     if v > lib.gnt_mono4_max_views():
         raise ValueError(f"at most {lib.gnt_mono4_max_views()} views, got {v}")
-    sp = -(-s // 16) * 16
-    smem = lib.gnt_mono4_ray_smem(sp)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"S={s} samples need {smem} B of shared memory per "
-                         f"ray block; the device allows {limit}")
+    check_ray_smem(lib, s, dev)
     if packed is None or packed.device != dev:
         packed = pack_mono4_weights(gnt, dev)
-    n_ptrs = lib.gnt_mono4_n_ptrs()
-    if len(packed.tensors) != n_ptrs:
-        raise RuntimeError(f"packed {len(packed.tensors)} weights, kernel wants {n_ptrs}")
 
     rf = rgb_feat.contiguous()
     pts32 = pts.float().contiguous()
@@ -212,17 +248,12 @@ def launch(entry, params, rgb_feat, pts, view_code, centers, validity, hw):
         "weights": torch.empty((r, s), dtype=torch.float32, device=dev),
         "inbound_cnt_raw": torch.empty((r,), dtype=torch.float32, device=dev),
     }
-    ptrs = (ctypes.c_uint64 * n_ptrs)(
-        *[0 if t is None else t.data_ptr() for t in packed.tensors]
-    )
-    err = getattr(lib, entry)(
-        rf.data_ptr(), pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr(),
-        validity.data_ptr(), v, r, s, c, packed.cp, float(hw[0]), float(hw[1]),
-        ctypes.cast(ptrs, ctypes.c_void_p), n_ptrs, h_scr.data_ptr(),
-        q_scr.data_ptr(), outs["rgb"].data_ptr(), outs["weights"].data_ptr(),
-        outs["inbound_cnt_raw"].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    call_entry(
+        lib, entry, lib.gnt_mono4_n_ptrs(), packed.tensors,
+        (rf.data_ptr(), pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr(),
+         validity.data_ptr(), v, r, s, c, packed.cp, float(hw[0]), float(hw[1])),
+        (h_scr.data_ptr(), q_scr.data_ptr(), outs["rgb"].data_ptr(),
+         outs["weights"].data_ptr(), outs["inbound_cnt_raw"].data_ptr()), dev)
     return outs
 
 

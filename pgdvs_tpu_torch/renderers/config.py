@@ -7,13 +7,21 @@ Carries the semantic fields of ``pgdvs_tpu.renderers.config.RenderConfig``
 ``pallas_precompute_kv``, ``pallas_ablate``, ``pallas_fold_*``,
 ``pallas_patch_block``, ``dyn_point_capacity``, ``track_queries_per_frame``,
 ``knn_tile`` and ``compiler_options_for``. On CUDA the port always runs a
-hand kernel, with every fold inside it; which one follows from the
-semantic flags alone: K1 (``kernels/gnt_fused.py``) without the dyn mask,
-K2 (``kernels/gnt_fused_mono3.py``) with it.
+hand kernel; which one follows from the semantic flags alone:
+
+  quad sampling, no dyn mask    K1 (``kernels/gnt_fused.py``): validity,
+                                ray-diff and point code made in the kernel;
+  quad sampling, dyn mask       K2 (``kernels/gnt_fused_mono3.py``): validity
+                                read from the sampler's mask;
+  exact sampling, either        K3 (``kernels/gnt_fused_split.py``): the
+                                split view / ray half-block kernels, fed the
+                                ray-diff code, the mask and the point code
+                                that only the exact sampler materializes.
 
 The port renders these slices of the configuration space so far: static
 GNT with or without masked view attention (``gnt_use_dyn_mask``,
-``pure_gnt_with_dyn_mask``), quad epipolar sampling, coarse samples only,
+``pure_gnt_with_dyn_mask``), exact (the default, reference-faithful) or
+quad epipolar sampling, coarse samples only,
 softsplat dynamic layer with or without statistical outlier removal
 (``dyn_pcl_remove_outlier``), no tracker. ``check_slice`` raises ValueError
 for anything outside them; nothing falls back silently.
@@ -61,7 +69,7 @@ class RenderConfig:
 
     # --- execution ---------------------------------------------------------
     ray_tile: int = 2048        # rays per GNT call
-    epipolar_mode: str = "exact"  # the port samples 'quad' only
+    epipolar_mode: str = "exact"  # 'exact' (reference-faithful) | 'quad'
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
@@ -78,7 +86,7 @@ def check_slice(cfg: RenderConfig, static_mode: str = "gnt") -> None:
     unsupported = {
         "static_mode != 'gnt'": static_mode != "gnt",
         "n_fine_samples_per_ray > 0": cfg.n_fine_samples_per_ray > 0,
-        "epipolar_mode != 'quad'": cfg.epipolar_mode != "quad",
+        "epipolar_mode not in ('exact', 'quad')": cfg.epipolar_mode not in ("exact", "quad"),
         "render_stride != 1": cfg.render_stride != 1,
         "dyn_render_type != 'softsplat'": cfg.dyn_render_type != "softsplat",
         "dyn_render_track_temporal != 'none'": cfg.dyn_render_track_temporal != "none",

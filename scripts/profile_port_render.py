@@ -3,6 +3,7 @@
 
     python3 scripts/profile_port_render.py                  # unmasked slice (K1)
     python3 scripts/profile_port_render.py --bundle default # masked bundle (K2)
+    python3 scripts/profile_port_render.py --bundle default --preset exact  # (K3)
 
 Renders the 288x550, 10-source, 256-sample synthetic scene of
 ``chip_smoke.py`` once as a warm-up, times a second render with the host
@@ -45,6 +46,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bundle", default=None, help="named bundle (default: the "
                     "unmasked slice config)")
+    ap.add_argument("--preset", default="fast", choices=("fast", "exact"),
+                    help="fast (quad sampler) or exact (the reference-faithful one)")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
 
@@ -67,7 +70,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     models = init_gnt_models(seed=chip_smoke.SEED)
-    cfg = chip_smoke.slice_config(args.bundle)
+    cfg = chip_smoke.slice_config(args.bundle, preset=args.preset)
     data_np = make_contract_data(h=288, w=550, n_spatial=10, n_frames=12, tgt_time=0.5)
     data = {k: torch.as_tensor(v).cuda() for k, v in data_np.items()
             if isinstance(v, np.ndarray)}
@@ -97,7 +100,7 @@ def main() -> int:
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     total = sum(us for us, _n in by_name.values()) / 1e6
-    label = args.bundle or "unmasked slice"
+    label = f"{args.bundle or 'unmasked slice'}, {args.preset} preset"
     print(f"[profile] {label}: unprofiled render {wall:.4f} s; profiled render "
           f"{prof_wall:.4f} s; kernel time {total:.4f} s; device busy {busy:.4f} s "
           f"= {busy / prof_wall:.2%} of the profiled render's wall clock (idle "

@@ -1,5 +1,5 @@
-"""The hand kernels (K1, K2) against their plain versions, on a CUDA card
-only.
+"""The hand kernels (K1, K2, K3a, K3b) against their plain versions, on a
+CUDA card only.
 
 No JAX here, so the file runs on the GPU machine:
 
@@ -9,7 +9,8 @@ Without a card every test skips. Tolerances: rgb atol/rtol 0.02, count 0.01
 (bf16 operands with f32 accumulation against the float32 plain network);
 weights 0.05 / S, a share of their mean 1/S, which rejects weights written
 uniform or in a wrong sample order wherever the samples of a ray differ.
-The tiny render is held to the slice's bounds.
+One K3 half-block's q: atol 0.02 + 2 % of |q|. The tiny renders are held to
+the slice's bounds.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 from pgdvs_tpu_torch.core import cameras as cam
 from pgdvs_tpu_torch.kernels import gnt_fused as k1
 from pgdvs_tpu_torch.kernels import gnt_fused_mono3 as k2
+from pgdvs_tpu_torch.kernels import gnt_fused_split as k3
 from pgdvs_tpu_torch.models.gnt.network import sinusoidal_embed
 
 pytestmark = pytest.mark.cuda
@@ -60,17 +62,24 @@ def _operands(v, r, s, behind=False, seed=13, hw=(20, 28)):
     )
 
 
+def _assert_weights(got, ref, s, spread):
+    """Weights [R, S] within 0.05 / S; where the samples of a ray differ
+    (``spread``), uniform or reordered weights would not be."""
+    tol = 0.05 / s
+    torch.testing.assert_close(got, ref, atol=tol, rtol=0)
+    if spread:
+        eo = torch.cat([torch.arange(0, s, 2), torch.arange(1, s, 2)]).to(ref.device)
+        for wrong in (torch.full_like(ref, 1.0 / s), ref.flip(-1), ref[:, eo]):
+            assert float((wrong - ref).abs().max()) > tol
+
+
 def _assert_matches_plain(got, ref, s, behind):
     torch.testing.assert_close(got["rgb"], ref["rgb"], atol=0.02, rtol=0.02)
-    tol = 0.05 / s
-    torch.testing.assert_close(got["weights"], ref["weights"], atol=tol, rtol=0)
-    torch.testing.assert_close(got["inbound_cnt_raw"], ref["inbound_cnt_raw"],
-                               atol=0.01, rtol=0)
-    if not behind:  # points all at one place give uniform weights by right
-        w = ref["weights"]
-        eo = torch.cat([torch.arange(0, s, 2), torch.arange(1, s, 2)]).to(w.device)
-        for wrong in (torch.full_like(w, 1.0 / s), w.flip(-1), w[:, eo]):
-            assert float((wrong - w).abs().max()) > tol
+    # points all at one place give uniform weights by right
+    _assert_weights(got["weights"], ref["weights"], s, spread=not behind)
+    if "inbound_cnt_raw" in ref:
+        torch.testing.assert_close(got["inbound_cnt_raw"], ref["inbound_cnt_raw"],
+                                   atol=0.01, rtol=0)
 
 
 @pytest.mark.parametrize("v,r,s,behind", [(5, 16, 32, False), (5, 16, 23, False),
@@ -166,6 +175,88 @@ def test_default_render_on_card_matches_cpu(card):
         # one K2 launch per ray tile (24 * 32 rays in tiles of 256), no K1
         assert k2.gnt_fused_mono3.launches == (0 if dev == "cpu" else 3)
         assert k1.gnt_fused_mono4.launches == 0
+    got, ref = outs["cuda"], outs["cpu"]
+    for key, tol in (("combined_rgb", 0.04), ("static_coarse_depth", 0.1),
+                     ("static_coarse_inbound_cnt", 0.02), ("static_coarse_dyn_cnt", 0.02)):
+        torch.testing.assert_close(got[key].cpu(), ref[key], atol=tol, rtol=0)
+
+
+def _split_operands(card, v, r, s, behind, dyn_frac, all_dyn):
+    """q [R, S, 64] f32 and h [V, R, S, 64] bf16 at random, the rig's
+    ray-diff code [V, R, S, 4] and K2's mask [V, R, S]."""
+    ops = [o.to(card) if torch.is_tensor(o) else o for o in _operands(v, r, s, behind)]
+    rd = cam.ray_diff_features(ops[1][None], ops[3][0], ops[3][1:, None, None, :])
+    gen = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn((r, s, 64), generator=gen, device=card)
+    h = torch.randn((v, r, s, 64), generator=gen, device=card).to(torch.bfloat16)
+    return ops, q, h, rd, _mask(ops, dyn_frac, all_dyn)
+
+
+SPLIT_CASES = [(5, 16, 32, False, 0.3, 2), (5, 16, 23, False, 0.3, 2),
+               (5, 16, 32, True, 0.3, 0), (5, 16, 32, False, 1.0, 0),
+               (10, 64, 256, False, 0.2, 4)]
+
+
+@pytest.mark.parametrize("v,r,s,behind,dyn_frac,all_dyn", SPLIT_CASES)
+def test_k3_half_blocks_match_plain(card, v, r, s, behind, dyn_frac, all_dyn):
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    _fnet, gnt = init_gnt_models(seed=0, device=card)
+    _ops, q, h, rd, mask = _split_operands(card, v, r, s, behind, dyn_frac, all_dyn)
+    packed = k3.pack_split_weights(gnt, card)
+    vt, rt = packed.view[3], packed.ray[3]
+    with pytest.raises(ValueError):  # on CUDA a wrapper takes packed weights only
+        k3.gnt_split_view(q, h, rd, mask, gnt.view_crosstrans[3])
+    before = (k3.gnt_split_view.launches, k3.gnt_split_ray.launches)
+    got = k3.gnt_split_view(q, h, rd, mask, vt)
+    got_q, got_w = k3.gnt_split_ray(q, rt)
+    torch.cuda.synchronize()
+    assert (k3.gnt_split_view.launches, k3.gnt_split_ray.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = k3.split_view_plain(q, h, rd, mask, vt)
+    torch.testing.assert_close(got, ref, atol=0.02, rtol=0.02)
+    ref_q, ref_w = k3.split_ray_plain(q, rt)
+    torch.testing.assert_close(got_q, ref_q, atol=0.02, rtol=0.02)
+    _assert_weights(got_w, ref_w, s, spread=True)  # random q spreads them
+
+
+@pytest.mark.parametrize("v,r,s,behind,dyn_frac,all_dyn", SPLIT_CASES)
+def test_k3_split_forward_matches_plain(card, v, r, s, behind, dyn_frac, all_dyn):
+    from pgdvs_tpu_torch.models.gnt.network import sinusoidal_embed
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    _fnet, gnt = init_gnt_models(seed=0, device=card)
+    ops, _q, _h, rd, mask = _split_operands(card, v, r, s, behind, dyn_frac, all_dyn)
+    args = (ops[0], rd, mask, sinusoidal_embed(ops[1]), ops[2])
+    before = k3.gnt_split_view.launches
+    got = k3.gnt_fused_split(gnt, *args)
+    torch.cuda.synchronize()
+    assert k3.gnt_split_view.launches == before + 8
+    _assert_matches_plain(got, k3.gnt_fused_split_plain(gnt, *args), s, behind)
+
+
+def test_exact_default_render_on_card_matches_cpu(card):
+    from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.renderers.compose import render_novel_view
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    data = make_contract_data(h=24, w=32, n_spatial=3, n_frames=6)
+    cfg = resolve_benchmark("default", preset="exact")[0].replace(
+        n_coarse_samples_per_ray=16, ray_tile=256)
+    noise = torch.from_numpy(np.random.default_rng(0).normal(size=(24, 32, 3)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", card):
+        tdata = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in data.items()
+                 if isinstance(v, np.ndarray)}
+        k1.gnt_fused_mono4.launches = k2.gnt_fused_mono3.launches = 0
+        k3.gnt_split_view.launches = k3.gnt_split_ray.launches = 0
+        outs[str(dev)] = render_novel_view(init_gnt_models(seed=0, device=dev), tdata,
+                                           cfg, noise=noise.to(dev))
+        # 8 K3a and 8 K3b launches per ray tile (24 * 32 rays in tiles of 256)
+        n = 0 if dev == "cpu" else 24
+        assert (k3.gnt_split_view.launches, k3.gnt_split_ray.launches) == (n, n)
+        assert k1.gnt_fused_mono4.launches == k2.gnt_fused_mono3.launches == 0
     got, ref = outs["cuda"], outs["cpu"]
     for key, tol in (("combined_rgb", 0.04), ("static_coarse_depth", 0.1),
                      ("static_coarse_inbound_cnt", 0.02), ("static_coarse_dyn_cnt", 0.02)):

@@ -183,6 +183,7 @@ def test_bundle_resolves_like_jax(name):
 def test_unknown_bundle_or_preset_raises():
     with pytest.raises(KeyError):
         resolve_benchmark("no_such_bundle")
-    # the port renders the quad preset only: it takes no preset argument
-    with pytest.raises(TypeError):
-        resolve_benchmark("default", preset="exact")
+    with pytest.raises(KeyError):
+        resolve_benchmark("default", preset="no_such_preset")
+    # the exact preset resolves, on the reference-faithful sampler
+    assert resolve_benchmark("default", preset="exact")[0].epipolar_mode == "exact"

@@ -113,6 +113,6 @@ def test_slice_refuses_configs_outside_it(both):
                       (base, "geo"),
                       (base.replace(dyn_render_type="mesh"), "gnt"),
                       (base.replace(dyn_render_track_temporal="no_tgt"), "gnt"),
-                      (RenderConfig(n_coarse_samples_per_ray=4), "gnt")):
+                      (base.replace(epipolar_mode="patch"), "gnt")):
         with pytest.raises(ValueError):
             render_novel_view(models, tdata, cfg, static_mode=mode)
