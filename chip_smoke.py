@@ -18,11 +18,19 @@ exits non-zero without printing a result:
      read the ray-diff code and the mask from memory) against their plain
      versions on the same cases, then the whole split forward against its
      plain loop; per-launch times and bounds at the main tile;
-  4. K1 path: ``render_novel_view`` with the unmasked slice config on the
-     288x550, 10-source, 256-sample synthetic scene with random weights from
-     a fixed seed; the kernels' launch counts, finite output of the right
-     shape, a crop of rays held against the plain path on the CPU, seconds
-     per view and peak device memory;
+  3d. K1 patch_rows vs plain: K1 fed raw patch rows and stencil
+     coefficients (the combine in its prologue) against its plain version
+     at both ray-block geometries (2x2 rays / 16 stencil positions, 4x2 /
+     24) and at the main tile, with both times there;
+  4. the main path (``[main]``): ``render_novel_view`` with
+     ``apply_perf_preset(RenderConfig())`` (patch sampling on 4x2 ray
+     blocks, K1's patch_rows mode) on the 288x550, 10-source, 256-sample
+     synthetic scene with random weights from a fixed seed; the kernels'
+     launch counts, finite output of the right shape, a crop of rays held
+     against the plain path on the CPU, the share of taps clamped to their
+     block's border, seconds per view and peak device memory;
+  4b. the unmasked quad path (``[quad]``, K1 on sampled features): the same,
+     then PSNR / SSIM of the patch render against it;
   5. K2 path: the same for the paper's ``default`` bundle (masked view
      attention + outlier removal of the dynamic cloud), plus the count of
      dynamic points the outlier removal keeps;
@@ -149,8 +157,9 @@ def phase_build():
     return secs
 
 
-def _rig(v, r, s, hw=(20, 28), seed=13, behind=False, device="cuda"):
-    """Source cameras on a small arc and random points in front of them."""
+def _rig(v, r, s, hw=(20, 28), seed=13, behind=False, device="cuda", feats=True):
+    """Source cameras on a small arc and random points in front of them
+    (and random features [V, R, S, 35] unless ``feats`` is False)."""
     import numpy as np
     import torch
 
@@ -173,16 +182,17 @@ def _rig(v, r, s, hw=(20, 28), seed=13, behind=False, device="cuda"):
     else:
         pts = rng.normal(0, 0.8, (r, s, 3)).astype(np.float32) + np.float32([0, 0, 2.5])
     ray_d = rng.normal(size=(r, 3)).astype(np.float32)
-    rf = rng.normal(size=(v, r, s, 35)).astype(np.float32)
     ray_d = torch.from_numpy(ray_d)
     ops = {
-        "rgb_feat": torch.from_numpy(rf).to(torch.bfloat16),
         "pts": torch.from_numpy(pts),
         "view_code": sinusoidal_embed(ray_d / ray_d.norm(dim=-1, keepdim=True)),
         "centers": torch.cat([cam.flat_cam_c2w(cams[0])[None, :3, 3],
                               cam.flat_cam_c2w(cams)[:, :3, 3]]),
         "proj": cam.flat_cam_projection(cams),
     }
+    if feats:
+        ops["rgb_feat"] = torch.from_numpy(
+            rng.normal(size=(v, r, s, 35)).astype(np.float32)).to(torch.bfloat16)
     return {k_: t.to(device) for k_, t in ops.items()}, hw
 
 
@@ -347,6 +357,73 @@ def phase_k2_vs_plain(gnt):
     return worst, times
 
 
+def patch_cost(v, r, s, c, n_pos, nb):
+    """(FLOP, bytes) of one K1 forward on patch rows: ``gnt_cost`` with the
+    sampled features' bytes replaced by the rows' (bf16 [V, R/nb, S,
+    n_pos*C], each read once) and the coefficients' (bf16 [V, R, S, n_pos]),
+    plus the stencil combine, 2 * n_pos * C FLOP per (view, token), counted
+    at the bf16 peak (a product the tensor cores could run, as the TPU
+    kernel does)."""
+    flops, nbytes = gnt_cost(v, r, s, c, False)
+    nbytes += v * (r // nb) * s * n_pos * c * 2 + v * r * s * n_pos * 2 - v * r * s * c * 2
+    return flops + 2 * n_pos * c * v * r * s, nbytes
+
+
+PATCH_CASES = [
+    ("odd_s_2x2", dict(v=5, r=64, s=23), 4, 16),
+    ("odd_s_4x2", dict(v=5, r=64, s=23), 8, 24),
+    ("all_invalid", dict(v=5, r=16, s=32, behind=True), 8, 24),
+    ("main_tile", dict(v=10, r=2048, s=256, hw=(288, 550)), 8, 24),
+]
+
+
+def _patch_ops(kw, nb, n_pos, seed=21):
+    """The rig's points and cameras with K1's patch_rows operands, made on
+    the card: random bf16 rows [V, R/nb, S, n_pos*35] and coefficients
+    [V, R/4, 4, S, n_pos], non-negative and summing to 1 per tap (like
+    bilinear weights)."""
+    import torch
+
+    ops, hw = _rig(**kw, feats=False)
+    v, r, s = kw["v"], kw["r"], kw["s"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.randn((v, r // nb, s, n_pos * 35), generator=gen, device="cuda") * 0.5
+    coef = torch.rand((v, r // 4, 4, s, n_pos), generator=gen, device="cuda")
+    coef = coef / coef.sum(-1, keepdim=True)
+    return (rows.to(torch.bfloat16), coef.to(torch.bfloat16), ops["pts"], ops["view_code"],
+            ops["centers"], ops["proj"], hw)
+
+
+def phase_patch_vs_plain(gnt):
+    """K1's patch_rows mode against its plain version on PATCH_CASES; times
+    and bound at the main tile."""
+    import torch
+
+    from pgdvs_tpu_torch.kernels.gnt_fused import pack_mono4_weights
+    from pgdvs_tpu_torch.kernels.gnt_fused_patch import (
+        gnt_fused_mono4_patch, gnt_fused_mono4_patch_plain,
+    )
+
+    packed = pack_mono4_weights(gnt, "cuda")
+    worst = {k: 0.0 for k in KERNEL_TOL}
+    times = {}
+    for name, kw, nb, n_pos in PATCH_CASES:
+        args = _patch_ops(kw, nb, n_pos)
+        got = gnt_fused_mono4_patch(packed, *args)
+        torch.cuda.synchronize()
+        ref = gnt_fused_mono4_patch_plain(gnt, *args)
+        _check_against_plain(f"K1 patch_rows {name}", dict(kw, rays_per_row=nb, n_pos=n_pos),
+                             got, ref, worst)
+        del ref
+        if name == "main_tile":
+            v, r, s = kw["v"], kw["r"], kw["s"]
+            _time_main_tile("K1 patch_rows", times, (v, r, s),
+                            patch_cost(v, r, s, 35, n_pos, nb),
+                            lambda: gnt_fused_mono4_patch(packed, *args),
+                            lambda: gnt_fused_mono4_patch_plain(gnt, *args))
+    return worst, times
+
+
 K3_CASES = [
     ("small", dict(v=5, r=64, s=32), 0.3),
     ("odd_s", dict(v=5, r=64, s=23), 0.3),
@@ -417,27 +494,31 @@ def phase_k3_vs_plain(gnt, blk=2):
 
 
 def slice_config(bundle=None, n_samples=256, preset="fast"):
-    """The unmasked slice config (bundle None) or a named bundle, on the
-    fast (quad) or exact preset, with ``n_samples`` coarse samples."""
+    """The unmasked config (bundle None) or a named bundle, with
+    ``n_samples`` coarse samples, on the fast preset (the JAX package's:
+    patch without the dyn mask, quad with it), on it with quad sampling
+    ("quad") or on the exact sampler ("exact")."""
     from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
     from pgdvs_tpu_torch.renderers.config import RenderConfig, apply_perf_preset
 
+    if preset not in ("fast", "quad", "exact"):
+        raise KeyError(f"unknown preset {preset!r}; valid: fast | quad | exact")
     if bundle is not None:
-        cfg = resolve_benchmark(bundle, preset=preset)[0]
+        cfg = resolve_benchmark(bundle, preset="exact" if preset == "exact" else "fast")[0]
     else:
-        cfg = apply_perf_preset(RenderConfig()) if preset == "fast" else RenderConfig()
+        cfg = RenderConfig() if preset == "exact" else apply_perf_preset(RenderConfig())
+    if preset == "quad":
+        cfg = cfg.replace(epipolar_mode="quad")
     return cfg.replace(n_coarse_samples_per_ray=n_samples)
 
 
-def crop_on_cpu(models, data, cfg, rows, cols):
-    """Static layer for a crop of target pixels, rendered by the plain path
-    on the CPU from the same sampling maps the card built."""
-    import copy
-
+def _sampling_setup(models, data, cfg):
+    """What render_image_gnt sets up before its tile loop: the resolved cfg
+    and patch block, the sampling maps and the target's rays in image order."""
     import torch
 
     from pgdvs_tpu_torch.core import cameras
-    from pgdvs_tpu_torch.renderers.static_gnt import build_sampling_maps, render_rays_gnt
+    from pgdvs_tpu_torch.renderers.static_gnt import build_sampling_maps, resolve_epipolar_cfg
 
     fnet, gnt = models
     src = (data["static_rgb_src_spatial"] if cfg.gnt_use_masked_spatial_src
@@ -446,19 +527,74 @@ def crop_on_cpu(models, data, cfg, rows, cols):
     h, w = src.shape[1:3]
     tgt = data["flat_cam_tgt"]
     with torch.no_grad():
-        maps = build_sampling_maps(cfg, src, fnet(src), masks)
-        maps = (maps.cpu() if torch.is_tensor(maps)
-                else type(maps)(*(None if t is None else t.cpu() for t in maps)))
+        cfg, block = resolve_epipolar_cfg(cfg, gnt, h, w)
+        maps = build_sampling_maps(cfg, src, fnet(src), masks, block)
         rays_o, rays_d, _uv, _ = cameras.get_rays(
             h, w, cameras.flat_cam_intrinsics(tgt), cameras.flat_cam_c2w(tgt))
-        idx = (torch.arange(*rows)[:, None] * w + torch.arange(*cols)[None]).reshape(-1)
-        idx = idx.to(rays_o.device)
+    return cfg, block, maps, rays_o, rays_d
+
+
+def crop_on_cpu(models, data, cfg, rows, cols):
+    """Static layer for a crop of target pixels, rendered by the plain path
+    on the CPU from the same sampling maps the card built. On patch the
+    crop's rays go in the image's ray blocks (``rows`` and ``cols`` aligned
+    to the block) and come back in image order."""
+    import copy
+
+    import torch
+
+    from pgdvs_tpu_torch.models.gnt.projector import PATCH_BLOCKS
+    from pgdvs_tpu_torch.renderers.static_gnt import patch_ray_perm, render_rays_gnt
+
+    cfg, block, maps, rays_o, rays_d = _sampling_setup(models, data, cfg)
+    w = data["rgb_src_spatial"].shape[2]
+    tgt = data["flat_cam_tgt"]
+    maps = (maps.cpu() if torch.is_tensor(maps)
+            else type(maps)(*(t.cpu() if torch.is_tensor(t) else t for t in maps)))
+    shape = (rows[1] - rows[0], cols[1] - cols[0])
+    idx = (torch.arange(*rows)[:, None] * w + torch.arange(*cols)[None]).reshape(-1)
+    inv = None
+    if block is not None:
+        by, bx = PATCH_BLOCKS[block][0]
+        if rows[0] % by or shape[0] % by or cols[0] % bx or shape[1] % bx:
+            raise ValueError(f"crop {rows} x {cols} is not aligned to the {block} ray blocks")
+        perm, inv = patch_ray_perm(idx.numel(), *shape, by, bx)
+        idx = idx[perm]
+    idx = idx.to(rays_o.device)
+    with torch.no_grad():
         out = render_rays_gnt(
-            copy.deepcopy(gnt).cpu(), rays_o[idx].cpu(), rays_d[idx].cpu(),
+            copy.deepcopy(models[1]).cpu(), rays_o[idx].cpu(), rays_d[idx].cpu(),
             data["depth_range"].expand(idx.numel(), 2).cpu(), tgt.cpu(),
             data["flat_cam_src_spatial"].cpu(), maps, cfg)
-    shape = (rows[1] - rows[0], cols[1] - cols[0])
+    if inv is not None:
+        out = {k: v[inv] for k, v in out.items()}
     return {k: out[k].reshape(shape + out[k].shape[1:]) for k in SLICE_TOL}
+
+
+def clamp_fraction(models, data, cfg):
+    """The share of in-reach taps of a whole render that its patch sampler
+    clamps to their block's border (``patch_clamp_counts`` summed over the
+    ray tiles, rays in block order as the renderer sends them)."""
+    import torch
+
+    from pgdvs_tpu_torch.core import cameras, sampling
+    from pgdvs_tpu_torch.models.gnt.projector import PATCH_BLOCKS, patch_clamp_counts
+    from pgdvs_tpu_torch.renderers.static_gnt import patch_ray_perm
+
+    cfg, block, maps, rays_o, rays_d = _sampling_setup(models, data, cfg)
+    _v, h, w = maps.vhw
+    perm, _inv = patch_ray_perm(h * w, h, w, *PATCH_BLOCKS[block][0], device=rays_o.device)
+    proj = cameras.flat_cam_projection(data["flat_cam_src_spatial"])
+    clamped = reach = 0
+    with torch.no_grad():
+        for i in range(0, h * w, cfg.ray_tile):
+            t = perm[i:i + cfg.ray_tile]
+            pts, _z = sampling.sample_along_rays(
+                rays_o[t], rays_d[t], data["depth_range"].expand(t.numel(), 2),
+                cfg.n_coarse_samples_per_ray, inv_uniform=cfg.sample_inv_uniform)
+            c, n = patch_clamp_counts(pts, proj, maps)
+            clamped, reach = clamped + int(c), reach + int(n)
+    return clamped / max(reach, 1), clamped, reach
 
 
 def dyn_points_kept(data, cfg):
@@ -480,37 +616,51 @@ def dyn_points_kept(data, cfg):
     return kept, cand
 
 
+KERNELS = ("gnt_fused_mono4", "gnt_fused_mono4_patch", "gnt_fused_mono3",
+           "gnt_split_view", "gnt_split_ray")
+
+
 def expected_launches(cfg, n_rays):
     """{kernel name: launches} of one render of ``n_rays`` rays under
-    ``cfg``: K1 or K2 once per ray tile on quad, K3a and K3b once per block
-    and tile (8 each) on exact, every other kernel none."""
+    ``cfg`` (resolved: ``resolve_epipolar_cfg``): K1 or K2 once per ray
+    tile on quad, K1's patch_rows mode once per tile on patch, K3a and K3b
+    once per block and tile (8 each) on exact, every other kernel none."""
     tiles = -(-n_rays // cfg.ray_tile)
     if cfg.epipolar_mode == "exact":
         want = {"gnt_split_view": 8 * tiles, "gnt_split_ray": 8 * tiles}
+    elif cfg.epipolar_mode == "patch":
+        want = {"gnt_fused_mono4_patch": tiles}
     else:
         want = {"gnt_fused_mono3" if cfg.gnt_use_dyn_mask else "gnt_fused_mono4": tiles}
-    return {name: want.get(name, 0) for name in
-            ("gnt_fused_mono4", "gnt_fused_mono3", "gnt_split_view", "gnt_split_ray")}
+    return {name: want.get(name, 0) for name in KERNELS}
 
 
 def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
                     n_spatial=10, n_frames=12, n_samples=256, rows=(140, 144),
                     cols=(200, 264), n_timed=2, preset="fast", tag=None):
-    """Drive render_novel_view once for the unmasked slice config (bundle
-    None, K1's path) or a named bundle (``default``: K2's path; on the
-    exact preset K3's), with the kernels' launch counts set to 0 just
-    before and read just after; check it, then time it. Returns
-    ({kernel name: launches}, seconds per view, the timed render's output)."""
+    """Drive render_novel_view once for the unmasked config (bundle None:
+    on the fast preset patch, K1's patch_rows mode; on "quad" K1) or a
+    named bundle (``default``: K2's path; on the exact preset K3's), with
+    the kernels' launch counts set to 0 just before and read just after;
+    check it, then time it. Returns ({kernel name: launches}, seconds per
+    view, the timed render's output)."""
+    import warnings
+
     import numpy as np
     import torch
 
     from pgdvs_tpu_torch.data.synthetic import make_contract_data
     from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4
     from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_mono3
+    from pgdvs_tpu_torch.kernels.gnt_fused_patch import gnt_fused_mono4_patch
     from pgdvs_tpu_torch.kernels.gnt_fused_split import gnt_split_ray, gnt_split_view
     from pgdvs_tpu_torch.renderers.compose import render_novel_view
+    from pgdvs_tpu_torch.renderers.static_gnt import resolve_epipolar_cfg
 
     cfg = slice_config(bundle, n_samples, preset)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # the full-size render takes no fallback
+        resolved = resolve_epipolar_cfg(cfg, models[1], h, w)[0]
     tag = tag or f"[{bundle or 'main'}]"
     data_np = make_contract_data(h=h, w=w, n_spatial=n_spatial,
                                  n_frames=n_frames, tgt_time=0.5)
@@ -527,17 +677,18 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
         sync()
         return out
 
-    kernels = {"gnt_fused_mono4": gnt_fused_mono4, "gnt_fused_mono3": gnt_fused_mono3,
-               "gnt_split_view": gnt_split_view, "gnt_split_ray": gnt_split_ray}
+    kernels = {"gnt_fused_mono4": gnt_fused_mono4, "gnt_fused_mono4_patch": gnt_fused_mono4_patch,
+               "gnt_fused_mono3": gnt_fused_mono3, "gnt_split_view": gnt_split_view,
+               "gnt_split_ray": gnt_split_ray}
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
     out = render()
     first = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
-    if device == "cuda" and launches != expected_launches(cfg, h * w):
+    if device == "cuda" and launches != expected_launches(resolved, h * w):
         raise AssertionError(f"{tag} launches {launches}, expected "
-                             f"{expected_launches(cfg, h * w)}")
+                             f"{expected_launches(resolved, h * w)}")
     rgb = out["combined_rgb"]
     if tuple(rgb.shape) != (h, w, 3) or not bool(torch.isfinite(rgb).all()):
         raise AssertionError(f"combined_rgb {tuple(rgb.shape)} not finite/[{h},{w},3]")
@@ -555,6 +706,10 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
             raise AssertionError(f"{tag} crop {key}: max err {errs[key]} over {tol}")
     log(f"{tag} crop rows {rows} cols {cols} vs plain path on CPU: "
         + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    if resolved.epipolar_mode == "patch":
+        frac, clamped, reach = clamp_fraction(models, data, cfg)
+        log(f"{tag} patch_clamp_fraction {frac:.6e} ({clamped} of {reach} in-reach taps "
+            "clamped to their block's border)")
     if cfg.gnt_use_dyn_mask:
         dyn = out["static_coarse_dyn_cnt"][rows[0]:rows[1], cols[0]:cols[1]]
         if not bool((dyn > 0).any()):
@@ -587,9 +742,10 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
 JAX_QUAD_VS_EXACT = {"psnr_db": 37.19, "ssim": 0.9963}
 
 
-def exact_vs_quad(exact_rgb, quad_rgb, tag="[exact]", what="combined_rgb"):
-    """Full-image PSNR and SSIM (uint8-quantized, full mask) of the exact
-    render's image ``what`` against the quad render's, same view."""
+def exact_vs_quad(exact_rgb, quad_rgb, tag="[exact]", what="combined_rgb", label="exact"):
+    """Full-image PSNR and SSIM (uint8-quantized, full mask) of one render's
+    image ``what`` (the exact render's, or the one ``label`` names) against
+    the quad render's, same view."""
     import numpy as np
 
     from pgdvs_tpu_torch.metrics.psnr_ssim import masked_psnr, masked_ssim, quantize_uint8
@@ -598,11 +754,12 @@ def exact_vs_quad(exact_rgb, quad_rgb, tag="[exact]", what="combined_rgb"):
     b = quantize_uint8(quad_rgb.float().cpu().numpy())
     full = np.ones_like(a)
     psnr, ssim = masked_psnr(a, b, full), masked_ssim(a, b, full)
-    log(f"{tag} exact vs quad ({what}): PSNR {psnr:.3f} dB, SSIM {ssim:.5f}; "
-        f"the JAX package's fast-vs-exact anchor (masked bundle, random weights): "
-        f"{JAX_QUAD_VS_EXACT['psnr_db']} dB / {JAX_QUAD_VS_EXACT['ssim']}")
+    anchor = ("; the JAX package's fast-vs-exact anchor (masked bundle, random weights): "
+              f"{JAX_QUAD_VS_EXACT['psnr_db']} dB / {JAX_QUAD_VS_EXACT['ssim']}"
+              if label == "exact" else "")
+    log(f"{tag} {label} vs quad ({what}): PSNR {psnr:.3f} dB, SSIM {ssim:.5f}{anchor}")
     if not (np.isfinite(psnr) and psnr > 25.0 and ssim > 0.9):
-        raise AssertionError(f"{tag} exact and quad renders disagree: {psnr} dB, {ssim}")
+        raise AssertionError(f"{tag} {label} and quad renders disagree: {psnr} dB, {ssim}")
     return psnr, ssim
 
 
@@ -625,7 +782,12 @@ def main() -> int:
     k1_worst, k1_times = phase_kernel_vs_plain(models[1])
     k2_worst, k2_times = phase_k2_vs_plain(models[1])
     k3_worst, k3_times = phase_k3_vs_plain(models[1])
-    k1_launches, _, _ = phase_main_path(models)
+    kp_worst, kp_times = phase_patch_vs_plain(models[1])
+    kp_launches, _, patch = phase_main_path(models)
+    k1_launches, _, quad1 = phase_main_path(models, preset="quad", tag="[quad]", n_timed=1)
+    for what in ("combined_rgb", "static_coarse_rgb"):
+        exact_vs_quad(patch[what], quad1[what], tag="[main]", what=what, label="patch")
+    del patch, quad1
     k2_launches, _, quad = phase_main_path(models, bundle="default", cols=(160, 224))
     k3_launches, _, exact = phase_main_path(models, bundle="default", cols=(160, 224),
                                             preset="exact", tag="[exact]")
@@ -637,6 +799,9 @@ def main() -> int:
     for kname, replaces, worst, times, launches in (
             ("gnt_fused_mono4", "pgdvs_tpu/kernels/gnt_fused_mono4.py:736",
              k1_worst, k1_times, k1_launches),
+            ("gnt_fused_mono4_patch",
+             "pgdvs_tpu/kernels/gnt_fused_mono4.py:736 (patch_rows, :771-876)",
+             kp_worst, kp_times, kp_launches),
             ("gnt_fused_mono3", "pgdvs_tpu/kernels/gnt_fused_mono3.py:444",
              k2_worst, k2_times, k2_launches),
             ("gnt_split_view", "pgdvs_tpu/kernels/gnt_fused.py:345",

@@ -5,7 +5,8 @@ The reference's curated ``benchmark_type`` names
 ``pgdvs_tpu.configs.benchmarks`` (the table is data): render_cfg overrides
 plus static mode, dataset, dataset arguments, engine and tracker selection.
 ``resolve_benchmark(name, preset)`` turns one into the port's
-``RenderConfig`` on the fast (quad) or the exact sampler.
+``RenderConfig`` on the fast (patch, or quad with masked view attention)
+or the exact sampler.
 
 Name legend: st = static branch (cvd = consistent-video-depth point cloud,
 gnt = transformer), dy = dynamic branch, pcl_clean = statistical outlier
@@ -222,8 +223,10 @@ BENCHMARK_TYPES["st_gnt_masked_attn_dy_cvd_pcl_clean"] = BENCHMARK_TYPES["defaul
 def resolve_benchmark(name: str, preset: str = "fast"):
     """Return (render_cfg, spec dict) for a named benchmark bundle.
 
-    preset="fast" (default) applies ``apply_perf_preset`` (the quad
-    sampler); preset="exact" keeps the reference-faithful exact sampler.
+    preset="fast" (default) applies ``apply_perf_preset``, as the JAX
+    package does: the patch sampler for the unmasked bundles, the quad
+    sampler for those with masked view attention; preset="exact" keeps the
+    reference-faithful exact sampler.
     """
     if name not in BENCHMARK_TYPES:
         raise KeyError(f"unknown benchmark {name!r}; known: {sorted(BENCHMARK_TYPES)}")

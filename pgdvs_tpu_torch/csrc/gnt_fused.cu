@@ -1,13 +1,16 @@
 // Fused GNT transformer forward (depth 8, width 64) for Hopper (sm_90a).
 //
-// Four entry points share the kernels below. The two whole forwards differ
-// only in where the per-(view, token) validity comes from (the VSRC
-// template parameter of k_view / k_ray):
+// Five entry points share the kernels below. The three whole forwards
+// differ only in their prologue and in where the per-(view, token) validity
+// comes from (the VSRC template parameter of k_view / k_ray):
 //
 //   gnt_mono4_forward  replaces pgdvs_tpu/kernels/gnt_fused_mono4.py:
 //                      gnt_fused_apply_mono4 on its rgb_feat contract;
 //                      validity recomputed from pts and the K @ w2c rows.
 //                      Wrapper: pgdvs_tpu_torch/kernels/gnt_fused.py.
+//   gnt_mono4_patch_forward  the same function on its patch_rows contract
+//                      (raw patch rows + stencil coefficients, the combine in
+//                      k_prologue_patch). Wrapper: kernels/gnt_fused_patch.py.
 //   gnt_mono3_forward  replaces pgdvs_tpu/kernels/gnt_fused_mono3.py:
 //                      gnt_fused_apply_mono3 (separate_mask, fold_ray_diff,
 //                      fold_pos_code, views outer); validity read from an
@@ -33,7 +36,9 @@
 // every ray. Three kernels, launched from a host loop over the 8 blocks:
 //
 //   k_prologue   rgbfeat_fc_0/1 per view token -> h [V, N, 64] bf16 and the
-//                max-pool over views -> q [N, 64] f32 (N = R * S tokens).
+//                max-pool over views -> q [N, 64] f32 (N = R * S tokens);
+//                k_prologue_patch first combines each token's patch row with
+//                its stencil coefficients (f32, rounded to bf16).
 //   k_view       one view transformer (+ q_fc on even blocks) for 64
 //                tokens: validity (recomputed, or read from the mask) and
 //                the ray-diff code from pts and the camera centres (or both
@@ -228,10 +233,14 @@ struct FinalW {
 // ---------------------------------------------------------------------------
 // k_prologue: h = rgbfeat_fc_1(relu(rgbfeat_fc_0(rgb_feat))), q = max_v h
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NTHREADS)
-k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int Cp, HeadW w,
-           bf16* __restrict__ hout, float* __restrict__ qout) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// The body both prologues share, for the block's TT tokens from n0: per
+// view v, load(v, A, lda) fills the A tile [TT x Cp] (bf16, zero past C and
+// past N) and syncs; then h = fc_1(relu(fc_0(A))) -> hout, q = max_v h.
+template <class Load>
+__device__ __forceinline__ void prologue_body(int V, int N, int Cp, const HeadW& w,
+                                              bf16* __restrict__ hout,
+                                              float* __restrict__ qout,
+                                              unsigned char* smem, Load load) {
   const int lda = Cp + 8;
   bf16* A = (bf16*)smem;                       // [TT x lda]
   bf16* A2 = A + TT * lda;                     // [TT x 72]
@@ -243,13 +252,7 @@ k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int Cp, HeadW w,
   for (int i = 0; i < 16; ++i) qm[i] = -INFINITY;
 
   for (int v = 0; v < V; ++v) {
-    const bf16* src = rf + ((size_t)v * N + n0) * C;
-    for (int i = tid; i < TT * Cp; i += NTHREADS) {
-      const int r = i / Cp, c = i - r * Cp;
-      A[r * lda + c] = (c < C && n0 + r < N) ? src[(size_t)r * C + c]
-                                             : __float2bfloat16(0.f);
-    }
-    __syncthreads();
+    load(v, A, lda);
     gemm_store(A, lda, w.w0, NW, Cs, 68, TT, NW, Cp);
     __syncthreads();
 #pragma unroll
@@ -276,6 +279,73 @@ k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int Cp, HeadW w,
     for (int i = 0; i < 16; ++i) qout[(size_t)(n0 + t) * NW + g * 16 + i] = qm[i];
   }
 }
+
+__host__ __device__ inline size_t prologue_smem(int cp) {
+  return (size_t)TT * (cp + 8) * 2 + (size_t)TT * 72 * 2 + (size_t)TT * 68 * 4;
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int Cp, HeadW w,
+           bf16* __restrict__ hout, float* __restrict__ qout) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n0 = blockIdx.x * TT;
+  prologue_body(V, N, Cp, w, hout, qout, smem, [&](int v, bf16* A, int lda) {
+    const bf16* src = rf + ((size_t)v * N + n0) * C;
+    for (int i = threadIdx.x; i < TT * Cp; i += NTHREADS) {
+      const int r = i / Cp, c = i - r * Cp;
+      A[r * lda + c] = (c < C && n0 + r < N) ? src[(size_t)r * C + c]
+                                             : __float2bfloat16(0.f);
+    }
+    __syncthreads();
+  });
+}
+
+// ---------------------------------------------------------------------------
+// k_prologue_patch: K1's prologue on its patch_rows operands. Token n = r*S +
+// s of view v takes the row rows[v, r / nb, s, :] (n_pos stencil positions x
+// C channels) and the coefficients coef[v, r, s, :] ([V, R/4, 4, S, n_pos] is
+// [V, R, S, n_pos] in memory): rgb_feat[c] = sum_p row[p*C + c] * coef[p],
+// combined in f32 and rounded to bf16 into the A tile. The block's TT tokens'
+// coefficients are staged in shared memory ([TT x n_pos] f32 after the
+// k_prologue layout) once per view.
+// ---------------------------------------------------------------------------
+#define MAX_NPOS 32
+
+__global__ void __launch_bounds__(NTHREADS)
+k_prologue_patch(const bf16* __restrict__ rows, const bf16* __restrict__ coef, int V,
+                 int R, int S, int C, int Cp, int n_pos, int nb, HeadW w,
+                 bf16* __restrict__ hout, float* __restrict__ qout) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* cf = (float*)(smem + prologue_smem(Cp));      // [TT x n_pos]
+  const int N = R * S, n0 = blockIdx.x * TT, nrb = R / nb, row_len = n_pos * C;
+  prologue_body(V, N, Cp, w, hout, qout, smem, [&](int v, bf16* A, int lda) {
+    for (int i = threadIdx.x; i < TT * n_pos; i += NTHREADS) {
+      const int n = n0 + i / n_pos;
+      cf[i] = n < N ? __bfloat162float(coef[((size_t)v * N + n) * n_pos + i % n_pos])
+                    : 0.f;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < TT * Cp; i += NTHREADS) {
+      const int r = i / Cp, c = i - r * Cp, n = n0 + r;
+      float acc = 0.f;
+      if (c < C && n < N) {
+        const int ray = n / S, s = n - ray * S;
+        const bf16* row = rows + (((size_t)v * nrb + ray / nb) * S + s) * row_len + c;
+        const float* k = cf + r * n_pos;
+        for (int p = 0; p < n_pos; ++p) acc += __bfloat162float(row[p * C]) * k[p];
+      }
+      A[r * lda + c] = __float2bfloat16(acc);
+    }
+    __syncthreads();
+  });
+}
+
+// The patch_rows operands of K1 (k_prologue_patch runs instead of k_prologue).
+struct PatchIn {
+  const void* rows;
+  const void* coef;
+  int n_pos, nb;  // stencil positions per row, rays per row block
+};
 
 // Where validity and the ray-diff code come from.
 #define VSRC_PROJ 0   // K1: projection test and ray-diff from pts + cameras
@@ -702,9 +772,6 @@ k_ray(const float* q_in, float* q, const float* __restrict__ pts,
 // ---------------------------------------------------------------------------
 // host entry
 // ---------------------------------------------------------------------------
-static inline size_t prologue_smem(int cp) {
-  return (size_t)TT * (cp + 8) * 2 + (size_t)TT * 72 * 2 + (size_t)TT * 68 * 4;
-}
 static inline size_t view_smem() {
   return (size_t)TT * VIEW_LDA * 2 + (size_t)TT * VIEW_LDC * 4 + (size_t)TT * 72 * 2 +
          (size_t)TT * 20 * 4 + (size_t)TT * VIEW_LDH * 2 +
@@ -735,16 +802,18 @@ static void read_ray(PtrReader& r, RayW& y) {
   y.bf2 = r.f();
 }
 
-// The whole forward on `stream`: the prologue, then 8 x (view block, ray
-// block). wptrs: N_PTRS device pointers in the order of pack_mono4_weights
-// (pgdvs_tpu_torch/kernels/gnt_fused.py). Returns a cudaError_t.
+// The whole forward on `stream`: the prologue (k_prologue on rf, or
+// k_prologue_patch on *patch when patch is not null), then 8 x (view block,
+// ray block). wptrs: N_PTRS device pointers in the order of
+// pack_mono4_weights (pgdvs_tpu_torch/kernels/gnt_fused.py). Returns a
+// cudaError_t.
 template <int VSRC>
 static int run_forward(const void* rf, const void* mask, const void* pts,
                        const void* vcode, const void* centers, const void* proj,
                        int V, int R, int S, int C, int Cp, float hf, float wf,
                        const uint64_t* wptrs, int n_ptrs, void* h_scratch,
                        void* q_scratch, void* rgb_out, void* w_out,
-                       void* cnt_out, void* stream_ptr) {
+                       void* cnt_out, void* stream_ptr, const PatchIn* patch = nullptr) {
   if (n_ptrs != N_PTRS || V > MAX_VIEWS || V < 1 || S < 1 || R < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -763,15 +832,23 @@ static int run_forward(const void* rf, const void* mask, const void* pts,
   fw.norm_s = rd.f(); fw.norm_b = rd.f(); fw.rgb_w = rd.f(); fw.rgb_b = rd.f();
 
   cudaError_t err;
-  const size_t sm_pro = prologue_smem(Cp), sm_view = view_smem();
-  const size_t sm_ray = ray_layout(Sp).total;
-  if ((err = cudaFuncSetAttribute(k_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
+  const size_t sm_view = view_smem(), sm_ray = ray_layout(Sp).total;
   if ((err = cudaFuncSetAttribute(k_view<VSRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_view))) return (int)err;
   if ((err = cudaFuncSetAttribute(k_ray<VSRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_ray))) return (int)err;
 
   const int nblk = (N + TT - 1) / TT;
-  k_prologue<<<nblk, NTHREADS, sm_pro, stream>>>(
-      (const bf16*)rf, V, N, C, Cp, hw, (bf16*)h_scratch, (float*)q_scratch);
+  if (patch) {
+    const size_t sm_pro = prologue_smem(Cp) + (size_t)TT * patch->n_pos * 4;
+    if ((err = cudaFuncSetAttribute(k_prologue_patch, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
+    k_prologue_patch<<<nblk, NTHREADS, sm_pro, stream>>>(
+        (const bf16*)patch->rows, (const bf16*)patch->coef, V, R, S, C, Cp, patch->n_pos,
+        patch->nb, hw, (bf16*)h_scratch, (float*)q_scratch);
+  } else {
+    const size_t sm_pro = prologue_smem(Cp);
+    if ((err = cudaFuncSetAttribute(k_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
+    k_prologue<<<nblk, NTHREADS, sm_pro, stream>>>(
+        (const bf16*)rf, V, N, C, Cp, hw, (bf16*)h_scratch, (float*)q_scratch);
+  }
   if ((err = cudaGetLastError())) return (int)err;
   float* q = (float*)q_scratch;
   for (int b = 0; b < DEPTH; ++b) {
@@ -811,6 +888,23 @@ int gnt_mono4_forward(const void* rf, const void* pts, const void* vcode,
   return run_forward<VSRC_PROJ>(rf, nullptr, pts, vcode, centers, proj, V, R, S,
                             C, Cp, hf, wf, wptrs, n_ptrs, h_scratch, q_scratch,
                             rgb_out, w_out, cnt_out, stream_ptr);
+}
+
+// K1, patch_rows mode: the features combined in k_prologue_patch from rows
+// (bf16 [V, R/nb, S, n_pos*C]) and coef (bf16 [V, R/4, 4, S, n_pos]); the rest
+// as gnt_mono4_forward.
+int gnt_mono4_patch_forward(const void* rows, const void* coef, const void* pts,
+                            const void* vcode, const void* centers, const void* proj,
+                            int V, int R, int S, int C, int Cp, int n_pos, int nb,
+                            float hf, float wf, const uint64_t* wptrs, int n_ptrs,
+                            void* h_scratch, void* q_scratch, void* rgb_out,
+                            void* w_out, void* cnt_out, void* stream_ptr) {
+  if (!rows || !coef || n_pos < 1 || n_pos > MAX_NPOS || nb < 1 || R % nb != 0)
+    return (int)cudaErrorInvalidValue;
+  const PatchIn patch{rows, coef, n_pos, nb};
+  return run_forward<VSRC_PROJ>(nullptr, nullptr, pts, vcode, centers, proj, V, R, S,
+                                C, Cp, hf, wf, wptrs, n_ptrs, h_scratch, q_scratch,
+                                rgb_out, w_out, cnt_out, stream_ptr, &patch);
 }
 
 // K2: validity read from mask (uint8 [V, R, S], nonzero = valid);

@@ -43,6 +43,13 @@ _FORWARD = (
 SIGNATURES = {
     "gnt_mono4_forward": _FORWARD,
     "gnt_mono3_forward": _FORWARD,
+    # K1's patch_rows mode: rows, coef, then _FORWARD's list with n_pos and
+    # the rays per row block after the padded C
+    "gnt_mono4_patch_forward": (
+        [c_void_p] * 6 + [c_int] * 7 + [c_float, c_float, c_void_p, c_int]
+        + [c_void_p] * 6,
+        c_int,
+    ),
     "gnt_mono4_ray_smem": ([c_int], c_size_t),
     "gnt_mono4_max_views": ([], c_int),
     "gnt_mono4_n_ptrs": ([], c_int),

@@ -1,7 +1,8 @@
 """K1 — the fused GNT transformer forward, as a hand-written Hopper kernel.
 
 Replaces the TPU kernel ``pgdvs_tpu/kernels/gnt_fused_mono4.py:
-gnt_fused_apply_mono4`` on its ``rgb_feat`` contract:
+gnt_fused_apply_mono4`` on its ``rgb_feat`` contract (its ``patch_rows``
+contract: ``kernels/gnt_fused_patch.py``, on this module's launch path):
 
     gnt_fused_mono4(params, rgb_feat [V, R, S, C] bf16, pts [R, S, 3] f32,
                     view_code [R, 63], centers [V+1, 3] f32 (target first),
@@ -198,34 +199,38 @@ def call_entry(lib, entry, n_ptrs, weights, head, tail, dev):
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
 
 
-def launch(entry, params, rgb_feat, pts, view_code, centers, validity, hw):
-    """Check, pack, allocate and launch K1 or K2; the outputs dict.
+def launch(entry, params, data, dims, pts, view_code, centers, validity, hw, extra=()):
+    """Check, pack, allocate and launch one whole forward; the outputs dict.
 
-    ``entry`` is the C entry point (``gnt_mono4_forward`` or
-    ``gnt_mono3_forward``), which share one argument list; ``validity`` is
-    its fifth pointer, K1's projection rows [V, 3, 4] f32 or K2's uint8 mask
-    [V, R, S], and ``hw`` the map size K1 tests the projection against.
-    Validates the operands common to both (rgb_feat [V, R, S, C] bf16,
-    pts [R, S, 3], view_code [R, 63], centers [V+1, 3], all on one CUDA
-    device), builds or loads the kernel library, checks the view and
-    shared-memory limits and packs the weights for the device. Raises on any
-    failure, the launch's included.
+    ``entry`` is the C entry point: ``gnt_mono4_forward`` (K1) or
+    ``gnt_mono3_forward`` (K2) with ``data = (rgb_feat [V, R, S, C],)``, or
+    ``gnt_mono4_patch_forward`` (K1's patch_rows mode) with ``data = (rows,
+    coef)`` and ``extra = (n_pos, block_rays)``. They share one argument
+    list: the data pointers, pts, view_code, centers, ``validity`` (K1's
+    projection rows [V, 3, 4] f32 or K2's uint8 mask [V, R, S]), V, R, S,
+    C, the padded C, the extra ints, the map size ``hw`` K1 tests the
+    projection against, the weights, scratch and outputs. Validates the
+    operands common to all (bf16 data, pts [R, S, 3], view_code [R, 63],
+    centers [V+1, 3], all on one CUDA device; ``dims`` = (V, R, S, C)),
+    builds or loads the kernel library, checks the view and shared-memory
+    limits and packs the weights for the device. Raises on any failure, the
+    launch's included.
     """
     packed = params if isinstance(params, Mono4Weights) else None
     gnt = packed.gnt if packed is not None else params
-    dev = rgb_feat.device
+    dev = data[0].device
     from pgdvs_tpu_torch.kernels._build import load_library
 
-    v, r, s, c = rgb_feat.shape
-    if rgb_feat.dtype != torch.bfloat16:
-        raise ValueError("rgb_feat must be bfloat16")
+    v, r, s, c = dims
+    if any(t.dtype != torch.bfloat16 for t in data):
+        raise ValueError("the kernel's feature operands must be bfloat16")
     if c != 3 + gnt.in_feat_ch:
-        raise ValueError(f"rgb_feat has {c} channels, GNT expects {3 + gnt.in_feat_ch}")
+        raise ValueError(f"features have {c} channels, GNT expects {3 + gnt.in_feat_ch}")
     if pts.shape != (r, s, 3) or view_code.shape != (r, POSENC):
         raise ValueError("pts must be [R, S, 3] and view_code [R, 63]")
     if centers.shape != (v + 1, 3):
         raise ValueError("centers must be [V+1, 3]")
-    for t in (pts, view_code, centers, validity):
+    for t in (*data, pts, view_code, centers, validity):
         if t.device != dev:
             raise ValueError("all operands must be on the same device")
     lib = load_library().lib
@@ -235,7 +240,7 @@ def launch(entry, params, rgb_feat, pts, view_code, centers, validity, hw):
     if packed is None or packed.device != dev:
         packed = pack_mono4_weights(gnt, dev)
 
-    rf = rgb_feat.contiguous()
+    data = [t.contiguous() for t in data]
     pts32 = pts.float().contiguous()
     vc = view_code.float().contiguous()
     ctr = centers.float().contiguous()
@@ -250,11 +255,19 @@ def launch(entry, params, rgb_feat, pts, view_code, centers, validity, hw):
     }
     call_entry(
         lib, entry, lib.gnt_mono4_n_ptrs(), packed.tensors,
-        (rf.data_ptr(), pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr(),
-         validity.data_ptr(), v, r, s, c, packed.cp, float(hw[0]), float(hw[1])),
+        (*[t.data_ptr() for t in data], pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr(),
+         validity.data_ptr(), v, r, s, c, packed.cp, *extra, float(hw[0]), float(hw[1])),
         (h_scr.data_ptr(), q_scr.data_ptr(), outs["rgb"].data_ptr(),
          outs["weights"].data_ptr(), outs["inbound_cnt_raw"].data_ptr()), dev)
     return outs
+
+
+def check_proj(proj, v, dev):
+    """Raise unless ``proj`` is [V, 3|4, 4] on ``dev``; its [V, 3, 4] rows
+    in float32."""
+    if proj.shape[0] != v or proj.shape[-1] != 4 or proj.device != dev:
+        raise ValueError("proj must be [V, 3|4, 4] on the operands' device")
+    return proj[:, :3, :].float()
 
 
 def gnt_fused_mono4(params, rgb_feat, pts, view_code, centers, proj,
@@ -270,11 +283,8 @@ def gnt_fused_mono4(params, rgb_feat, pts, view_code, centers, proj,
                                      proj, hw)
     if dev.type != "cuda":
         raise ValueError(f"gnt_fused_mono4: unsupported device {dev}")
-    v = rgb_feat.shape[0]
-    if proj.shape[0] != v or proj.shape[-1] != 4 or proj.device != dev:
-        raise ValueError("proj must be [V, 3|4, 4] on the operands' device")
-    outs = launch("gnt_mono4_forward", params, rgb_feat, pts, view_code,
-                  centers, proj[:, :3, :].float(), hw)
+    outs = launch("gnt_mono4_forward", params, (rgb_feat,), rgb_feat.shape, pts,
+                  view_code, centers, check_proj(proj, rgb_feat.shape[0], dev), hw)
     gnt_fused_mono4.launches += 1
     return outs
 

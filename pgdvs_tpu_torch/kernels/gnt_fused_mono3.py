@@ -79,8 +79,8 @@ def gnt_fused_mono3(params, rgb_feat, mask, pts, view_code, centers):
         raise ValueError(f"gnt_fused_mono3: unsupported device {dev}")
     if mask.shape != rgb_feat.shape[:3] or mask.device != dev:
         raise ValueError("mask must be [V, R, S] on the operands' device")
-    outs = launch("gnt_mono3_forward", params, rgb_feat, pts, view_code,
-                  centers, (mask != 0).to(torch.uint8), (0.0, 0.0))
+    outs = launch("gnt_mono3_forward", params, (rgb_feat,), rgb_feat.shape, pts,
+                  view_code, centers, (mask != 0).to(torch.uint8), (0.0, 0.0))
     gnt_fused_mono3.launches += 1
     return outs
 

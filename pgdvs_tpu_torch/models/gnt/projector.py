@@ -1,7 +1,7 @@
 """Epipolar projection + feature sampling for GNT (torch).
 
-Counterpart of ``pgdvs_tpu.models.gnt.projector`` for its two samplers as
-the static renderer calls them, views outer:
+Counterpart of ``pgdvs_tpu.models.gnt.projector`` for the three samplers
+the static renderer calls, views outer:
 
 ``epipolar_sample`` (the exact, reference-faithful sampler): rgb from the
 full-resolution sources and features from the quarter-resolution ResUNet
@@ -20,11 +20,19 @@ the same values. Without the dyn mask (``epipolar_sample_quad``) validity
 and the ray-difference code are left to the GNT kernel; with it
 (``epipolar_sample_quad_masked``) the sampler returns the validity masks
 the masked kernel reads.
+
+The patch sampler (``epipolar_sample_patch_raw``, the JAX package's fast
+preset): rays come in by x bx pixel blocks; per (view, block, sample) ONE
+row of the fy x fx-pixel patch maps is gathered at the block's anchor, and
+every tap's 2x2 bilinear stencil becomes fy*fx coefficients over that row.
+A tap whose stencil cell lies outside the block's footprint is clamped to
+its border (``patch_clamp_fraction`` counts them). The combine of rows and
+coefficients is left to the GNT kernel (K1's ``patch_rows`` mode).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -148,6 +156,134 @@ def epipolar_sample_quad_masked(pts: torch.Tensor, proj: torch.Tensor,
         "mask_invalid": invalid,
         "mask": inbound & ~invalid,
     }
+
+
+class FlatPatchMaps(NamedTuple):
+    """fy x fx-pixel patch maps as one row table: row (v, y, x) holds the
+    fused-map pixels (y+i, x+j), edge-clamped, at channel block p = i*fx + j
+    (``pgdvs_tpu.models.gnt.projector.FlatPatchMaps``)."""
+
+    flat: torch.Tensor               # [V*H*W, fy*fx*C]
+    vhw: Tuple[int, int, int]        # (V, H, W)
+    foot: Tuple[int, int] = (4, 4)   # (fy, fx) patch footprint in pixels
+    block: Tuple[int, int] = (2, 2)  # (by, bx) ray block it serves
+
+
+# ray-block name -> ((by, bx) pixel block, (fy, fx) patch footprint): the
+# footprint is the block plus 2 per axis (intra-block spread + the 2x2 stencil)
+PATCH_BLOCKS = {"2x2": ((2, 2), (4, 4)), "4x2": ((4, 2), (6, 4))}
+
+
+def build_patch_maps(src_rgbs: torch.Tensor, src_feats: torch.Tensor,
+                     foot=(4, 4), block=(2, 2)) -> FlatPatchMaps:
+    """The bf16 fused maps (``build_fused_maps``, no dynamic mask) with an
+    fy x fx-pixel footprint packed into channels: fy*fx times their memory
+    (2.66 GB for 4x2 at 10 x 288 x 550 x 35)."""
+    fused = build_fused_maps(src_rgbs, src_feats)
+    v, h, w, c = fused.shape
+    fy, fx = foot
+    dev = fused.device
+    ys = torch.clamp(torch.arange(h, device=dev)[:, None] + torch.arange(fy, device=dev),
+                     max=h - 1)                                    # [H, fy]
+    xs = torch.clamp(torch.arange(w, device=dev)[:, None] + torch.arange(fx, device=dev),
+                     max=w - 1)                                    # [W, fx]
+    patch = fused[:, ys[:, None, :, None], xs[None, :, None, :]]   # [V, H, W, fy, fx, C]
+    return FlatPatchMaps(patch.reshape(v * h * w, fy * fx * c), (v, h, w),
+                         tuple(foot), tuple(block))
+
+
+def _patch_gather(pts: torch.Tensor, proj: torch.Tensor, pmaps: FlatPatchMaps):
+    """Anchor selection and the one row gather per (view, block, sample).
+
+    The anchor is the least stencil cell over the block's taps that can
+    contribute (within 1 px of the image; 1e9 for the others), clipped to
+    [0, W-fx] x [0, H-fy]. Returns (rows [V, B, S, fy*fx*C], x, y, sx, sy
+    [V, R, S], ax, ay [V, B, S]) where B = R / (by*bx).
+    """
+    (v, h, w), flat = pmaps.vhw, pmaps.flat
+    fy, fx = pmaps.foot
+    nb = pmaps.block[0] * pmaps.block[1]
+    r, s = pts.shape[0], pts.shape[1]
+    if r % nb != 0:
+        raise ValueError(f"patch mode needs rays % {nb} == 0, got {r}")
+    b = r // nb
+    uv, _z, _front = project_all_views(pts, proj)
+    x, y = uv[..., 0], uv[..., 1]
+    sx = torch.clamp(torch.floor(x), 0, max(w - 2, 0))
+    sy = torch.clamp(torch.floor(y), 0, max(h - 2, 0))
+    reach = (x > -1.0) & (x < float(w)) & (y > -1.0) & (y < float(h))
+
+    def anchor(cell, hi):
+        least = cell.masked_fill(~reach, 1e9).reshape(v, b, nb, s).amin(dim=2)
+        return torch.clamp(least, 0, max(hi, 0))
+
+    ax, ay = anchor(sx, w - fx), anchor(sy, h - fy)
+    offs = (torch.arange(v, device=pts.device) * (h * w)).view(v, 1, 1)
+    base = ay.long() * w + ax.long() + offs
+    rows = flat[base.reshape(-1)].reshape(v, b, s, flat.shape[-1])
+    return rows, x, y, sx, sy, ax, ay
+
+
+def epipolar_sample_patch_raw(pts: torch.Tensor, proj: torch.Tensor,
+                              pmaps: FlatPatchMaps):
+    """Raw patch rows and per-tap stencil coefficients, for K1's
+    ``patch_rows`` mode (``gnt_fused_mono4_patch``).
+
+    Args: pts [R, S, 3] with rays in by x bx pixel blocks (``patch_ray_perm``);
+    proj [V, 4, 4]; pmaps from ``build_patch_maps``.
+    Returns {"rows": [V, R/(by*bx), S, n_pos*C] (the maps' dtype),
+    "coef": [V, R/4, 4, S, n_pos] in the rows' dtype}, n_pos = fy*fx:
+    ray r's features at sample s are sum_p rows[v, r // (by*bx), s, p*C:(p+1)*C]
+    * coef[v, r // 4, r % 4, s, p]. The coefficients are the zero-padded
+    bilinear weights at the stencil cell's offset (dy, dx) from the anchor,
+    each clipped to [0, fy-2] x [0, fx-2], computed in float32 and rounded
+    once, as the JAX package does.
+    """
+    rows, x, y, sx, sy, ax, ay = _patch_gather(pts, proj, pmaps)
+    v, b, s, _ = rows.shape
+    fy, fx = pmaps.foot
+    nb = pmaps.block[0] * pmaps.block[1]
+    r = pts.shape[0]
+
+    def bcast(a):  # [V, B, S] -> [V, R, S]
+        return a[:, :, None, :].expand(v, b, nb, s).reshape(v, r, s)
+
+    wx0 = torch.clamp(1.0 - torch.abs(x - sx), min=0.0)
+    wx1 = torch.clamp(1.0 - torch.abs(x - (sx + 1.0)), min=0.0)
+    wy0 = torch.clamp(1.0 - torch.abs(y - sy), min=0.0)
+    wy1 = torch.clamp(1.0 - torch.abs(y - sy - 1.0), min=0.0)
+    dx = torch.clamp(sx - bcast(ax), 0.0, float(fx - 2))[..., None]
+    dy = torch.clamp(sy - bcast(ay), 0.0, float(fy - 2))[..., None]
+    pi = torch.arange(fy, dtype=torch.float32, device=pts.device)
+    pj = torch.arange(fx, dtype=torch.float32, device=pts.device)
+    cy = wy0[..., None] * (dy == pi) + wy1[..., None] * (dy == pi - 1.0)   # [V, R, S, fy]
+    cx = wx0[..., None] * (dx == pj) + wx1[..., None] * (dx == pj - 1.0)   # [V, R, S, fx]
+    coef = (cy[..., :, None] * cx[..., None, :]).to(rows.dtype)
+    return {"rows": rows, "coef": coef.reshape(v, r // 4, 4, s, fy * fx)}
+
+
+def patch_clamp_counts(pts: torch.Tensor, proj: torch.Tensor, pmaps: FlatPatchMaps):
+    """(clamped, in reach): the taps within reach of the image, and those
+    of them whose stencil cell falls outside the block's footprint and is
+    clamped to its border (sampled up to 2 px off against quad)."""
+    _, x, y, sx, sy, ax, ay = _patch_gather(pts, proj, pmaps)
+    (v, h, w), (fy, fx) = pmaps.vhw, pmaps.foot
+    nb = pmaps.block[0] * pmaps.block[1]
+    b, s = ax.shape[1], ax.shape[2]
+    reach = ((x > -1.0) & (x < float(w)) & (y > -1.0) & (y < float(h))).reshape(v, b, nb, s)
+    dx = sx.reshape(v, b, nb, s) - ax[:, :, None, :]
+    dy = sy.reshape(v, b, nb, s) - ay[:, :, None, :]
+    clamped = reach & ((dx < 0) | (dx > fx - 2) | (dy < 0) | (dy > fy - 2))
+    return clamped.sum(), reach.sum()
+
+
+def patch_clamp_fraction(pts: torch.Tensor, proj: torch.Tensor,
+                         pmaps: FlatPatchMaps) -> torch.Tensor:
+    """Share of the in-reach taps clamped to the block's border
+    (``patch_clamp_counts``). Near 0 for rig-like cameras; a large value
+    flags a rig that stretches blocks past the footprint."""
+    clamped, reach = patch_clamp_counts(pts, proj, pmaps)
+    return clamped / torch.clamp(reach, min=1)
 
 
 class ExactMaps(NamedTuple):

@@ -9,8 +9,13 @@ Carries the semantic fields of ``pgdvs_tpu.renderers.config.RenderConfig``
 ``knn_tile`` and ``compiler_options_for``. On CUDA the port always runs a
 hand kernel; which one follows from the semantic flags alone:
 
-  quad sampling, no dyn mask    K1 (``kernels/gnt_fused.py``): validity,
-                                ray-diff and point code made in the kernel;
+  patch sampling (no dyn mask)  K1 in its ``patch_rows`` mode
+                                (``kernels/gnt_fused_patch.py``): raw patch
+                                rows and stencil coefficients, combined in
+                                the kernel; validity, ray-diff and point
+                                code made in the kernel;
+  quad sampling, no dyn mask    K1 (``kernels/gnt_fused.py``): the same on
+                                sampled features;
   quad sampling, dyn mask       K2 (``kernels/gnt_fused_mono3.py``): validity
                                 read from the sampler's mask;
   exact sampling, either        K3 (``kernels/gnt_fused_split.py``): the
@@ -20,8 +25,8 @@ hand kernel; which one follows from the semantic flags alone:
 
 The port renders these slices of the configuration space so far: static
 GNT with or without masked view attention (``gnt_use_dyn_mask``,
-``pure_gnt_with_dyn_mask``), exact (the default, reference-faithful) or
-quad epipolar sampling, coarse samples only,
+``pure_gnt_with_dyn_mask``), exact (the default, reference-faithful),
+quad or patch epipolar sampling, coarse samples only,
 softsplat dynamic layer with or without statistical outlier removal
 (``dyn_pcl_remove_outlier``), no tracker. ``check_slice`` raises ValueError
 for anything outside them; nothing falls back silently.
@@ -69,16 +74,20 @@ class RenderConfig:
 
     # --- execution ---------------------------------------------------------
     ray_tile: int = 2048        # rays per GNT call
-    epipolar_mode: str = "exact"  # 'exact' (reference-faithful) | 'quad'
+    epipolar_mode: str = "exact"  # 'exact' (reference-faithful) | 'quad' | 'patch'
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
 
 
 def apply_perf_preset(cfg: RenderConfig) -> RenderConfig:
-    """The fast sampler for ``cfg``: quad epipolar sampling (one bilinear
-    tap set per sample and view on the fused full-resolution map)."""
-    return cfg.replace(epipolar_mode="quad")
+    """The fast sampler for ``cfg``, as the JAX package's preset picks it:
+    patch sampling on 4x2 ray blocks without the dyn mask (one gather row
+    per ray block, sample and view; the geometry decides the block at
+    render time, ``static_gnt.resolve_epipolar_cfg``), quad sampling (one
+    bilinear tap set per sample and view on the fused full-resolution map)
+    with it, since the patch path carries no dyn mask."""
+    return cfg.replace(epipolar_mode="quad" if cfg.gnt_use_dyn_mask else "patch")
 
 
 def check_slice(cfg: RenderConfig, static_mode: str = "gnt") -> None:
@@ -86,7 +95,8 @@ def check_slice(cfg: RenderConfig, static_mode: str = "gnt") -> None:
     unsupported = {
         "static_mode != 'gnt'": static_mode != "gnt",
         "n_fine_samples_per_ray > 0": cfg.n_fine_samples_per_ray > 0,
-        "epipolar_mode not in ('exact', 'quad')": cfg.epipolar_mode not in ("exact", "quad"),
+        "epipolar_mode not in ('exact', 'quad', 'patch')":
+            cfg.epipolar_mode not in ("exact", "quad", "patch"),
         "render_stride != 1": cfg.render_stride != 1,
         "dyn_render_type != 'softsplat'": cfg.dyn_render_type != "softsplat",
         "dyn_render_track_temporal != 'none'": cfg.dyn_render_track_temporal != "none",

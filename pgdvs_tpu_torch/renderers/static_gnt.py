@@ -18,25 +18,36 @@ on the CPU):
          with the dyn mask), then K1 (validity recomputed in-kernel) without
          the dyn mask, K2 (validity read from the sampler's mask: in
          bounds, in front and not dynamic) with it, as the JAX package's
-         preset splits them (mono4 / mono3).
+         preset splits them (mono4 / mono3);
+  patch  fy x fx-pixel patch maps, rays permuted into by x bx pixel blocks,
+         one row per (view, block, sample) plus stencil coefficients
+         (``epipolar_sample_patch_raw``), then K1's patch_rows mode
+         (``gnt_fused_mono4_patch``, the combine in the kernel). The block
+         is 4x2 where the geometry allows, else 2x2, else the render falls
+         back to quad, each with a warning (``resolve_epipolar_cfg``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import warnings
+from typing import Dict, Optional
 
 import torch
 
 from pgdvs_tpu_torch.core import cameras, sampling
 from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4, pack_mono4_weights
 from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_mono3
+from pgdvs_tpu_torch.kernels.gnt_fused_patch import gnt_fused_mono4_patch
 from pgdvs_tpu_torch.kernels.gnt_fused_split import gnt_fused_split, pack_split_weights
 from pgdvs_tpu_torch.models.gnt.feature_net import ResUNet
 from pgdvs_tpu_torch.models.gnt.network import GNT, sinusoidal_embed
 from pgdvs_tpu_torch.models.gnt.projector import (
+    PATCH_BLOCKS,
     ExactMaps,
     build_fused_maps,
+    build_patch_maps,
     epipolar_sample,
+    epipolar_sample_patch_raw,
     epipolar_sample_quad,
     epipolar_sample_quad_masked,
 )
@@ -58,12 +69,67 @@ def init_gnt_models(seed: int = 0, device="cuda", **kw):
     return fnet.to(device).eval(), gnt.to(device).eval()
 
 
-def build_sampling_maps(cfg: RenderConfig, src_rgbs, feats, src_invalid_masks=None):
+# the JAX package's preset values of the knobs the port does not carry:
+# pallas_patch_block and pallas_ray_block (rays per kernel grid step)
+PRESET_PATCH_BLOCK, PRESET_RAY_BLOCK = "4x2", 8
+
+
+def resolve_epipolar_cfg(cfg: RenderConfig, gnt, rh: int, rw: int):
+    """Resolve ``cfg.epipolar_mode`` against the render geometry, as the JAX
+    package's ``resolve_epipolar_cfg`` does under its preset's values
+    (4x2 blocks, ray block 8, the full fold set), warning at each fallback.
+
+    Returns (cfg, block): for patch, the 4x2 block when rh % 4 == 0 and
+    rw % 2 == 0, else "2x2"; and patch only when there is no dyn mask, the
+    network is width 64 / depth 8, the block divides the render and the
+    tile quantum min(ray_tile, rh * rw) is a multiple of the block and of 8,
+    else cfg falls back to quad. block is None off the patch path.
+    """
+    if cfg.epipolar_mode != "patch":
+        return cfg, None
+    block = PRESET_PATCH_BLOCK
+    by, bx = PATCH_BLOCKS[block][0]
+    if rh % by != 0 or rw % bx != 0:
+        warnings.warn(f"patch block {block!r} needs render dims divisible by "
+                      f"{by}x{bx}; falling back to '2x2'", stacklevel=2)
+        block, (by, bx) = "2x2", (2, 2)
+    quantum = min(cfg.ray_tile, rh * rw)
+    patch_ok = (
+        not cfg.gnt_use_dyn_mask
+        and gnt.netwidth == 64
+        and gnt.depth == 8
+        and rh % by == 0
+        and rw % bx == 0
+        and quantum % (by * bx) == 0
+        and quantum % PRESET_RAY_BLOCK == 0
+    )
+    if not patch_ok:
+        warnings.warn("epipolar_mode='patch' requires no dyn mask, GNT width 64 / "
+                      "depth 8, even render dims and a tile that is a multiple of "
+                      "the block and of 8; falling back to 'quad'", stacklevel=2)
+        return cfg.replace(epipolar_mode="quad"), None
+    return cfg, block
+
+
+def patch_ray_perm(n_rays: int, rh: int, rw: int, by: int, bx: int, device=None):
+    """Ray permutation grouping the rh x rw rays into by x bx pixel blocks,
+    and its inverse (long tensors)."""
+    perm = (torch.arange(n_rays, device=device).reshape(rh // by, by, rw // bx, bx)
+            .permute(0, 2, 1, 3).reshape(-1))
+    return perm, torch.argsort(perm)
+
+
+def build_sampling_maps(cfg: RenderConfig, src_rgbs, feats, src_invalid_masks=None,
+                        block: Optional[str] = None):
     """The per-image maps the sampler of ``cfg.epipolar_mode`` reads:
     ``ExactMaps`` (rgb and features in bf16, JAX's sample dtype; the dyn
     masks in float32) for exact, the fused [V, H, W, 3+F(+1)] bf16 maps for
-    quad. The dyn masks are read only with ``cfg.gnt_use_dyn_mask``."""
+    quad, ``FlatPatchMaps`` of ``block`` (``resolve_epipolar_cfg``) for
+    patch. The dyn masks are read only with ``cfg.gnt_use_dyn_mask``."""
     masks = src_invalid_masks if cfg.gnt_use_dyn_mask else None
+    if cfg.epipolar_mode == "patch":
+        blk, foot = PATCH_BLOCKS[block]
+        return build_patch_maps(src_rgbs, feats, foot=foot, block=blk)
     if cfg.epipolar_mode == "exact":
         return ExactMaps(src_rgbs.to(torch.bfloat16), feats.to(torch.bfloat16),
                          None if masks is None else masks.float())
@@ -76,9 +142,12 @@ def render_rays_gnt(gnt_params, rays_o, rays_d, depth_range, tgt_cam, src_cams,
 
     Args:
       gnt_params: the GNT module, or its weights packed for the rays'
-        device (``SplitWeights`` for exact, ``Mono4Weights`` for quad).
+        device (``SplitWeights`` for exact, ``Mono4Weights`` for quad and
+        patch).
       rays_o/rays_d [R, 3]; depth_range [R, 2]; tgt_cam [34];
-      src_cams [V, 34]; maps: ``build_sampling_maps(cfg, ...)``.
+      src_cams [V, 34]; maps: ``build_sampling_maps(cfg, ...)``. On patch
+      the rays come in the maps' pixel blocks (``patch_ray_perm``) and R is
+      a multiple of the block (else ValueError).
 
     Returns rgb [R, 3], depth [R], weights [R, S], inbound_cnt [R],
     dyn_cnt [R] (zero without the dyn mask), view_std /
@@ -101,7 +170,12 @@ def render_rays_gnt(gnt_params, rays_o, rays_d, depth_range, tgt_cam, src_cams,
             cameras.flat_cam_c2w(tgt_cam)[None, :3, 3],
             cameras.flat_cam_c2w(src_cams)[:, :3, 3],
         ])
-        if cfg.gnt_use_dyn_mask:
+        if cfg.epipolar_mode == "patch":
+            raw = epipolar_sample_patch_raw(pts, proj, maps)
+            _, map_h, map_w = maps.vhw
+            out = gnt_fused_mono4_patch(gnt_params, raw["rows"], raw["coef"], pts,
+                                        view_code, centers, proj, (map_h, map_w))
+        elif cfg.gnt_use_dyn_mask:
             smp = epipolar_sample_quad_masked(pts, proj, maps)
             out = gnt_fused_mono3(gnt_params, smp["rgb_feat"], smp["mask"], pts,
                                   view_code, centers)
@@ -169,20 +243,31 @@ def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
         raise ValueError("gnt_use_dyn_mask needs the sources' dynamic masks")
     feature_net, gnt = models
     h, w = image_hw
-    maps = build_sampling_maps(cfg, src_rgbs, feature_net(src_rgbs), src_invalid_masks)
     rays_o, rays_d, _uv, (rh, rw) = cameras.get_rays(
         h, w, cameras.flat_cam_intrinsics(tgt_cam), cameras.flat_cam_c2w(tgt_cam),
     )
     n_rays = rh * rw
+    cfg, block = resolve_epipolar_cfg(cfg, gnt, rh, rw)
+    maps = build_sampling_maps(cfg, src_rgbs, feature_net(src_rgbs), src_invalid_masks,
+                               block)
     if depth_range.ndim == 1:
         dr = depth_range.expand(n_rays, 2)
     else:
         dr = depth_range.reshape(-1, 2)
+    inv_perm = None
+    if block is not None:
+        # consecutive groups of by*bx rays share one patch row per (sample,
+        # view); the outputs are put back in image order below
+        perm, inv_perm = patch_ray_perm(n_rays, rh, rw, *PATCH_BLOCKS[block][0],
+                                        device=rays_o.device)
+        rays_o, rays_d, dr = rays_o[perm], rays_d[perm], dr[perm]
     params = gnt
     if rays_o.device.type == "cuda":
         pack = pack_split_weights if cfg.epipolar_mode == "exact" else pack_mono4_weights
         params = pack(gnt, rays_o.device)
     flat = render_rays_tiled(params, rays_o, rays_d, dr, tgt_cam, src_cams, maps, cfg)
+    if inv_perm is not None:
+        flat = {k: v[inv_perm] for k, v in flat.items()}
     out = {k: v.reshape((rh, rw) + v.shape[1:]) for k, v in flat.items()}
     n_src = src_rgbs.shape[0]
     out["oob_mask"] = (

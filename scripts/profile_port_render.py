@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Device time by kernel for one render of the PyTorch/CUDA port on one GPU.
 
-    python3 scripts/profile_port_render.py                  # unmasked slice (K1)
+    python3 scripts/profile_port_render.py                  # fast preset: patch (K1 patch_rows)
+    python3 scripts/profile_port_render.py --preset quad    # unmasked quad (K1)
+    python3 scripts/profile_port_render.py --preset exact   # unmasked exact (K3)
     python3 scripts/profile_port_render.py --bundle default # masked bundle (K2)
     python3 scripts/profile_port_render.py --bundle default --preset exact  # (K3)
 
@@ -45,9 +47,11 @@ def busy_us(events):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bundle", default=None, help="named bundle (default: the "
-                    "unmasked slice config)")
-    ap.add_argument("--preset", default="fast", choices=("fast", "exact"),
-                    help="fast (quad sampler) or exact (the reference-faithful one)")
+                    "unmasked config)")
+    ap.add_argument("--preset", default="fast", choices=("fast", "quad", "exact"),
+                    help="fast (the JAX package's preset: patch sampler, or quad with "
+                    "the dyn mask), quad (the fast preset on the quad sampler) or "
+                    "exact (the reference-faithful sampler)")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
 
@@ -100,7 +104,7 @@ def main() -> int:
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     total = sum(us for us, _n in by_name.values()) / 1e6
-    label = f"{args.bundle or 'unmasked slice'}, {args.preset} preset"
+    label = f"{args.bundle or 'unmasked'}, {args.preset} preset ({cfg.epipolar_mode} sampler)"
     print(f"[profile] {label}: unprofiled render {wall:.4f} s; profiled render "
           f"{prof_wall:.4f} s; kernel time {total:.4f} s; device busy {busy:.4f} s "
           f"= {busy / prof_wall:.2%} of the profiled render's wall clock (idle "

@@ -1,5 +1,5 @@
-"""The hand kernels (K1, K2, K3a, K3b) against their plain versions, on a
-CUDA card only.
+"""The hand kernels (K1 on sampled features and on patch rows, K2, K3a,
+K3b) against their plain versions, on a CUDA card only.
 
 No JAX here, so the file runs on the GPU machine:
 
@@ -20,6 +20,7 @@ import torch
 from pgdvs_tpu_torch.core import cameras as cam
 from pgdvs_tpu_torch.kernels import gnt_fused as k1
 from pgdvs_tpu_torch.kernels import gnt_fused_mono3 as k2
+from pgdvs_tpu_torch.kernels import gnt_fused_patch as kp
 from pgdvs_tpu_torch.kernels import gnt_fused_split as k3
 from pgdvs_tpu_torch.models.gnt.network import sinusoidal_embed
 
@@ -104,7 +105,8 @@ def test_render_on_card_matches_cpu(card):
     from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
 
     data = make_contract_data(h=24, w=32, n_spatial=3, n_frames=6)
-    cfg = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=16, ray_tile=256))
+    cfg = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=16, ray_tile=256)).replace(
+        epipolar_mode="quad")
     noise = torch.from_numpy(np.random.default_rng(0).normal(size=(24, 32, 3)).astype(np.float32))
     outs = {}
     for dev in ("cpu", card):
@@ -116,6 +118,63 @@ def test_render_on_card_matches_cpu(card):
         launched = k1.gnt_fused_mono4.launches - before
         # one launch per ray tile: 24 * 32 rays in tiles of 256
         assert launched == (0 if dev == "cpu" else 3)
+    got, ref = outs["cuda"], outs["cpu"]
+    for key, tol in (("combined_rgb", 0.04), ("static_coarse_depth", 0.1),
+                     ("static_coarse_inbound_cnt", 0.02)):
+        torch.testing.assert_close(got[key].cpu(), ref[key], atol=tol, rtol=0)
+
+
+def _patch_operands(v, r, s, behind, block_rays, n_pos, seed=21):
+    """K1's patch_rows operands: random bf16 rows [V, R/B, S, n_pos*35] and
+    Dirichlet coefficients [V, R/4, 4, S, n_pos] (non-negative, summing to 1
+    per tap, like bilinear weights), then the rig's pts, view code,
+    centres, projections and map size."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(0, 0.5, (v, r // block_rays, s, n_pos * 35)).astype(np.float32)
+    coef = rng.dirichlet(np.ones(n_pos), (v, r // 4, 4, s)).astype(np.float32)
+    return (torch.from_numpy(rows).to(torch.bfloat16), torch.from_numpy(coef).to(torch.bfloat16),
+            *_operands(v, r, s, behind)[1:])
+
+
+@pytest.mark.parametrize("v,r,s,behind,block_rays,n_pos", [
+    (5, 16, 23, False, 4, 16), (5, 16, 23, False, 8, 24), (5, 16, 32, True, 8, 24),
+    (10, 64, 256, False, 8, 24)])
+def test_patch_kernel_matches_plain(card, v, r, s, behind, block_rays, n_pos):
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    _fnet, gnt = init_gnt_models(seed=0, device=card)
+    ops = [o.to(card) if torch.is_tensor(o) else o
+           for o in _patch_operands(v, r, s, behind, block_rays, n_pos)]
+    before = kp.gnt_fused_mono4_patch.launches
+    got = kp.gnt_fused_mono4_patch(gnt, *ops)
+    torch.cuda.synchronize()
+    assert kp.gnt_fused_mono4_patch.launches == before + 1
+    ref = kp.gnt_fused_mono4_patch_plain(gnt, *ops)
+    _assert_matches_plain(got, ref, s, behind)
+
+
+def test_patch_render_on_card_matches_cpu(card):
+    """The fast preset (patch sampling on 4x2 blocks) on the card: K1's
+    patch_rows mode once per ray tile and no other kernel."""
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.renderers.compose import render_novel_view
+    from pgdvs_tpu_torch.renderers.config import RenderConfig, apply_perf_preset
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    data = make_contract_data(h=24, w=32, n_spatial=3, n_frames=6)
+    cfg = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=16, ray_tile=256))
+    assert cfg.epipolar_mode == "patch"
+    noise = torch.from_numpy(np.random.default_rng(0).normal(size=(24, 32, 3)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", card):
+        tdata = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in data.items()
+                 if isinstance(v, np.ndarray)}
+        k1.gnt_fused_mono4.launches = kp.gnt_fused_mono4_patch.launches = 0
+        outs[str(dev)] = render_novel_view(init_gnt_models(seed=0, device=dev), tdata,
+                                           cfg, noise=noise.to(dev))
+        # one launch per ray tile: 24 * 32 rays in tiles of 256
+        assert kp.gnt_fused_mono4_patch.launches == (0 if dev == "cpu" else 3)
+        assert k1.gnt_fused_mono4.launches == 0
     got, ref = outs["cuda"], outs["cpu"]
     for key, tol in (("combined_rgb", 0.04), ("static_coarse_depth", 0.1),
                      ("static_coarse_inbound_cnt", 0.02)):

@@ -175,9 +175,9 @@ def test_bundle_resolves_like_jax(name):
     assert spec == spec_j
     for field in SEMANTIC:
         assert getattr(cfg, field) == getattr(cfg_j, field), (name, field)
-    assert cfg.epipolar_mode == "quad"
-    if cfg.gnt_use_dyn_mask:  # the JAX preset takes quad there too
-        assert cfg_j.epipolar_mode == "quad"
+    # the fast preset's sampler too: patch without the dyn mask, quad with it
+    assert cfg.epipolar_mode == cfg_j.epipolar_mode
+    assert cfg.epipolar_mode == ("quad" if cfg.gnt_use_dyn_mask else "patch")
 
 
 def test_unknown_bundle_or_preset_raises():

@@ -1,5 +1,7 @@
 """The ported slice end to end: the port's ``render_novel_view`` against the
-JAX package's on the quad + mono4 preset, same weights (flax initialiser,
+JAX package's on the quad sampler + mono4 (the fast preset with
+``epipolar_mode="quad"`` on both sides; the preset's own patch sampler is
+held in test_torch_port_patch_render.py), same weights (flax initialiser,
 carried by ``params_from_jax``), same scene, same noise.
 
 Bounds are the JAX package's own for its fast paths against quad
@@ -63,7 +65,8 @@ def both():
                                          jnp.float32))
     tdata = {k: torch.from_numpy(np.array(v)) for k, v in data.items()
              if isinstance(v, np.ndarray)}
-    cfg = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=16, ray_tile=256))
+    cfg = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=16, ray_tile=256)).replace(
+        epipolar_mode="quad")
     got = render_novel_view((fnet, gnt), tdata, cfg,
                             noise=torch.from_numpy(noise))
     return {"ref": ref, "got": got, "mono4_calls": len(calls)}
@@ -113,6 +116,6 @@ def test_slice_refuses_configs_outside_it(both):
                       (base, "geo"),
                       (base.replace(dyn_render_type="mesh"), "gnt"),
                       (base.replace(dyn_render_track_temporal="no_tgt"), "gnt"),
-                      (base.replace(epipolar_mode="patch"), "gnt")):
+                      (base.replace(epipolar_mode="fused"), "gnt")):
         with pytest.raises(ValueError):
             render_novel_view(models, tdata, cfg, static_mode=mode)
