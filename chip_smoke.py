@@ -22,6 +22,13 @@ exits non-zero without printing a result:
      coefficients (the combine in its prologue) against its plain version
      at both ray-block geometries (2x2 rays / 16 stencil positions, 4x2 /
      24) and at the main tile, with both times there;
+  3e. K2 modes vs plain: K2 in each operand mode of
+     ``gnt_fused_apply_mono3`` (MONO3_MODES: unfolded, which the exact path
+     runs, on the small rig, at odd S, all invalid from geometry and from the
+     dynamic mask; fold_lerp with a separate mask and with fold_mask;
+     fold_ray_diff without fold_pos_code; fold_mask without it; pre-packed;
+     each at odd S and at the main tile) against its plain version, with
+     both times and the bound at the main tile;
   4. the main path (``[main]``): ``render_novel_view`` with
      ``apply_perf_preset(RenderConfig())`` (patch sampling on 4x2 ray
      blocks, K1's patch_rows mode) on the 288x550, 10-source, 256-sample
@@ -34,9 +41,11 @@ exits non-zero without printing a result:
   5. K2 path: the same for the paper's ``default`` bundle (masked view
      attention + outlier removal of the dynamic cloud), plus the count of
      dynamic points the outlier removal keeps;
-  6. K3 path (``[exact]``): the same for ``default`` on the exact preset
-     (the reference-faithful sampler), plus PSNR / SSIM of its image
-     against phase 5's quad render of the same view.
+  6. K2 unfolded path (``[exact]``): the same for ``default`` on the exact
+     preset (the reference-faithful sampler, on K2's unfolded mode as the
+     JAX package's default runs it), plus PSNR / SSIM of its image against
+     phase 5's quad render of the same view. K3a / K3b and K2's other modes
+     run on no path: phases 3c and 3e are their only launches.
 
 The second-to-last line is a JSON object describing each kernel (its times,
 its launches on its path and its bound on the card); the last line is
@@ -424,6 +433,132 @@ def phase_patch_vs_plain(gnt):
     return worst, times
 
 
+def mono3_cost(v, r, s, c, mode):
+    """(FLOP, bytes) of one K2 forward in operand mode ``mode``
+    (``gnt_fused_mono3.mode_name``): ``gnt_cost``'s products, plus with
+    fold_lerp the four-tap combine (8 C FLOP per (view, token), counted at
+    the bf16 peak as the patch combine is); the mode's operands at the
+    function's contract, each read once: the features (bf16 [V, N, C]; C+1
+    channels pre-packed; raw rows [V, N, 4C] and f32 frac [V, N, 2] with
+    fold_lerp), the uint8 mask [V, N] (none pre-packed, the K @ w2c rows
+    with fold_mask), the bf16 ray-diff code [V, N, 4] (f32 pts and centres
+    with fold_ray_diff), the bf16 point + view code [N, 126] (the f32 view
+    code [R, 63] with fold_pos_code); f32 outputs written once."""
+    flops, _ = gnt_cost(v, r, s, c, True)
+    n, folds = r * s, set(mode.split("+"))
+    if "fold_lerp" in folds:
+        nbytes = v * n * (4 * c * 2 + 2 * 4)
+        flops += 2 * 4 * c * v * n
+    else:
+        nbytes = v * n * (c + ("pre_packed" in folds)) * 2
+    if "fold_mask" in folds:
+        nbytes += v * 12 * 4
+    elif "pre_packed" not in folds:
+        nbytes += v * n
+    nbytes += n * 3 * 4 + (v + 1) * 3 * 4 if "fold_ray_diff" in folds else v * n * 4 * 2
+    nbytes += r * 63 * 4 if "fold_pos_code" in folds else n * 126 * 2
+    return flops, nbytes + r * 3 * 4 + n * 4 + r * 4
+
+
+# K2's operand modes held against the plain version (phase 3e), each with a
+# row in the kernels line: the exact path's unfolded mode and the modes only
+# a direct call reaches
+LERP_SEPARATE = "fold_lerp+separate_mask+fold_ray_diff+fold_pos_code"
+LERP_FOLD_MASK = "fold_lerp+fold_mask+fold_ray_diff+fold_pos_code"
+MONO3_MODES = ("unfolded", LERP_SEPARATE, LERP_FOLD_MASK, "fold_ray_diff",
+               "fold_mask+fold_ray_diff", "pre_packed")
+MAIN_TILE = dict(v=10, r=2048, s=256, hw=(288, 550))
+K2_MODE_CASES = [
+    ("unfolded", "small", dict(v=5, r=64, s=32), 0.3),
+    ("unfolded", "odd_s", dict(v=5, r=64, s=23), 0.3),
+    ("unfolded", "all_invalid_geometry", dict(v=5, r=16, s=32, behind=True), 0.3),
+    ("unfolded", "all_invalid_dyn_mask", dict(v=5, r=16, s=32), 1.0),
+    ("unfolded", "main_tile", MAIN_TILE, 0.2),
+] + [(mode, case, kw, 0.3 if case == "odd_s" else 0.2)
+     for mode in MONO3_MODES[1:]
+     for case, kw in (("odd_s", dict(v=5, r=64, s=23)), ("main_tile", MAIN_TILE))]
+
+
+def _mono3_args(kw, dyn_frac, mode, seed=31, device="cuda"):
+    """The rig's operands of ``gnt_fused_apply_mono3`` in ``mode``: its
+    features (random raw quad rows [V, R, S, 140] bf16 and offsets in
+    [-0.6, 1.6] with fold_lerp, so that the zero-pad weights clip; the mask
+    as a trailing channel pre-packed), ray-diff code, K2's mask, point code
+    and view code, and the keywords; with the validity it implies."""
+    import torch
+
+    from pgdvs_tpu_torch.core.cameras import pixel_inbound, project_with, ray_diff_features
+    from pgdvs_tpu_torch.models.gnt.network import sinusoidal_embed
+
+    folds = set(mode.split("+"))
+    ops, hw = _rig(**kw, device=device)
+    pts, ctr, proj = ops["pts"], ops["centers"], ops["proj"]
+    if "fold_mask" in folds:
+        uv, _z, front = project_with(proj[:, None, None], pts[None])
+        valid = pixel_inbound(uv, float(hw[0]), float(hw[1])) & front
+    else:
+        valid = _k2_mask(ops, hw, dyn_frac)
+    feats, opts = ops["rgb_feat"], dict(views_outer=True)
+    if "fold_lerp" in folds:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        v, r, s = kw["v"], kw["r"], kw["s"]
+        feats = (torch.randn((v, r, s, 4 * 35), generator=gen, device=device)
+                 * 0.5).to(torch.bfloat16)
+        opts.update(fold_lerp=True, frac=torch.rand(
+            (v, r, s, 2), generator=gen, device=device) * 2.2 - 0.6)
+    if "pre_packed" in folds:
+        feats = torch.cat([feats, valid[..., None].to(torch.bfloat16)], dim=-1)
+    if "fold_ray_diff" in folds:
+        opts.update(pts=pts, cam_centers=ctr)
+    if "fold_mask" in folds:
+        opts.update(fold_mask_hw=hw, proj_mats=proj)
+    opts.update(separate_mask="separate_mask" in folds,
+                fold_pos_code="fold_pos_code" in folds)
+    args = (feats,
+            None if "fold_ray_diff" in folds else ray_diff_features(
+                pts[None], ctr[0], ctr[1:, None, None, :]),
+            None if folds & {"fold_mask", "pre_packed"} else valid,
+            None if "fold_pos_code" in folds else sinusoidal_embed(pts),
+            ops["view_code"])
+    return args, opts, valid
+
+
+def phase_k2_modes_vs_plain(gnt):
+    """K2 in each of MONO3_MODES against its plain version on
+    K2_MODE_CASES; times and bound at the main tile. Returns ({mode:
+    worst}, {mode: times})."""
+    import torch
+
+    from pgdvs_tpu_torch.kernels.gnt_fused import pack_mono4_weights
+    from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import (
+        gnt_fused_apply_mono3, gnt_fused_apply_mono3_plain,
+    )
+
+    packed = pack_mono4_weights(gnt, "cuda")
+    worst = {mode: {k: 0.0 for k in KERNEL_TOL} for mode in MONO3_MODES}
+    times = {mode: {} for mode in MONO3_MODES}
+    for mode, name, kw, dyn_frac in K2_MODE_CASES:
+        args, opts, valid = _mono3_args(kw, dyn_frac, mode)
+        if name.startswith("all_invalid") == bool(valid.any()):
+            raise AssertionError(f"{mode} {name}: the rig's validity is wrong for the case")
+        before = gnt_fused_apply_mono3.launches[mode]
+        got = gnt_fused_apply_mono3(packed, *args, **opts)
+        torch.cuda.synchronize()
+        if gnt_fused_apply_mono3.launches[mode] != before + 1:
+            raise AssertionError(f"K2 {mode}: the launch was not counted under its mode")
+        ref = gnt_fused_apply_mono3_plain(gnt, *args, **opts)
+        _check_against_plain(f"K2 {mode} {name}", dict(kw, dyn_frac=dyn_frac), got, ref,
+                             worst[mode])
+        del ref
+        if name == "main_tile":
+            v, r, s = kw["v"], kw["r"], kw["s"]
+            _time_main_tile(f"K2 {mode}", times[mode], (v, r, s),
+                            mono3_cost(v, r, s, 35, mode),
+                            lambda: gnt_fused_apply_mono3(packed, *args, **opts),
+                            lambda: gnt_fused_apply_mono3_plain(gnt, *args, **opts))
+    return worst, times
+
+
 K3_CASES = [
     ("small", dict(v=5, r=64, s=32), 0.3),
     ("odd_s", dict(v=5, r=64, s=23), 0.3),
@@ -617,17 +752,51 @@ def dyn_points_kept(data, cfg):
 
 
 KERNELS = ("gnt_fused_mono4", "gnt_fused_mono4_patch", "gnt_fused_mono3",
-           "gnt_split_view", "gnt_split_ray")
+           "gnt_split_view", "gnt_split_ray",
+           *(f"gnt_fused_apply_mono3[{mode}]" for mode in MONO3_MODES))
+
+
+def _launch_counters():
+    """{kernel name: wrapper} of the wrappers with a plain launch count, and
+    ``gnt_fused_apply_mono3``, whose count is per operand mode."""
+    from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4
+    from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_apply_mono3, gnt_fused_mono3
+    from pgdvs_tpu_torch.kernels.gnt_fused_patch import gnt_fused_mono4_patch
+    from pgdvs_tpu_torch.kernels.gnt_fused_split import gnt_split_ray, gnt_split_view
+
+    return {"gnt_fused_mono4": gnt_fused_mono4, "gnt_fused_mono4_patch": gnt_fused_mono4_patch,
+            "gnt_fused_mono3": gnt_fused_mono3, "gnt_split_view": gnt_split_view,
+            "gnt_split_ray": gnt_split_ray}, gnt_fused_apply_mono3
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    import collections
+
+    plain, per_mode = _launch_counters()
+    for fn in plain.values():
+        fn.launches = 0
+    per_mode.launches = collections.Counter()
+
+
+def read_launches():
+    """{kernel name: launches since reset_launches}, a K2 mode by its row
+    name (every mode that launched, and MONO3_MODES)."""
+    plain, per_mode = _launch_counters()
+    counts = {name: fn.launches for name, fn in plain.items()}
+    for mode in (*MONO3_MODES, *per_mode.launches):
+        counts[f"gnt_fused_apply_mono3[{mode}]"] = per_mode.launches[mode]
+    return counts
 
 
 def expected_launches(cfg, n_rays):
     """{kernel name: launches} of one render of ``n_rays`` rays under
     ``cfg`` (resolved: ``resolve_epipolar_cfg``): K1 or K2 once per ray
-    tile on quad, K1's patch_rows mode once per tile on patch, K3a and K3b
-    once per block and tile (8 each) on exact, every other kernel none."""
+    tile on quad, K1's patch_rows mode once per tile on patch, K2's
+    unfolded mode once per tile on exact, every other kernel none."""
     tiles = -(-n_rays // cfg.ray_tile)
     if cfg.epipolar_mode == "exact":
-        want = {"gnt_split_view": 8 * tiles, "gnt_split_ray": 8 * tiles}
+        want = {"gnt_fused_apply_mono3[unfolded]": tiles}
     elif cfg.epipolar_mode == "patch":
         want = {"gnt_fused_mono4_patch": tiles}
     else:
@@ -640,7 +809,7 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
                     cols=(200, 264), n_timed=2, preset="fast", tag=None):
     """Drive render_novel_view once for the unmasked config (bundle None:
     on the fast preset patch, K1's patch_rows mode; on "quad" K1) or a
-    named bundle (``default``: K2's path; on the exact preset K3's), with
+    named bundle (``default``: K2's path; on the exact preset K2 unfolded), with
     the kernels' launch counts set to 0 just before and read just after;
     check it, then time it. Returns ({kernel name: launches}, seconds per
     view, the timed render's output)."""
@@ -650,10 +819,6 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
     import torch
 
     from pgdvs_tpu_torch.data.synthetic import make_contract_data
-    from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4
-    from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_mono3
-    from pgdvs_tpu_torch.kernels.gnt_fused_patch import gnt_fused_mono4_patch
-    from pgdvs_tpu_torch.kernels.gnt_fused_split import gnt_split_ray, gnt_split_view
     from pgdvs_tpu_torch.renderers.compose import render_novel_view
     from pgdvs_tpu_torch.renderers.static_gnt import resolve_epipolar_cfg
 
@@ -677,15 +842,11 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
         sync()
         return out
 
-    kernels = {"gnt_fused_mono4": gnt_fused_mono4, "gnt_fused_mono4_patch": gnt_fused_mono4_patch,
-               "gnt_fused_mono3": gnt_fused_mono3, "gnt_split_view": gnt_split_view,
-               "gnt_split_ray": gnt_split_ray}
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = render()
     first = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = read_launches()
     if device == "cuda" and launches != expected_launches(resolved, h * w):
         raise AssertionError(f"{tag} launches {launches}, expected "
                              f"{expected_launches(resolved, h * w)}")
@@ -783,19 +944,22 @@ def main() -> int:
     k2_worst, k2_times = phase_k2_vs_plain(models[1])
     k3_worst, k3_times = phase_k3_vs_plain(models[1])
     kp_worst, kp_times = phase_patch_vs_plain(models[1])
+    km_worst, km_times = phase_k2_modes_vs_plain(models[1])
     kp_launches, _, patch = phase_main_path(models)
     k1_launches, _, quad1 = phase_main_path(models, preset="quad", tag="[quad]", n_timed=1)
     for what in ("combined_rgb", "static_coarse_rgb"):
         exact_vs_quad(patch[what], quad1[what], tag="[main]", what=what, label="patch")
     del patch, quad1
     k2_launches, _, quad = phase_main_path(models, bundle="default", cols=(160, 224))
-    k3_launches, _, exact = phase_main_path(models, bundle="default", cols=(160, 224),
+    ke_launches, _, exact = phase_main_path(models, bundle="default", cols=(160, 224),
                                             preset="exact", tag="[exact]")
     for what in ("combined_rgb", "static_coarse_rgb"):
         exact_vs_quad(exact[what], quad[what], what=what)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     rows = []
+    # K3a / K3b and K2's modes other than unfolded run on no render path:
+    # their launches on the paths are 0, read from the [exact] run
     for kname, replaces, worst, times, launches in (
             ("gnt_fused_mono4", "pgdvs_tpu/kernels/gnt_fused_mono4.py:736",
              k1_worst, k1_times, k1_launches),
@@ -805,9 +969,12 @@ def main() -> int:
             ("gnt_fused_mono3", "pgdvs_tpu/kernels/gnt_fused_mono3.py:444",
              k2_worst, k2_times, k2_launches),
             ("gnt_split_view", "pgdvs_tpu/kernels/gnt_fused.py:345",
-             k3_worst["view"], k3_times["view"], k3_launches),
+             k3_worst["view"], k3_times["view"], ke_launches),
             ("gnt_split_ray", "pgdvs_tpu/kernels/gnt_fused.py:375",
-             k3_worst["ray"], k3_times["ray"], k3_launches)):
+             k3_worst["ray"], k3_times["ray"], ke_launches),
+            *((f"gnt_fused_apply_mono3[{mode}]",
+               f"pgdvs_tpu/kernels/gnt_fused_mono3.py:444 ({mode})",
+               km_worst[mode], km_times[mode], ke_launches) for mode in MONO3_MODES)):
         rows.append({
             "name": kname,
             "route": "cuda",

@@ -1,8 +1,9 @@
 // Fused GNT transformer forward (depth 8, width 64) for Hopper (sm_90a).
 //
-// Five entry points share the kernels below. The three whole forwards
-// differ only in their prologue and in where the per-(view, token) validity
-// comes from (the VSRC template parameter of k_view / k_ray):
+// Five entry points share the kernels below. The three whole forwards differ
+// only in their prologue, in where the per-(view, token) validity comes from
+// (the VSRC template parameter of k_view / k_ray) and in whether the ray-diff
+// and point codes are read or made (Mono3In):
 //
 //   gnt_mono4_forward  replaces pgdvs_tpu/kernels/gnt_fused_mono4.py:
 //                      gnt_fused_apply_mono4 on its rgb_feat contract;
@@ -12,10 +13,15 @@
 //                      (raw patch rows + stencil coefficients, the combine in
 //                      k_prologue_patch). Wrapper: kernels/gnt_fused_patch.py.
 //   gnt_mono3_forward  replaces pgdvs_tpu/kernels/gnt_fused_mono3.py:
-//                      gnt_fused_apply_mono3 (separate_mask, fold_ray_diff,
-//                      fold_pos_code, views outer); validity read from an
-//                      explicit uint8 mask [V, R, S] (in bounds, in front and
-//                      not dynamic). Wrapper: kernels/gnt_fused_mono3.py.
+//                      gnt_fused_apply_mono3 in each of its operand modes:
+//                      validity read from a uint8 mask [V, R, S] (in bounds,
+//                      in front and not dynamic; separate, concatenated or
+//                      pre-packed in JAX) or K1's projection test (fold_mask);
+//                      the bf16 ray-diff code and point + view code read
+//                      (the unfolded mode) or made (fold_ray_diff,
+//                      fold_pos_code); sampled features, or raw quad rows +
+//                      frac combined in k_prologue_lerp (fold_lerp). Wrapper:
+//                      kernels/gnt_fused_mono3.py.
 //
 // The two split entry points run one half-block each, with the ray-diff
 // code and the validity mask read from memory (VSRC_SPLIT), as the exact
@@ -38,14 +44,15 @@
 //   k_prologue   rgbfeat_fc_0/1 per view token -> h [V, N, 64] bf16 and the
 //                max-pool over views -> q [N, 64] f32 (N = R * S tokens);
 //                k_prologue_patch first combines each token's patch row with
-//                its stencil coefficients (f32, rounded to bf16).
+//                its stencil coefficients, k_prologue_lerp its four quad taps
+//                with the bilinear weights of its frac (f32, rounded to bf16).
 //   k_view       one view transformer (+ q_fc on even blocks) for 64
 //                tokens: validity (recomputed, or read from the mask) and
-//                the ray-diff code from pts and the camera centres (or both
-//                read from memory: K3a), views
-//                streamed one at a time through an online
-//                per-channel softmax, so a token's [V, 64] set never has to
-//                sit in shared memory at once.
+//                the ray-diff code from pts and the camera centres (or read
+//                from memory: K3a in f32, K2's unfolded mode in bf16, which
+//                reads its q_fc point + view code too), views streamed one
+//                at a time through an online per-channel softmax, so a
+//                token's [V, 64] set never has to sit in shared memory.
 //   k_ray        one ray transformer for one ray (all S samples in shared
 //                memory, heads one at a time); the last block (every K3b
 //                launch) also writes the head-mean first-query weights, and
@@ -284,20 +291,46 @@ __host__ __device__ inline size_t prologue_smem(int cp) {
   return (size_t)TT * (cp + 8) * 2 + (size_t)TT * 72 * 2 + (size_t)TT * 68 * 4;
 }
 
+// rf rows are ld >= C channels apart (ld = C + 1 for K2's pre-packed mode,
+// whose trailing validity channel is not read here).
 __global__ void __launch_bounds__(NTHREADS)
-k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int Cp, HeadW w,
+k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int ld, int Cp, HeadW w,
            bf16* __restrict__ hout, float* __restrict__ qout) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n0 = blockIdx.x * TT;
   prologue_body(V, N, Cp, w, hout, qout, smem, [&](int v, bf16* A, int lda) {
-    const bf16* src = rf + ((size_t)v * N + n0) * C;
+    const bf16* src = rf + ((size_t)v * N + n0) * ld;
     for (int i = threadIdx.x; i < TT * Cp; i += NTHREADS) {
       const int r = i / Cp, c = i - r * Cp;
-      A[r * lda + c] = (c < C && n0 + r < N) ? src[(size_t)r * C + c]
+      A[r * lda + c] = (c < C && n0 + r < N) ? src[(size_t)r * ld + c]
                                              : __float2bfloat16(0.f);
     }
     __syncthreads();
   });
+}
+
+// A tile of view v from stencil rows: token n = ray*S + s takes the row
+// rows[v, ray / nb, s, :] (n_pos positions x C channels) and its
+// coefficients cf[(n - n0) * n_pos + p] (staged in shared memory):
+// rgb_feat[c] = sum_p row[p*C + c] * cf[p], in f32 and p order, rounded once
+// to bf16.
+__device__ __forceinline__ void combine_rows(const bf16* __restrict__ rows,
+                                             const float* cf, int v, int n0, int R,
+                                             int S, int C, int Cp, int n_pos, int nb,
+                                             bf16* A, int lda) {
+  const int N = R * S, nrb = R / nb, row_len = n_pos * C;
+  for (int i = threadIdx.x; i < TT * Cp; i += NTHREADS) {
+    const int r = i / Cp, c = i - r * Cp, n = n0 + r;
+    float acc = 0.f;
+    if (c < C && n < N) {
+      const int ray = n / S, s = n - ray * S;
+      const bf16* row = rows + (((size_t)v * nrb + ray / nb) * S + s) * row_len + c;
+      const float* k = cf + r * n_pos;
+      for (int p = 0; p < n_pos; ++p) acc += __bfloat162float(row[p * C]) * k[p];
+    }
+    A[r * lda + c] = __float2bfloat16(acc);
+  }
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
@@ -317,7 +350,7 @@ k_prologue_patch(const bf16* __restrict__ rows, const bf16* __restrict__ coef, i
                  bf16* __restrict__ hout, float* __restrict__ qout) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* cf = (float*)(smem + prologue_smem(Cp));      // [TT x n_pos]
-  const int N = R * S, n0 = blockIdx.x * TT, nrb = R / nb, row_len = n_pos * C;
+  const int N = R * S, n0 = blockIdx.x * TT;
   prologue_body(V, N, Cp, w, hout, qout, smem, [&](int v, bf16* A, int lda) {
     for (int i = threadIdx.x; i < TT * n_pos; i += NTHREADS) {
       const int n = n0 + i / n_pos;
@@ -325,18 +358,39 @@ k_prologue_patch(const bf16* __restrict__ rows, const bf16* __restrict__ coef, i
                     : 0.f;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < TT * Cp; i += NTHREADS) {
-      const int r = i / Cp, c = i - r * Cp, n = n0 + r;
-      float acc = 0.f;
-      if (c < C && n < N) {
-        const int ray = n / S, s = n - ray * S;
-        const bf16* row = rows + (((size_t)v * nrb + ray / nb) * S + s) * row_len + c;
-        const float* k = cf + r * n_pos;
-        for (int p = 0; p < n_pos; ++p) acc += __bfloat162float(row[p * C]) * k[p];
-      }
-      A[r * lda + c] = __float2bfloat16(acc);
+    combine_rows(rows, cf, v, n0, R, S, C, Cp, n_pos, nb, A, lda);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// k_prologue_lerp: K2's fold_lerp prologue. Token n of view v takes its raw
+// quad row rows[v, n, :] (the fused map's pixels (y, x), (y, x+1), (y+1, x),
+// (y+1, x+1), C channels each) and frac[v, n, :] = (x - sx, y - sy) f32. The
+// zero-pad bilinear weights max(0, 1-|f|), max(0, 1-|f-1|) per axis are made
+// in f32 and staged ([TT x 4] after the k_prologue layout); the four taps
+// combine as k_prologue_patch's stencil (one ray per row, 4 positions).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NTHREADS)
+k_prologue_lerp(const bf16* __restrict__ rows, const float* __restrict__ frac, int V,
+                int R, int S, int C, int Cp, HeadW w, bf16* __restrict__ hout,
+                float* __restrict__ qout) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* cf = (float*)(smem + prologue_smem(Cp));      // [TT x 4]
+  const int N = R * S, n0 = blockIdx.x * TT;
+  prologue_body(V, N, Cp, w, hout, qout, smem, [&](int v, bf16* A, int lda) {
+    if (threadIdx.x < TT) {
+      const size_t n = (size_t)v * N + min(n0 + (int)threadIdx.x, N - 1);
+      const float fx = frac[2 * n], fy = frac[2 * n + 1];
+      const float wx0 = fmaxf(0.f, 1.f - fabsf(fx)), wx1 = fmaxf(0.f, 1.f - fabsf(fx - 1.f));
+      const float wy0 = fmaxf(0.f, 1.f - fabsf(fy)), wy1 = fmaxf(0.f, 1.f - fabsf(fy - 1.f));
+      float* k = cf + threadIdx.x * 4;
+      k[0] = wx0 * wy0;
+      k[1] = wx1 * wy0;
+      k[2] = wx0 * wy1;
+      k[3] = wx1 * wy1;
     }
     __syncthreads();
+    combine_rows(rows, cf, v, n0, R, S, C, Cp, 4, 1, A, lda);
   });
 }
 
@@ -345,6 +399,18 @@ struct PatchIn {
   const void* rows;
   const void* coef;
   int n_pos, nb;  // stencil positions per row, rays per row block
+};
+
+// K2's operand sources beyond K1's (gnt_mono3_forward): the channel stride of
+// rf; raw quad rows + frac (k_prologue_lerp runs instead of k_prologue); the
+// ray-diff code (bf16 [V, N, 4]) and the point + view code (bf16 [N, 126])
+// read from memory instead of made from pts. Null pointers: not used.
+struct Mono3In {
+  int ld;
+  const void* lerp_rows;
+  const void* frac;
+  const void* rd16;
+  const void* pos16;
 };
 
 // Where validity and the ray-diff code come from.
@@ -385,7 +451,9 @@ __device__ __forceinline__ void ray_diff_code(const float* centers, int v, float
 // ---------------------------------------------------------------------------
 // k_view: one view transformer block (+ q_fc_0/1 when has_qfc), q_in -> q_out
 // (the same buffer in K1 / K2). VSRC_SPLIT reads no pts, centres or view code
-// and needs has_qfc == 0.
+// and needs has_qfc == 0. rd16 / pos16 (K2's unfolded modes, may be null):
+// the bf16 ray-diff code [V, N, 4] / point + view code [N, 126] read in place
+// of making them; pts may be null when neither is made and validity is read.
 // ---------------------------------------------------------------------------
 #define VIEW_LDA 88   // [h_v (64) | pos_in (8) | zero (16)]
 #define VIEW_LDC 84
@@ -397,6 +465,7 @@ k_view(const bf16* __restrict__ h, const float* q_in, float* q_out,
        const float* __restrict__ pts, const float* __restrict__ vcode,
        const float* __restrict__ centers, const float* __restrict__ proj,
        const uint8_t* __restrict__ mask, const float* __restrict__ ray_diff,
+       const bf16* __restrict__ rd16, const bf16* __restrict__ pos16,
        int V, int N, int S, float hf, float wf, ViewW w, int has_qfc) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* A = (bf16*)smem;                                  // [TT x 88]
@@ -422,7 +491,7 @@ k_view(const bf16* __restrict__ h, const float* q_in, float* q_out,
   if (tid < TT) {
     const int n = min(n0 + tid, N - 1);
     float px = 0.f, py = 0.f, pz = 0.f;
-    if (VSRC != VSRC_SPLIT) {
+    if (VSRC != VSRC_SPLIT && pts) {
       px = pts[n * 3];
       py = pts[n * 3 + 1];
       pz = pts[n * 3 + 2];
@@ -478,6 +547,10 @@ k_view(const bf16* __restrict__ h, const float* q_in, float* q_out,
       if (VSRC == VSRC_SPLIT) {
         const float4 r4 = ((const float4*)ray_diff)[(size_t)v * N + min(n0 + tid, N - 1)];
         rd[0] = r4.x; rd[1] = r4.y; rd[2] = r4.z; rd[3] = r4.w;
+      } else if (rd16) {
+        const bf16* r4 = rd16 + ((size_t)v * N + min(n0 + tid, N - 1)) * 4;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) rd[k] = __bfloat162float(r4[k]);
       } else {
         ray_diff_code(centers, v, pts_s[tid * 3], pts_s[tid * 3 + 1], pts_s[tid * 3 + 2], rd);
       }
@@ -551,26 +624,32 @@ k_view(const bf16* __restrict__ h, const float* q_in, float* q_out,
     for (int i = 0; i < 16; ++i) H1[t * ldq + g * 16 + i] = __float2bfloat16(qr[i]);
     if (tid < TT) {
       bf16* row = H1 + tid * ldq;
-      float p3[3] = {pts_s[tid * 3], pts_s[tid * 3 + 1], pts_s[tid * 3 + 2]};
-      float s3[3], c3[3];
-      for (int k = 0; k < 3; ++k) {
-        row[NW + k] = __float2bfloat16(p3[k]);
-        s3[k] = sinf(p3[k]);
-        c3[k] = cosf(p3[k]);
-      }
-      for (int f = 0; f < 10; ++f) {
+      const int n = min(n0 + tid, N - 1);
+      if (pos16) {
+        const bf16* src = pos16 + (size_t)n * 2 * POSENC;
+        for (int k = 0; k < 2 * POSENC; ++k) row[NW + k] = src[k];
+      } else {
+        float p3[3] = {pts_s[tid * 3], pts_s[tid * 3 + 1], pts_s[tid * 3 + 2]};
+        float s3[3], c3[3];
         for (int k = 0; k < 3; ++k) {
-          row[NW + 3 + 6 * f + k] = __float2bfloat16(s3[k]);
-          row[NW + 6 + 6 * f + k] = __float2bfloat16(c3[k]);
-          const float s2 = 2.f * s3[k] * c3[k];
-          const float c2 = c3[k] * c3[k] - s3[k] * s3[k];
-          s3[k] = s2;
-          c3[k] = c2;
+          row[NW + k] = __float2bfloat16(p3[k]);
+          s3[k] = sinf(p3[k]);
+          c3[k] = cosf(p3[k]);
         }
+        for (int f = 0; f < 10; ++f) {
+          for (int k = 0; k < 3; ++k) {
+            row[NW + 3 + 6 * f + k] = __float2bfloat16(s3[k]);
+            row[NW + 6 + 6 * f + k] = __float2bfloat16(c3[k]);
+            const float s2 = 2.f * s3[k] * c3[k];
+            const float c2 = c3[k] * c3[k] - s3[k] * s3[k];
+            s3[k] = s2;
+            c3[k] = c2;
+          }
+        }
+        const int ray = n / S;
+        for (int k = 0; k < POSENC; ++k)
+          row[NW + POSENC + k] = __float2bfloat16(vcode[(size_t)ray * POSENC + k]);
       }
-      const int ray = min(n0 + tid, N - 1) / S;
-      for (int k = 0; k < POSENC; ++k)
-        row[NW + POSENC + k] = __float2bfloat16(vcode[(size_t)ray * POSENC + k]);
       for (int k = NW + 2 * POSENC; k < ldq; ++k) row[k] = __float2bfloat16(0.f);
     }
     __syncthreads();
@@ -752,10 +831,15 @@ k_ray(const float* q_in, float* q, const float* __restrict__ pts,
   const size_t N = (size_t)gridDim.x * S;
   for (int k = tid; k < S; k += NTHREADS) {
     const size_t n = (size_t)r * S + k;
-    const float* p = pts + n * 3;
+    float px = 0.f, py = 0.f, pz = 0.f;  // pts may be null when validity is read
+    if (VSRC == VSRC_PROJ) {
+      px = pts[n * 3];
+      py = pts[n * 3 + 1];
+      pz = pts[n * 3 + 2];
+    }
     int nv = 0;
     for (int v = 0; v < V; ++v)
-      nv += view_valid<VSRC>(mask, proj, v, N, n, p[0], p[1], p[2], hf, wf);
+      nv += view_valid<VSRC>(mask, proj, v, N, n, px, py, pz, hf, wf);
     cnt += wacc[k] * (float)nv;
   }
   for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
@@ -803,17 +887,19 @@ static void read_ray(PtrReader& r, RayW& y) {
 }
 
 // The whole forward on `stream`: the prologue (k_prologue on rf, or
-// k_prologue_patch on *patch when patch is not null), then 8 x (view block,
-// ray block). wptrs: N_PTRS device pointers in the order of
-// pack_mono4_weights (pgdvs_tpu_torch/kernels/gnt_fused.py). Returns a
-// cudaError_t.
+// k_prologue_patch on *patch when patch is not null, or k_prologue_lerp on
+// m3's quad rows when it has them), then 8 x (view block, ray block), which
+// read m3's ray-diff and point codes where it has them. wptrs: N_PTRS device
+// pointers in the order of pack_mono4_weights
+// (pgdvs_tpu_torch/kernels/gnt_fused.py). Returns a cudaError_t.
 template <int VSRC>
 static int run_forward(const void* rf, const void* mask, const void* pts,
                        const void* vcode, const void* centers, const void* proj,
                        int V, int R, int S, int C, int Cp, float hf, float wf,
                        const uint64_t* wptrs, int n_ptrs, void* h_scratch,
                        void* q_scratch, void* rgb_out, void* w_out,
-                       void* cnt_out, void* stream_ptr, const PatchIn* patch = nullptr) {
+                       void* cnt_out, void* stream_ptr, const PatchIn* patch = nullptr,
+                       const Mono3In* m3 = nullptr) {
   if (n_ptrs != N_PTRS || V > MAX_VIEWS || V < 1 || S < 1 || R < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -843,19 +929,28 @@ static int run_forward(const void* rf, const void* mask, const void* pts,
     k_prologue_patch<<<nblk, NTHREADS, sm_pro, stream>>>(
         (const bf16*)patch->rows, (const bf16*)patch->coef, V, R, S, C, Cp, patch->n_pos,
         patch->nb, hw, (bf16*)h_scratch, (float*)q_scratch);
+  } else if (m3 && m3->lerp_rows) {
+    const size_t sm_pro = prologue_smem(Cp) + (size_t)TT * 4 * 4;
+    if ((err = cudaFuncSetAttribute(k_prologue_lerp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
+    k_prologue_lerp<<<nblk, NTHREADS, sm_pro, stream>>>(
+        (const bf16*)m3->lerp_rows, (const float*)m3->frac, V, R, S, C, Cp, hw,
+        (bf16*)h_scratch, (float*)q_scratch);
   } else {
     const size_t sm_pro = prologue_smem(Cp);
     if ((err = cudaFuncSetAttribute(k_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
     k_prologue<<<nblk, NTHREADS, sm_pro, stream>>>(
-        (const bf16*)rf, V, N, C, Cp, hw, (bf16*)h_scratch, (float*)q_scratch);
+        (const bf16*)rf, V, N, C, m3 ? m3->ld : C, Cp, hw, (bf16*)h_scratch,
+        (float*)q_scratch);
   }
   if ((err = cudaGetLastError())) return (int)err;
   float* q = (float*)q_scratch;
+  const bf16* rd16 = m3 ? (const bf16*)m3->rd16 : nullptr;
+  const bf16* pos16 = m3 ? (const bf16*)m3->pos16 : nullptr;
   for (int b = 0; b < DEPTH; ++b) {
     k_view<VSRC><<<nblk, NTHREADS, sm_view, stream>>>(
         (const bf16*)h_scratch, q, q, (const float*)pts, (const float*)vcode,
         (const float*)centers, (const float*)proj, (const uint8_t*)mask,
-        nullptr, V, N, S, hf, wf, vw[b], b % 2 == 0);
+        nullptr, rd16, pos16, V, N, S, hf, wf, vw[b], b % 2 == 0);
     if ((err = cudaGetLastError())) return (int)err;
     const int last = b == DEPTH - 1;
     k_ray<VSRC><<<R, NTHREADS, sm_ray, stream>>>(
@@ -907,19 +1002,38 @@ int gnt_mono4_patch_forward(const void* rows, const void* coef, const void* pts,
                                 rgb_out, w_out, cnt_out, stream_ptr, &patch);
 }
 
-// K2: validity read from mask (uint8 [V, R, S], nonzero = valid);
-// cnt_out = sum_s w_s * (mask views at s) / V. K1's argument list, with the
-// mask in proj's place; hf and wf are not read.
-int gnt_mono3_forward(const void* rf, const void* pts, const void* vcode,
-                      const void* centers, const void* mask, int V, int R,
-                      int S, int C, int Cp, float hf, float wf,
-                      const uint64_t* wptrs, int n_ptrs, void* h_scratch,
-                      void* q_scratch, void* rgb_out, void* w_out,
-                      void* cnt_out, void* stream_ptr) {
-  if (mask == nullptr) return (int)cudaErrorInvalidValue;
-  return run_forward<VSRC_MASK>(rf, mask, pts, vcode, centers, nullptr, V, R, S, C,
-                           Cp, hf, wf, wptrs, n_ptrs, h_scratch, q_scratch,
-                           rgb_out, w_out, cnt_out, stream_ptr);
+// K2, in every operand mode of gnt_fused_apply_mono3, one source per
+// operand (a null pointer: not given):
+//   features  rf (bf16 [V, R, S, ld], ld = C or C + 1, the first C channels
+//             read) or lerp_rows (bf16 [V, R, S, 4C]) + frac (f32 [V, R, S, 2]);
+//   validity  mask (uint8 [V, R, S], nonzero = valid) or proj ([V, 3, 4] f32
+//             K @ w2c rows, tested against (hf, wf); needs pts);
+//   ray-diff  rd16 (bf16 [V, R, S, 4]) or made from pts + centers;
+//   q_fc code pos16 (bf16 [R, S, 126]: point code | view code) or made from
+//             pts + vcode (f32 [R, 63]).
+// Any other combination returns cudaErrorInvalidValue. cnt_out = sum_s w_s *
+// (valid views at s) / V. The rest as gnt_mono4_forward.
+int gnt_mono3_forward(const void* rf, int ld, const void* lerp_rows,
+                            const void* frac, const void* mask, const void* proj,
+                            const void* rd16, const void* pos16, const void* pts,
+                            const void* vcode, const void* centers, int V, int R,
+                            int S, int C, int Cp, float hf, float wf,
+                            const uint64_t* wptrs, int n_ptrs, void* h_scratch,
+                            void* q_scratch, void* rgb_out, void* w_out,
+                            void* cnt_out, void* stream_ptr) {
+  const bool lerp = lerp_rows != nullptr;
+  if (lerp == (rf != nullptr) || (lerp && !frac) || (!lerp && ld != C && ld != C + 1) ||
+      (mask == nullptr) == (proj == nullptr) || (proj && !pts) ||
+      (!rd16 && (!pts || !centers)) || (!pos16 && (!pts || !vcode)))
+    return (int)cudaErrorInvalidValue;
+  const Mono3In m3{ld, lerp_rows, frac, rd16, pos16};
+  if (proj)
+    return run_forward<VSRC_PROJ>(rf, nullptr, pts, vcode, centers, proj, V, R, S, C, Cp,
+                                  hf, wf, wptrs, n_ptrs, h_scratch, q_scratch, rgb_out,
+                                  w_out, cnt_out, stream_ptr, nullptr, &m3);
+  return run_forward<VSRC_MASK>(rf, mask, pts, vcode, centers, nullptr, V, R, S, C, Cp,
+                                hf, wf, wptrs, n_ptrs, h_scratch, q_scratch, rgb_out,
+                                w_out, cnt_out, stream_ptr, nullptr, &m3);
 }
 
 // K3a: one view block over N tokens, q_in [N, 64] f32 -> q_out [N, 64] f32
@@ -940,7 +1054,8 @@ int gnt_split_view_forward(const void* q_in, void* q_out, const void* h,
   if ((err = cudaFuncSetAttribute(k_view<VSRC_SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm))) return (int)err;
   k_view<VSRC_SPLIT><<<(N + TT - 1) / TT, NTHREADS, sm, (cudaStream_t)stream_ptr>>>(
       (const bf16*)h, (const float*)q_in, (float*)q_out, nullptr, nullptr, nullptr,
-      nullptr, (const uint8_t*)mask, (const float*)ray_diff, V, N, 1, 0.f, 0.f, a, 0);
+      nullptr, (const uint8_t*)mask, (const float*)ray_diff, nullptr, nullptr, V, N, 1,
+      0.f, 0.f, a, 0);
   return (int)cudaGetLastError();
 }
 

@@ -32,22 +32,29 @@ c_void_p, c_int, c_float, c_size_t = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 )
 
-# the argument list K1 and K2 share (csrc/gnt_fused.cu: the fifth pointer is
-# K1's projection or K2's mask)
-_FORWARD = (
-    [c_void_p] * 5 + [c_int] * 5 + [c_float, c_float, c_void_p, c_int]
-    + [c_void_p] * 6,
-    c_int,
-)
 # C signatures of the library's entry points (csrc/gnt_fused.cu)
 SIGNATURES = {
-    "gnt_mono4_forward": _FORWARD,
-    "gnt_mono3_forward": _FORWARD,
-    # K1's patch_rows mode: rows, coef, then _FORWARD's list with n_pos and
-    # the rays per row block after the padded C
+    # K1: rgb_feat, pts, view code, centres, projection rows; V, R, S, C,
+    # padded C; the map size; the weights and their count; scratch, outputs
+    # and the stream
+    "gnt_mono4_forward": (
+        [c_void_p] * 5 + [c_int] * 5 + [c_float, c_float, c_void_p, c_int]
+        + [c_void_p] * 6,
+        c_int,
+    ),
+    # K1's patch_rows mode: rows, coef, then K1's list with n_pos and the
+    # rays per row block after the padded C
     "gnt_mono4_patch_forward": (
         [c_void_p] * 6 + [c_int] * 7 + [c_float, c_float, c_void_p, c_int]
         + [c_void_p] * 6,
+        c_int,
+    ),
+    # K2 in any operand mode: rf, its channel stride, lerp rows, frac, mask,
+    # proj, the bf16 ray-diff and point codes, pts, view code, centres, then
+    # K1's list from V on
+    "gnt_mono3_forward": (
+        [c_void_p, c_int] + [c_void_p] * 9 + [c_int] * 5
+        + [c_float, c_float, c_void_p, c_int] + [c_void_p] * 6,
         c_int,
     ),
     "gnt_mono4_ray_smem": ([c_int], c_size_t),

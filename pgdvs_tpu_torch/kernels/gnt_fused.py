@@ -202,25 +202,21 @@ def call_entry(lib, entry, n_ptrs, weights, head, tail, dev):
 def launch(entry, params, data, dims, pts, view_code, centers, validity, hw, extra=()):
     """Check, pack, allocate and launch one whole forward; the outputs dict.
 
-    ``entry`` is the C entry point: ``gnt_mono4_forward`` (K1) or
-    ``gnt_mono3_forward`` (K2) with ``data = (rgb_feat [V, R, S, C],)``, or
-    ``gnt_mono4_patch_forward`` (K1's patch_rows mode) with ``data = (rows,
-    coef)`` and ``extra = (n_pos, block_rays)``. They share one argument
-    list: the data pointers, pts, view_code, centers, ``validity`` (K1's
-    projection rows [V, 3, 4] f32 or K2's uint8 mask [V, R, S]), V, R, S,
-    C, the padded C, the extra ints, the map size ``hw`` K1 tests the
-    projection against, the weights, scratch and outputs. Validates the
+    ``entry`` is the C entry point: ``gnt_mono4_forward`` (K1) with ``data
+    = (rgb_feat [V, R, S, C],)``, or ``gnt_mono4_patch_forward`` (K1's
+    patch_rows mode) with ``data = (rows, coef)`` and ``extra = (n_pos,
+    block_rays)``. They share one argument list: the data pointers, pts,
+    view_code, centers, ``validity`` (the projection rows [V, 3, 4] f32),
+    V, R, S, C, the padded C, the extra ints, the map size ``hw`` K1 tests
+    the projection against, the weights, scratch and outputs. Validates the
     operands common to all (bf16 data, pts [R, S, 3], view_code [R, 63],
     centers [V+1, 3], all on one CUDA device; ``dims`` = (V, R, S, C)),
     builds or loads the kernel library, checks the view and shared-memory
     limits and packs the weights for the device. Raises on any failure, the
     launch's included.
     """
-    packed = params if isinstance(params, Mono4Weights) else None
-    gnt = packed.gnt if packed is not None else params
+    gnt = params.gnt if isinstance(params, Mono4Weights) else params
     dev = data[0].device
-    from pgdvs_tpu_torch.kernels._build import load_library
-
     v, r, s, c = dims
     if any(t.dtype != torch.bfloat16 for t in data):
         raise ValueError("the kernel's feature operands must be bfloat16")
@@ -233,33 +229,52 @@ def launch(entry, params, data, dims, pts, view_code, centers, validity, hw, ext
     for t in (*data, pts, view_code, centers, validity):
         if t.device != dev:
             raise ValueError("all operands must be on the same device")
-    lib = load_library().lib
-    if v > lib.gnt_mono4_max_views():
-        raise ValueError(f"at most {lib.gnt_mono4_max_views()} views, got {v}")
-    check_ray_smem(lib, s, dev)
-    if packed is None or packed.device != dev:
-        packed = pack_mono4_weights(gnt, dev)
-
+    lib, packed = prepare_forward(params, dev, v, s)
     data = [t.contiguous() for t in data]
     pts32 = pts.float().contiguous()
     vc = view_code.float().contiguous()
     ctr = centers.float().contiguous()
     validity = validity.contiguous()
+    bufs, outs = forward_buffers(v, r, s, dev)
+    call_entry(
+        lib, entry, lib.gnt_mono4_n_ptrs(), packed.tensors,
+        (*[t.data_ptr() for t in data], pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr(),
+         validity.data_ptr(), v, r, s, c, packed.cp, *extra, float(hw[0]), float(hw[1])),
+        [t.data_ptr() for t in bufs], dev)
+    return outs
+
+
+def prepare_forward(params, dev, v, s):
+    """(library, ``Mono4Weights`` for ``dev``) for one whole forward of V
+    views and S samples: builds or loads the kernels, raises past the view
+    and shared-memory limits, packs the weights unless ``params`` already
+    are for ``dev``."""
+    from pgdvs_tpu_torch.kernels._build import load_library
+
+    lib = load_library().lib
+    if v > lib.gnt_mono4_max_views():
+        raise ValueError(f"at most {lib.gnt_mono4_max_views()} views, got {v}")
+    check_ray_smem(lib, s, dev)
+    if isinstance(params, Mono4Weights) and params.device == dev:
+        return lib, params
+    gnt = params.gnt if isinstance(params, Mono4Weights) else params
+    return lib, pack_mono4_weights(gnt, dev)
+
+
+def forward_buffers(v, r, s, dev):
+    """The scratch (h [V, N, 64] bf16, q [N, 64] f32) and outputs of one
+    whole forward: (the five tensors whose pointers the C entries take
+    last, the outputs dict). The caller holds the tensors until the
+    launch is enqueued."""
     n = r * s
-    h_scr = torch.empty((v, n, NW), dtype=torch.bfloat16, device=dev)
-    q_scr = torch.empty((n, NW), dtype=torch.float32, device=dev)
     outs = {
         "rgb": torch.empty((r, 3), dtype=torch.float32, device=dev),
         "weights": torch.empty((r, s), dtype=torch.float32, device=dev),
         "inbound_cnt_raw": torch.empty((r,), dtype=torch.float32, device=dev),
     }
-    call_entry(
-        lib, entry, lib.gnt_mono4_n_ptrs(), packed.tensors,
-        (*[t.data_ptr() for t in data], pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr(),
-         validity.data_ptr(), v, r, s, c, packed.cp, *extra, float(hw[0]), float(hw[1])),
-        (h_scr.data_ptr(), q_scr.data_ptr(), outs["rgb"].data_ptr(),
-         outs["weights"].data_ptr(), outs["inbound_cnt_raw"].data_ptr()), dev)
-    return outs
+    bufs = (torch.empty((v, n, NW), dtype=torch.bfloat16, device=dev),
+            torch.empty((n, NW), dtype=torch.float32, device=dev), *outs.values())
+    return bufs, outs
 
 
 def check_proj(proj, v, dev):

@@ -3,10 +3,12 @@ half-block.
 
 Replaces the TPU kernels of ``pgdvs_tpu/kernels/gnt_fused.py``:
 ``_run_view`` (``_view_kernel``, K3a) and ``_run_ray`` (``_ray_kernel``,
-K3b), with the host loop of ``gnt_fused_apply`` around them. The exact
-sampler feeds them: it materializes the ray-difference code, the validity
-mask and (through the renderer) the point code, which K1 and K2 make in
-the kernel instead.
+K3b), with the host loop of ``gnt_fused_apply`` around them. They take the
+ray-difference code, the validity mask and the point code as the exact
+sampler materializes them. No render path calls them: the JAX package
+reaches its split kernels only when asked (``pallas_kernel="split"``), and
+the port renders the exact sampler on K2's unfolded mode as JAX's default
+does; they are a direct call, held against their plain versions.
 
     gnt_split_view(q [R, S, 64] f32, h [V, R, S, 64] bf16,
                    ray_diff [V, R, S, 4], mask [V, R, S] (nonzero = valid),

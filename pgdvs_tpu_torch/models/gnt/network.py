@@ -171,10 +171,13 @@ class GNT(nn.Module):
             rgb_feat, ray_diff, mask, pts, sinusoidal_embed(viewdirs)
         )
 
-    def forward_codes(self, rgb_feat, ray_diff, mask, pts, view_code):
+    def forward_codes(self, rgb_feat, ray_diff, mask, pts, view_code, pts_code=None):
         """As ``forward``, with the view-direction embedding
-        ``view_code [..., 63]`` given instead of ``ray_d``."""
-        pts_code = sinusoidal_embed(pts)
+        ``view_code [..., 63]`` given instead of ``ray_d``, and the point
+        embedding ``pts_code [..., S, 63]`` given instead of made from
+        ``pts`` when it is not None (then ``pts`` is not read)."""
+        if pts_code is None:
+            pts_code = sinusoidal_embed(pts)
         view_code = view_code[..., None, :].expand(
             pts_code.shape[:-1] + (view_code.shape[-1],)
         )

@@ -7,7 +7,7 @@ the static renderer calls, views outer:
 full-resolution sources and features from the quarter-resolution ResUNet
 output, each with its own zero-padded bilinear lookup
 (``multiview_bilinear``), plus the ray-difference code and the validity
-masks, which the split GNT kernels (K3) read.
+masks, which K2's unfolded mode reads.
 
 The quad sampler (``epipolar_sample_fused(quad=True, views_outer=True,
 with_ray_diff=False)``): each sample point is projected
@@ -19,7 +19,8 @@ gather rows; here the four taps are gathered from the fused map directly —
 the same values. Without the dyn mask (``epipolar_sample_quad``) validity
 and the ray-difference code are left to the GNT kernel; with it
 (``epipolar_sample_quad_masked``) the sampler returns the validity masks
-the masked kernel reads.
+the masked kernel reads. ``epipolar_sample_quad_raw`` leaves the lerp to
+K2's fold_lerp mode: the four taps' rows and the fractional offsets.
 
 The patch sampler (``epipolar_sample_patch_raw``, the JAX package's fast
 preset): rays come in by x bx pixel blocks; per (view, block, sample) ONE
@@ -155,6 +156,42 @@ def epipolar_sample_quad_masked(pts: torch.Tensor, proj: torch.Tensor,
         "mask_inbound": inbound,
         "mask_invalid": invalid,
         "mask": inbound & ~invalid,
+    }
+
+
+def epipolar_sample_quad_raw(pts: torch.Tensor, proj: torch.Tensor,
+                             fused_maps: torch.Tensor):
+    """Raw quad rows and fractional offsets, for K2's fold_lerp mode
+    (``gnt_fused_apply_mono3(..., fold_lerp=True, frac=...)``, which combines
+    them): the JAX package's ``epipolar_sample_quad_raw`` on the rows of
+    its ``build_quad_maps``. No preset reaches it; the unmasked maps only.
+
+    Args: pts [R, S, 3]; proj [V, 4, 4]; fused_maps [V, H, W, C].
+    Returns a dict, every entry views outer:
+      rows [V, R, S, 4C] in the maps' dtype: the fused map's pixels
+        (sy, sx), (sy, sx+1), (sy+1, sx), (sy+1, sx+1), edge-clamped;
+      frac [V, R, S, 2] float32: (x - sx, y - sy), with sx = floor(x)
+        clamped to [0, W-2] and sy = floor(y) to [0, H-2];
+      mask_inbound, mask [V, R, S] bool: in front and inside
+        [0, W-1] x [0, H-1]; mask_invalid: all False.
+    """
+    v, h, w, _c = fused_maps.shape
+    uv, _z, in_front = project_all_views(pts, proj)
+    x, y = uv[..., 0], uv[..., 1]
+    sx = torch.clamp(torch.floor(x), 0, max(w - 2, 0))
+    sy = torch.clamp(torch.floor(y), 0, max(h - 2, 0))
+    ix, iy = sx.long(), sy.long()
+    ix1, iy1 = torch.clamp(ix + 1, max=w - 1), torch.clamp(iy + 1, max=h - 1)
+    vi = torch.arange(v, device=pts.device).view(v, 1, 1)
+    rows = torch.cat([fused_maps[vi, iy, ix], fused_maps[vi, iy, ix1],
+                      fused_maps[vi, iy1, ix], fused_maps[vi, iy1, ix1]], dim=-1)
+    inbound = pixel_inbound(uv, float(h), float(w)) & in_front
+    return {
+        "rows": rows,
+        "frac": torch.stack([x - sx, y - sy], dim=-1),
+        "mask_inbound": inbound,
+        "mask_invalid": torch.zeros_like(inbound),
+        "mask": inbound,
     }
 
 

@@ -18,10 +18,16 @@ hand kernel; which one follows from the semantic flags alone:
                                 sampled features;
   quad sampling, dyn mask       K2 (``kernels/gnt_fused_mono3.py``): validity
                                 read from the sampler's mask;
-  exact sampling, either        K3 (``kernels/gnt_fused_split.py``): the
-                                split view / ray half-block kernels, fed the
-                                ray-diff code, the mask and the point code
-                                that only the exact sampler materializes.
+  exact sampling, either        K2 in its unfolded mode (the same module's
+                                ``gnt_fused_apply_mono3``), fed the mask,
+                                the ray-diff code and the point code that
+                                the exact sampler materializes, as the JAX
+                                package's ``RenderConfig()`` runs mono3.
+
+K3 (``kernels/gnt_fused_split.py``, JAX's ``pallas_kernel="split"``) and
+K2's other operand modes (fold_lerp behind ``epipolar_sample_quad_raw``,
+fold_mask, pre-packed) are reached by direct call only, as no preset of the
+JAX package picks them.
 
 The port renders these slices of the configuration space so far: static
 GNT with or without masked view attention (``gnt_use_dyn_mask``,

@@ -11,9 +11,11 @@ The sampler follows ``cfg.epipolar_mode`` and the transformer follows the
 sampler and ``gnt_use_dyn_mask`` (a hand kernel on CUDA, its plain version
 on the CPU):
   exact  ``epipolar_sample`` on the source rgbs, the quarter-resolution
-         features and the dynamic masks (``ExactMaps``), then K3 (the split
-         view / ray kernels, ``gnt_fused_split``), which reads the sampler's
-         ray-diff code and mask; the counts come from the sampler's masks;
+         features and the dynamic masks (``ExactMaps``), then K2 in its
+         unfolded mode (``gnt_fused_apply_mono3``), which reads the sampler's
+         features, mask and ray-diff code and the point code, as the JAX
+         package's ``RenderConfig()`` runs mono3 there; the counts come from
+         the kernel without the dyn mask, from the sampler's masks with it;
   quad   fused full-resolution maps (the dynamic mask as a trailing channel
          with the dyn mask), then K1 (validity recomputed in-kernel) without
          the dyn mask, K2 (validity read from the sampler's mask: in
@@ -36,9 +38,8 @@ import torch
 
 from pgdvs_tpu_torch.core import cameras, sampling
 from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4, pack_mono4_weights
-from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_mono3
+from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_apply_mono3, gnt_fused_mono3
 from pgdvs_tpu_torch.kernels.gnt_fused_patch import gnt_fused_mono4_patch
-from pgdvs_tpu_torch.kernels.gnt_fused_split import gnt_fused_split, pack_split_weights
 from pgdvs_tpu_torch.models.gnt.feature_net import ResUNet
 from pgdvs_tpu_torch.models.gnt.network import GNT, sinusoidal_embed
 from pgdvs_tpu_torch.models.gnt.projector import (
@@ -142,8 +143,7 @@ def render_rays_gnt(gnt_params, rays_o, rays_d, depth_range, tgt_cam, src_cams,
 
     Args:
       gnt_params: the GNT module, or its weights packed for the rays'
-        device (``SplitWeights`` for exact, ``Mono4Weights`` for quad and
-        patch).
+        device (``Mono4Weights``).
       rays_o/rays_d [R, 3]; depth_range [R, 2]; tgt_cam [34];
       src_cams [V, 34]; maps: ``build_sampling_maps(cfg, ...)``. On patch
       the rays come in the maps' pixel blocks (``patch_ray_perm``) and R is
@@ -162,8 +162,8 @@ def render_rays_gnt(gnt_params, rays_o, rays_d, depth_range, tgt_cam, src_cams,
     smp = None
     if cfg.epipolar_mode == "exact":
         smp = epipolar_sample(pts, tgt_cam, src_cams, *maps)
-        out = gnt_fused_split(gnt_params, smp["rgb_feat"], smp["ray_diff"], smp["mask"],
-                              sinusoidal_embed(pts), view_code)
+        out = gnt_fused_apply_mono3(gnt_params, smp["rgb_feat"], smp["ray_diff"],
+                                    smp["mask"], sinusoidal_embed(pts), view_code)
     else:
         proj = cameras.flat_cam_projection(src_cams)
         centers = torch.cat([
@@ -185,13 +185,14 @@ def render_rays_gnt(gnt_params, rays_o, rays_d, depth_range, tgt_cam, src_cams,
             out = gnt_fused_mono4(gnt_params, rgb_feat, pts, view_code, centers, proj,
                                   (map_h, map_w))
     weights = out["weights"]
-    if smp is None:
+    if not cfg.gnt_use_dyn_mask:
+        # validity is the in-bounds mask, so the kernel's count is the
+        # renderer's inbound count (static_gnt.py:359-364 in JAX)
         inbound_cnt = out["inbound_cnt_raw"]
         dyn_cnt = torch.zeros_like(inbound_cnt)
     else:
-        # K3 returns no count and K2's is of mask views; the renderer's
-        # counts are of in-bounds and of dynamic views (static_gnt.py:357-377
-        # in JAX)
+        # the kernel counts mask views; the renderer's counts are of
+        # in-bounds and of dynamic views (static_gnt.py:365-377 in JAX)
         n_src = src_cams.shape[0]
         inbound_cnt = torch.sum(weights * smp["mask_inbound"].sum(0) / n_src, dim=-1)
         dyn_cnt = torch.sum(weights * smp["mask_invalid"].sum(0) / n_src, dim=-1)
@@ -263,8 +264,7 @@ def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
         rays_o, rays_d, dr = rays_o[perm], rays_d[perm], dr[perm]
     params = gnt
     if rays_o.device.type == "cuda":
-        pack = pack_split_weights if cfg.epipolar_mode == "exact" else pack_mono4_weights
-        params = pack(gnt, rays_o.device)
+        params = pack_mono4_weights(gnt, rays_o.device)
     flat = render_rays_tiled(params, rays_o, rays_d, dr, tgt_cam, src_cams, maps, cfg)
     if inv_perm is not None:
         flat = {k: v[inv_perm] for k, v in flat.items()}

@@ -3,9 +3,9 @@
 
     python3 scripts/profile_port_render.py                  # fast preset: patch (K1 patch_rows)
     python3 scripts/profile_port_render.py --preset quad    # unmasked quad (K1)
-    python3 scripts/profile_port_render.py --preset exact   # unmasked exact (K3)
+    python3 scripts/profile_port_render.py --preset exact   # unmasked exact (K2 unfolded)
     python3 scripts/profile_port_render.py --bundle default # masked bundle (K2)
-    python3 scripts/profile_port_render.py --bundle default --preset exact  # (K3)
+    python3 scripts/profile_port_render.py --bundle default --preset exact  # (K2 unfolded)
 
 Renders the 288x550, 10-source, 256-sample synthetic scene of
 ``chip_smoke.py`` once as a warm-up, times a second render with the host

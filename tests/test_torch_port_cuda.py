@@ -1,5 +1,5 @@
-"""The hand kernels (K1 on sampled features and on patch rows, K2, K3a,
-K3b) against their plain versions, on a CUDA card only.
+"""The hand kernels (K1 on sampled features and on patch rows, K2 in each
+operand mode, K3a, K3b) against their plain versions, on a CUDA card only.
 
 No JAX here, so the file runs on the GPU machine:
 
@@ -12,6 +12,8 @@ uniform or in a wrong sample order wherever the samples of a ray differ.
 One K3 half-block's q: atol 0.02 + 2 % of |q|. The tiny renders are held to
 the slice's bounds.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -310,13 +312,74 @@ def test_exact_default_render_on_card_matches_cpu(card):
                  if isinstance(v, np.ndarray)}
         k1.gnt_fused_mono4.launches = k2.gnt_fused_mono3.launches = 0
         k3.gnt_split_view.launches = k3.gnt_split_ray.launches = 0
+        k2.gnt_fused_apply_mono3.launches = collections.Counter()
         outs[str(dev)] = render_novel_view(init_gnt_models(seed=0, device=dev), tdata,
                                            cfg, noise=noise.to(dev))
-        # 8 K3a and 8 K3b launches per ray tile (24 * 32 rays in tiles of 256)
-        n = 0 if dev == "cpu" else 24
-        assert (k3.gnt_split_view.launches, k3.gnt_split_ray.launches) == (n, n)
+        # one launch of K2's unfolded mode per ray tile (24 * 32 rays in
+        # tiles of 256), as the JAX package's default runs mono3; no K3
+        n = 0 if dev == "cpu" else 3
+        assert dict(k2.gnt_fused_apply_mono3.launches) == ({"unfolded": n} if n else {})
+        assert (k3.gnt_split_view.launches, k3.gnt_split_ray.launches) == (0, 0)
         assert k1.gnt_fused_mono4.launches == k2.gnt_fused_mono3.launches == 0
     got, ref = outs["cuda"], outs["cpu"]
     for key, tol in (("combined_rgb", 0.04), ("static_coarse_depth", 0.1),
                      ("static_coarse_inbound_cnt", 0.02), ("static_coarse_dyn_cnt", 0.02)):
         torch.testing.assert_close(got[key].cpu(), ref[key], atol=tol, rtol=0)
+
+
+def _mode_operands(card, v, r, s, behind, dyn_frac, mode, seed=31):
+    """The rig's operands of ``gnt_fused_apply_mono3`` in ``mode`` (a
+    ``mode_name``): features (random raw quad rows [V, R, S, 140] and
+    offsets in [-0.6, 1.6] with fold_lerp; the mask as a trailing channel
+    pre-packed), ray-diff code, K2's mask, point and view code, keywords."""
+    from pgdvs_tpu_torch.core.cameras import pixel_inbound, project_with
+
+    folds = set(mode.split("+"))
+    ops = [o.to(card) if torch.is_tensor(o) else o for o in _operands(v, r, s, behind)]
+    rgb_feat, pts, vc, ctr, proj, hw = ops
+    if "fold_mask" in folds:
+        uv, _z, front = project_with(proj[:, None, None], pts[None])
+        valid = pixel_inbound(uv, float(hw[0]), float(hw[1])) & front
+    else:
+        valid = _mask(ops, dyn_frac, 2 if not behind else 0)
+    kw = dict(views_outer=True, separate_mask="separate_mask" in folds,
+              fold_pos_code="fold_pos_code" in folds)
+    feats = rgb_feat
+    if "fold_lerp" in folds:
+        gen = torch.Generator(device=card).manual_seed(seed)
+        feats = (torch.randn((v, r, s, 4 * 35), generator=gen, device=card)
+                 * 0.5).to(torch.bfloat16)
+        kw.update(fold_lerp=True, frac=torch.rand((v, r, s, 2), generator=gen,
+                                                  device=card) * 2.2 - 0.6)
+    if "pre_packed" in folds:
+        feats = torch.cat([feats, valid[..., None].to(torch.bfloat16)], dim=-1)
+    if "fold_ray_diff" in folds:
+        kw.update(pts=pts, cam_centers=ctr)
+    if "fold_mask" in folds:
+        kw.update(fold_mask_hw=hw, proj_mats=proj)
+    rd = None if "fold_ray_diff" in folds else cam.ray_diff_features(
+        pts[None], ctr[0], ctr[1:, None, None, :])
+    mask = None if folds & {"fold_mask", "pre_packed"} else valid
+    pts_code = None if "fold_pos_code" in folds else sinusoidal_embed(pts)
+    return (feats, rd, mask, pts_code, vc), kw
+
+
+K2_MODES = ["unfolded", "pre_packed", "separate_mask", "fold_ray_diff",
+            "fold_ray_diff+fold_pos_code", "fold_mask+fold_ray_diff",
+            "fold_lerp+separate_mask+fold_ray_diff+fold_pos_code",
+            "fold_lerp+fold_mask+fold_ray_diff+fold_pos_code"]
+
+
+@pytest.mark.parametrize("mode", K2_MODES)
+@pytest.mark.parametrize("v,r,s,behind,dyn_frac", [
+    (5, 16, 23, False, 0.3), (5, 16, 32, True, 0.3), (10, 64, 256, False, 0.2)])
+def test_k2_modes_match_plain(card, mode, v, r, s, behind, dyn_frac):
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    _fnet, gnt = init_gnt_models(seed=0, device=card)
+    args, kw = _mode_operands(card, v, r, s, behind, dyn_frac, mode)
+    before = k2.gnt_fused_apply_mono3.launches[mode]
+    got = k2.gnt_fused_apply_mono3(gnt, *args, **kw)
+    torch.cuda.synchronize()
+    assert k2.gnt_fused_apply_mono3.launches[mode] == before + 1
+    _assert_matches_plain(got, k2.gnt_fused_apply_mono3_plain(gnt, *args, **kw), s, behind)
