@@ -9,15 +9,20 @@ exits non-zero without printing a result:
   1. device: the card's name and power limit, TF32 switched off;
   2. build: the CUDA kernels compiled from ``pgdvs_tpu_torch/csrc`` with nvcc;
   3. K1 vs plain: K1 (the fused GNT transformer, validity recomputed
-     in-kernel) against its plain torch version on the card at small shapes
-     and at one main-path ray tile, with both times at that tile;
+     in-kernel) against its plain torch version on the card at small shapes,
+     at S=384 (past the old ray kernel's cap of 368) and at one main-path ray
+     tile, with both times at that tile;
   3b. K2 vs plain: K2 (the same transformer with an explicit validity mask)
      likewise, including tokens whose views are all invalid from geometry
      and from the dynamic mask alone;
   3c. K3 vs plain: K3a and K3b (the split view and ray half-blocks, which
      read the ray-diff code and the mask from memory) against their plain
      versions on the same cases, then the whole split forward against its
-     plain loop; per-launch times and bounds at the main tile;
+     plain loop; per-launch times and bounds at the main tile; then K3b at
+     S = 23, 256, 384 and 520 on the small rig (K3B_SAMPLE_COUNTS), and the
+     ray kernel's own line (``[k_ray]``): its ms per launch at the main tile
+     beside its bound, the exp floor, its shared memory and blocks per SM, and
+     scaled_dot_product_attention as a yardstick for the attention core;
   3d. K1 patch_rows vs plain: K1 fed raw patch rows and stencil
      coefficients (the combine in its prologue) against its plain version
      at both ray-block geometries (2x2 rays / 16 stencil positions, 4x2 /
@@ -25,7 +30,7 @@ exits non-zero without printing a result:
   3e. K2 modes vs plain: K2 in each operand mode of
      ``gnt_fused_apply_mono3`` (MONO3_MODES: unfolded, which the exact path
      runs, on the small rig, at odd S, all invalid from geometry and from the
-     dynamic mask; fold_lerp with a separate mask and with fold_mask;
+     dynamic mask, at S=384; fold_lerp with a separate mask and with fold_mask;
      fold_ray_diff without fold_pos_code; fold_mask without it; pre-packed;
      each at odd S and at the main tile) against its plain version, with
      both times and the bound at the main tile;
@@ -45,7 +50,10 @@ exits non-zero without printing a result:
      preset (the reference-faithful sampler, on K2's unfolded mode as the
      JAX package's default runs it), plus PSNR / SSIM of its image against
      phase 5's quad render of the same view. K3a / K3b and K2's other modes
-     run on no path: phases 3c and 3e are their only launches.
+     run on no path: phases 3c and 3e are their only launches;
+  7. ``[s384]``: the fast preset at 384 samples per ray (above the old cap)
+     on a 64x96 view: one K1 patch_rows launch per ray tile, the crop against
+     the plain path on the CPU.
 
 The second-to-last line is a JSON object describing each kernel (its times,
 its launches on its path and its bound on the card); the last line is
@@ -284,6 +292,7 @@ def phase_kernel_vs_plain(gnt):
         ("small", dict(v=5, r=64, s=32)),
         ("odd_s", dict(v=5, r=64, s=23)),
         ("all_invalid", dict(v=5, r=16, s=32, behind=True)),
+        ("s384", dict(v=5, r=64, s=384)),
         ("main_tile", dict(v=10, r=2048, s=256, hw=(288, 550))),
     ]
     times = {}
@@ -473,6 +482,7 @@ K2_MODE_CASES = [
     ("unfolded", "odd_s", dict(v=5, r=64, s=23), 0.3),
     ("unfolded", "all_invalid_geometry", dict(v=5, r=16, s=32, behind=True), 0.3),
     ("unfolded", "all_invalid_dyn_mask", dict(v=5, r=16, s=32), 1.0),
+    ("unfolded", "s384", dict(v=5, r=64, s=384), 0.3),
     ("unfolded", "main_tile", MAIN_TILE, 0.2),
 ] + [(mode, case, kw, 0.3 if case == "odd_s" else 0.2)
      for mode in MONO3_MODES[1:]
@@ -625,7 +635,51 @@ def phase_k3_vs_plain(gnt, blk=2):
             fwd = _time_ms(lambda: gnt_fused_split(packed, *args), 3)
             log(f"[kernel] K3 whole split forward, main tile: {fwd:.3f} ms "
                 "(8 K3a + 8 K3b launches, torch prologue / q_fc / epilogue)")
+    # the ray kernel streams the sample axis: any S, past the old cap of 368
+    for s in K3B_SAMPLE_COUNTS:
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        q = torch.randn((64, s, 64), generator=gen, device="cuda")
+        got_q, got_w = gnt_split_ray(q, rblk)
+        torch.cuda.synchronize()
+        ref_q, ref_w = split_ray_plain(q, rblk)
+        _check_against_plain(f"K3b s{s}", dict(r=64, s=s), {"q": got_q, "weights": got_w},
+                             {"q": ref_q, "weights": ref_w}, worst["ray"], spread=True)
     return {p: worst[p] for p in ("view", "ray")}, times
+
+
+# K3b's sample counts on the small rig: odd, the main one, past the old
+# one-block-per-ray cap of 368, and past a multiple of the key tile
+K3B_SAMPLE_COUNTS = (23, 256, 384, 520)
+
+
+def phase_ray_kernel(ray_times, r=2048, s=256, heads=4):
+    """The ray kernel's own line at the main tile: its ms per launch (the
+    K3b timing), its bound, the exp floor (R * heads * S^2 exponentials at
+    16 ex2 per clock per SM, the SFU rate), its shared memory and resident
+    blocks per SM, and scaled_dot_product_attention on q, k, v [R, heads, S,
+    16] bf16 as a yardstick for the attention core alone (no path calls it,
+    and no PyTorch call computes the whole half-block). The exp floor is
+    taken at the SM's maximum clock (cudaDeviceProp.clockRate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pgdvs_tpu_torch.kernels._build import load_library
+
+    lib = load_library().lib
+    props = torch.cuda.get_device_properties(0)
+    mhz = props.clock_rate / 1e3
+    exp_floor = r * heads * s * s / (16 * props.multi_processor_count * mhz * 1e6) * 1e3
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qkv = [torch.randn((r, heads, s, 16), generator=gen, device="cuda").to(torch.bfloat16)
+           for _ in range(3)]
+    sdpa = _time_ms(lambda: F.scaled_dot_product_attention(*qkv), 20)
+    log(f"[k_ray] main tile R={r} S={s}: {ray_times['ms']:.4f} ms per launch (K3b), bound "
+        f"{ray_times['bound_ms']:.4f} ms ({ray_times['bound_by']}), exp floor "
+        f"{exp_floor:.4f} ms ({r}*{heads}*{s}^2 ex2 at 16/clock/SM x "
+        f"{props.multi_processor_count} SMs x {mhz:.0f} MHz, cudaDeviceProp.clockRate); "
+        f"shared memory {lib.gnt_ray_smem_bytes()} B per block, "
+        f"{lib.gnt_ray_blocks_per_sm()} block(s) per SM; yardstick, attention core only: "
+        f"scaled_dot_product_attention q,k,v [{r}, {heads}, {s}, 16] bf16 {sdpa:.4f} ms")
 
 
 def slice_config(bundle=None, n_samples=256, preset="fast"):
@@ -946,6 +1000,7 @@ def main() -> int:
     kp_worst, kp_times = phase_patch_vs_plain(models[1])
     km_worst, km_times = phase_k2_modes_vs_plain(models[1])
     kp_launches, _, patch = phase_main_path(models)
+    phase_ray_kernel(k3_times["ray"])
     k1_launches, _, quad1 = phase_main_path(models, preset="quad", tag="[quad]", n_timed=1)
     for what in ("combined_rgb", "static_coarse_rgb"):
         exact_vs_quad(patch[what], quad1[what], tag="[main]", what=what, label="patch")
@@ -955,6 +1010,10 @@ def main() -> int:
                                             preset="exact", tag="[exact]")
     for what in ("combined_rgb", "static_coarse_rgb"):
         exact_vs_quad(exact[what], quad[what], what=what)
+    del exact, quad
+    # above the old cap of 368 samples per ray, at a reduced size
+    phase_main_path(models, h=64, w=96, n_samples=384, rows=(16, 20), cols=(32, 64),
+                    n_timed=1, tag="[s384]")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     rows = []

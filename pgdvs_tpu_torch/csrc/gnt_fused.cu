@@ -53,18 +53,32 @@
 //                reads its q_fc point + view code too), views streamed one
 //                at a time through an online per-channel softmax, so a
 //                token's [V, 64] set never has to sit in shared memory.
-//   k_ray        one ray transformer for one ray (all S samples in shared
-//                memory, heads one at a time); the last block (every K3b
-//                launch) also writes the head-mean first-query weights, and
-//                the last block of K1 / K2 rgb and the weighted valid-view
-//                count.
+//   k_ray        one ray transformer block, a persistent grid (one block
+//                per SM at 140 KB of shared memory, weights staged once
+//                per block with cp.async) walking the rays: K / V of a
+//                ray's samples into the block's bf16 slab of a global
+//                scratch (L2-resident), then each warp takes 16 query rows
+//                with all four heads and streams the key tiles through a
+//                cp.async double buffer, with an online softmax whose
+//                scores and probabilities never leave mma.sync registers;
+//                out_fc and the feed-forward follow in registers. S has no
+//                cap. The last block (every K3b launch) also writes the
+//                head-mean first-query weights (a second pass over the keys
+//                with query 0's final max and sum), and the last block of
+//                K1 / K2 rgb and the weighted valid-view count.
 //
-// Bounds on the card: the products are bf16 WMMA tiles (16x16x16, f32
-// accumulate); the per-channel view softmax and the layer norms are f32 CUDA
-// core work. q stays f32 in global memory between kernels (it is small next
-// to h); h is written once and read once per block. K3a is the one kernel
-// here bound by bytes: per launch it reads h [V, N, 64] bf16 and the f32
-// ray-diff code once, against ~0.1 TFLOP of products.
+// Bounds on the card: k_prologue and k_view run bf16 WMMA tiles (16x16x16,
+// f32 accumulate) with the per-channel view softmax and the layer norms as
+// f32 CUDA core work; k_ray runs mma.sync m16n8k16 (bf16, f32 accumulate)
+// fed by ldmatrix, and its softmax takes one FFMA and one ex2.approx per
+// score. q stays f32 in global memory between kernels (it is small next to
+// h); h is written once and read once per block. k_ray reads q twice per
+// token (the K / V pass and the query pass, the second from L2) and writes
+// it once. At the main tile (R=2048, S=256) its 537 M exponentials at the
+// SFU's 16 per clock per SM take longer than its 8.6e10 FLOP at the
+// tensor-core peak. K3a is the one kernel here bound by bytes: per launch
+// it reads h [V, N, 64] bf16 and the f32 ray-diff code once, against ~0.1
+// TFLOP of products.
 //
 // All dense layers run here; the host only composes weights offline
 // (wk@wv, wk@wa0, wq@wa0, p1@wa0, exact by linearity).
@@ -88,7 +102,6 @@ typedef __nv_bfloat16 bf16;
 #define NWARPS 8
 #define STAGE_LD 20
 #define MAX_VIEWS 32
-#define QCHUNK 32      // query rows per score chunk in k_ray
 
 // ---------------------------------------------------------------------------
 // WMMA helpers. A: bf16 row-major (lda); B: bf16 row-major [K x N] (ldb) or,
@@ -173,19 +186,6 @@ __device__ __forceinline__ void ln_quad(const float* x, const float* scale,
 #pragma unroll
   for (int i = 0; i < 16; ++i)
     out[i] = (x[i] - mu) * rs * scale[g * 16 + i] + bias[g * 16 + i];
-}
-
-// Layer norm of one 64-wide row held by a whole warp (2 per lane).
-__device__ __forceinline__ void ln_warp(float& a, float& b, const float* scale,
-                                        const float* bias, int lane) {
-  float s = a + b;
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  const float mu = s * (1.0f / NW);
-  float v = (a - mu) * (a - mu) + (b - mu) * (b - mu);
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const float rs = rsqrtf(v * (1.0f / NW) + 1e-6f);
-  a = (a - mu) * rs * scale[2 * lane] + bias[2 * lane];
-  b = (b - mu) * rs * scale[2 * lane + 1] + bias[2 * lane + 1];
 }
 
 // In front of the camera and inside [0, W-1] x [0, H-1] (project_points +
@@ -670,187 +670,565 @@ k_view(const bf16* __restrict__ h, const float* q_in, float* q_out,
 }
 
 // ---------------------------------------------------------------------------
-// k_ray: one ray transformer block for one ray (blockIdx.x), q_in -> q (the
-// same buffer in K1 / K2). want_w: write the head-mean first-query weights
-// row; final: then rgb and the weighted valid-view count (K1 / K2's last
-// block).
+// k_ray: one ray transformer block, q_in -> q (the same buffer in K1 / K2).
+// A persistent grid: each block stages the block's weights in shared memory
+// once, then takes rays blockIdx.x, blockIdx.x + gridDim.x, ... For each ray:
+//
+//   A. K and V of every sample (LN, the k / v columns of wqkv) into the
+//      block's slab of kv ([Sk x 128] bf16, Sk = S padded to the key tile;
+//      pad rows are LN(0) projected, finite, and masked out of the softmax).
+//   B. the queries in chunks of 16 * RAY_WARPS rows, one warp per 16 rows and
+//      all four heads: LN, Q, then the key tiles of kv streamed through a
+//      cp.async double buffer with an online softmax per (row, head), scores
+//      and probabilities in mma.sync registers (the QK^T accumulator rescaled,
+//      exponentiated and repacked as the A operand of P.V), out_fc, the
+//      residual, LN, the 64 -> 256 -> 64 feed-forward in four hidden chunks,
+//      the residual, one f32 store per element of the rows below S.
+//
+// want_w: query 0's final max and sum are kept, and a second pass over the
+// keys writes the head-mean of its normalized attention row; final: then rgb
+// and the weighted valid-view count (K1 / K2's last block).
 // ---------------------------------------------------------------------------
-#define RAY_LDQKV 56   // [q_h (16) | k_h (16) | v_h (16) | pad (8)]
-#define RAY_LDH 264
+#define RAY_WARPS 8
+#define RAY_THREADS (32 * RAY_WARPS)
+#define KT 64            // keys per streamed tile
+#define RAY_LDQKV 200    // smem row strides (bf16): 16 bytes past a multiple
+#define RAY_LDW 72       // of 128, so ldmatrix rows fall in distinct banks
+#define RAY_LDF1 264
+#define RAY_LDKV 136
+#define RAY_NPAR 640     // ln_s, ln_b, bo, fln_s, fln_b, bf2 (64 each), bf1 (256)
+// QK^T scale 1/sqrt(16) with log2(e) folded in, for ex2
+#define SCORE_C (0.25f * 1.4426950408889634f)
 
-struct RayLayout {
-  size_t x, o, qkv, sc, p, hbuf, stage, rowinv, pool, wacc, total;
-};
+static constexpr size_t RAY_SMEM =
+    ((size_t)NW * RAY_LDQKV + NW * RAY_LDW + NW * RAY_LDF1 + 4 * NW * RAY_LDW +
+     2 * KT * RAY_LDKV) * 2 +
+    (size_t)(RAY_NPAR + NW + 8 + NW + 4) * 4;
 
-__host__ __device__ inline RayLayout ray_layout(int sp) {
-  RayLayout L;
-  size_t off = 0;
-  L.x = off; off += (size_t)sp * 72 * 2;
-  L.o = off; off += (size_t)sp * 72 * 2;
-  const size_t attn = (size_t)sp * RAY_LDQKV * 2 + (size_t)QCHUNK * (sp + 4) * 4 +
-                      (size_t)QCHUNK * (sp + 8) * 2;
-  const size_t ff = (size_t)64 * RAY_LDH * 2;
-  L.qkv = off;
-  L.sc = off + (size_t)sp * RAY_LDQKV * 2;
-  L.p = L.sc + (size_t)QCHUNK * (sp + 4) * 4;
-  L.hbuf = off;
-  off += attn > ff ? attn : ff;
-  off = (off + 127) & ~(size_t)127;
-  L.stage = off; off += (size_t)NWARPS * 16 * STAGE_LD * 4;
-  L.rowinv = off; off += QCHUNK * 4;
-  L.pool = off; off += (NW + 4) * 4;
-  L.wacc = off; off += (size_t)sp * 4;
-  L.total = off;
-  return L;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows x cols bf16 (cols a multiple of 8) from global (dense) to shared
+// memory rows ld apart, by the whole block
+__device__ __forceinline__ void cp_rows(bf16* dst, int ld, const bf16* src, int cols,
+                                        int rows) {
+  const int c8 = cols / 8;
+  for (int i = threadIdx.x; i < rows * c8; i += RAY_THREADS)
+    cp_async16(dst + (i / c8) * ld + (i % c8) * 8, src + (size_t)i * 8);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a @ b, one m16n8k16 tile (PTX ISA fragment layouts: g = lane / 4,
+// t = lane % 4; A regs (g, 2t..) (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..);
+// B regs (k 2t.., n g) (k 2t+8.., n g); C (g, 2t..) (g+8, 2t..))
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments of n-tiles n0 and n0 + 8 at k-step k0 of a [K x N] row-major
+// matrix in shared memory (ld apart): b[0..1] for n0, b[2..3] for n0 + 8
+__device__ __forceinline__ void ldb_kn(uint32_t b[4], const bf16* B, int ld, int k0,
+                                       int n0) {
+  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
+  ldsm_x4_t(b, B + (k0 + (m & 1) * 8 + r) * ld + n0 + (m >> 1) * 8);
+}
+
+// the same for an [N x K] row-major matrix (element (k, n) at B[n * ld + k])
+__device__ __forceinline__ void ldb_nk(uint32_t b[4], const bf16* B, int ld, int k0,
+                                       int n0) {
+  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
+  ldsm_x4(b, B + (n0 + (m >> 1) * 8 + r) * ld + k0 + (m & 1) * 8);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A warp's 16 rows x 64 columns in the C layout of 8 n-tiles: f[j][0..1] row
+// g, columns 8j + 2t + {0, 1}; f[j][2..3] row g + 8. ks k-steps of A
+// fragments from f's n-tiles 2kk, 2kk + 1.
+__device__ __forceinline__ void frag_to_a(float (*f)[4], uint32_t (*a)[4], int ks) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk >= ks) break;
+    a[kk][0] = pack_bf16(f[2 * kk][0], f[2 * kk][1]);
+    a[kk][1] = pack_bf16(f[2 * kk][2], f[2 * kk][3]);
+    a[kk][2] = pack_bf16(f[2 * kk + 1][0], f[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(f[2 * kk + 1][2], f[2 * kk + 1][3]);
+  }
+}
+
+// acc[0..1] += A (16 x 64, four k-steps) @ B[:, n0 .. n0 + 15], B [64 x N]
+// row-major in shared memory
+__device__ __forceinline__ void mma_pair(float (*acc)[4], uint32_t (*a)[4],
+                                         const bf16* B, int ld, int n0) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t b[4];
+    ldb_kn(b, B, ld, kk * 16, n0);
+    mma16816(acc[0], a[kk], b[0], b[1]);
+    mma16816(acc[1], a[kk], b[2], b[3]);
+  }
+}
+
+// rows row0 .. row0 + 15 of a [*, 64] f32 matrix in the C layout; rows at
+// or past nrows read as 0
+__device__ __forceinline__ void load_rows(float (*x)[4], const float* src, int row0,
+                                          int nrows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + g + 8 * hr;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float2 v = make_float2(0.f, 0.f);
+      if (r < nrows) v = *(const float2*)(src + (size_t)r * NW + 8 * j + 2 * t);
+      x[j][2 * hr] = v.x;
+      x[j][2 * hr + 1] = v.y;
+    }
+  }
+}
+
+// layer norm of the 16 rows in the C layout (each row over the 4 lanes of
+// its quad), y may be x
+__device__ __forceinline__ void ln_rows(float (*x)[4], const float* scale,
+                                        const float* bias, float (*y)[4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += x[j][2 * hr] + x[j][2 * hr + 1];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const float mu = s * (1.0f / NW);
+    float v = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float d0 = x[j][2 * hr] - mu, d1 = x[j][2 * hr + 1] - mu;
+      v += d0 * d0 + d1 * d1;
+    }
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    const float rs = rsqrtf(v * (1.0f / NW) + 1e-6f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      y[j][2 * hr] = (x[j][2 * hr] - mu) * rs * scale[c] + bias[c];
+      y[j][2 * hr + 1] = (x[j][2 * hr + 1] - mu) * rs * scale[c + 1] + bias[c + 1];
+    }
+  }
+}
+
+// store a pair of n-tiles (16 rows x 16 columns) as bf16 at dst[row0.., col0..]
+__device__ __forceinline__ void store_pair(bf16* dst, int ld, int row0, int col0,
+                                           float (*acc)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = col0 + 8 * i + 2 * t;
+    *(uint32_t*)(dst + (size_t)(row0 + g) * ld + c) = pack_bf16(acc[i][0], acc[i][1]);
+    *(uint32_t*)(dst + (size_t)(row0 + g + 8) * ld + c) = pack_bf16(acc[i][2], acc[i][3]);
+  }
+}
+
+// One key tile (KT keys from key0, K columns 0..63 and V columns 64..127 of
+// kt) for the warp's 16 query rows and all four heads: scores in registers,
+// the online max / sum per (row, head), P.V into o.
+__device__ __forceinline__ void attend_tile(const bf16* kt, int key0, int S,
+                                            uint32_t (*qa)[4], float (*o)[2][4],
+                                            float (*mrow)[2], float (*lrow)[2]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < HEADS; ++h) {
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldb_nk(b, kt, RAY_LDKV, h * HD, np * 16);
+      mma16816(s[2 * np], qa[h], b[0], b[1]);
+      mma16816(s[2 * np + 1], qa[h], b[2], b[3]);
+    }
+    if (key0 + KT > S) {  // pad keys take no part
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + 8 * j + 2 * t + (e & 1) >= S) s[j][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(mrow[h][hr], mx);  // finite: every tile has a key < S
+      const float alpha = ex2((mrow[h][hr] - mn) * SCORE_C);
+      const float mc = mn * SCORE_C;
+      float l = lrow[h][hr] * alpha;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[h][i][2 * hr] *= alpha;
+        o[h][i][2 * hr + 1] *= alpha;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p0 = ex2(fmaf(s[j][2 * hr], SCORE_C, -mc));
+        const float p1 = ex2(fmaf(s[j][2 * hr + 1], SCORE_C, -mc));
+        s[j][2 * hr] = p0;
+        s[j][2 * hr + 1] = p1;
+        l += p0 + p1;
+      }
+      mrow[h][hr] = mn;
+      lrow[h][hr] = l;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t pa[4], b[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      ldb_kn(b, kt + NW, RAY_LDKV, kk * 16, h * HD);
+      mma16816(o[h][0], pa, b[0], b[1]);
+      mma16816(o[h][1], pa, b[2], b[3]);
+    }
+  }
 }
 
 template <int VSRC>
-__global__ void __launch_bounds__(NTHREADS)
-k_ray(const float* q_in, float* q, const float* __restrict__ pts,
-      const float* __restrict__ proj, const uint8_t* __restrict__ mask, int V,
-      int S, int Sp, float hf, float wf, RayW w, int want_w, int final_, FinalW fw,
-      float* __restrict__ rgb_out,
-      float* __restrict__ w_out, float* __restrict__ cnt_out) {
+__global__ void __launch_bounds__(RAY_THREADS, 1)
+k_ray(const float* q_in, float* q, bf16* __restrict__ kv, const float* __restrict__ pts,
+      const float* __restrict__ proj, const uint8_t* __restrict__ mask, int V, int R,
+      int S, float hf, float wf, RayW w, int want_w, int final_, FinalW fw,
+      float* __restrict__ rgb_out, float* __restrict__ w_out,
+      float* __restrict__ cnt_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const RayLayout L = ray_layout(Sp);
-  bf16* X = (bf16*)(smem + L.x);
-  bf16* O = (bf16*)(smem + L.o);
-  bf16* QKV = (bf16*)(smem + L.qkv);
-  float* Sc = (float*)(smem + L.sc);
-  bf16* P = (bf16*)(smem + L.p);
-  bf16* Hb = (bf16*)(smem + L.hbuf);
-  float* stage = (float*)(smem + L.stage);
-  float* rowinv = (float*)(smem + L.rowinv);
-  float* pool = (float*)(smem + L.pool);
-  float* wacc = (float*)(smem + L.wacc);
+  bf16* Wqkv = (bf16*)smem;                        // [64 x 200]: [q_h | k_h | v_h] x 4
+  bf16* Wo = Wqkv + NW * RAY_LDQKV;                // [64 x 72]
+  bf16* Wf1 = Wo + NW * RAY_LDW;                   // [64 x 264]
+  bf16* Wf2 = Wf1 + NW * RAY_LDF1;                 // [256 x 72]
+  bf16* KVt = Wf2 + 4 * NW * RAY_LDW;              // 2 x [KT x 136]
+  float* par = (float*)(KVt + 2 * KT * RAY_LDKV);  // [RAY_NPAR]
+  float* q0s = par + RAY_NPAR;                     // query 0's q (bf16 values)
+  float* m0s = q0s + NW;                           // its max and sum per head
+  float* l0s = m0s + HEADS;
+  float* pool = l0s + HEADS;                       // [64 + 4]: LN sums, count
+  const float* ln_s = par;
+  const float* ln_b = par + NW;
+  const float* bo = par + 2 * NW;
+  const float* fln_s = par + 3 * NW;
+  const float* fln_b = par + 4 * NW;
+  const float* bf2 = par + 5 * NW;
+  const float* bf1 = par + 6 * NW;
 
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* qg = q + (size_t)r * S * NW;
-  const float* qi = q_in + (size_t)r * S * NW;
-  const int lds = Sp + 4, ldp = Sp + 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2,
+            t = lane & 3;
+  const int Sk = (S + KT - 1) / KT * KT, ntile = Sk / KT, nrg = (S + 15) / 16;
+  bf16* kvb = kv + (size_t)blockIdx.x * Sk * 2 * NW;
 
-  for (int k = tid; k < Sp; k += NTHREADS) wacc[k] = 0.f;
-  if (tid < NW + 4) pool[tid] = 0.f;
-  // X = attn_norm(q), zero rows past S
-  for (int row = warp; row < Sp; row += NWARPS) {
-    float a = 0.f, b = 0.f;
-    if (row < S) {
-      a = qi[row * NW + 2 * lane];
-      b = qi[row * NW + 2 * lane + 1];
-      ln_warp(a, b, w.ln_s, w.ln_b, lane);
-    }
-    X[row * 72 + 2 * lane] = __float2bfloat16(a);
-    X[row * 72 + 2 * lane + 1] = __float2bfloat16(b);
+  cp_rows(Wqkv, RAY_LDQKV, w.wqkv, 3 * NW, NW);
+  cp_rows(Wo, RAY_LDW, w.wo, NW, NW);
+  cp_rows(Wf1, RAY_LDF1, w.wf1, 4 * NW, NW);
+  cp_rows(Wf2, RAY_LDW, w.wf2, NW, 4 * NW);
+  cp_async_commit();
+  for (int i = tid; i < NW; i += RAY_THREADS) {
+    par[i] = w.ln_s[i];
+    par[NW + i] = w.ln_b[i];
+    par[2 * NW + i] = w.bo[i];
+    par[3 * NW + i] = w.fln_s[i];
+    par[4 * NW + i] = w.fln_b[i];
+    par[5 * NW + i] = w.bf2[i];
   }
+  for (int i = tid; i < 4 * NW; i += RAY_THREADS) par[6 * NW + i] = w.bf1[i];
+  if (tid < NW + 4) pool[tid] = 0.f;
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int hh = 0; hh < HEADS; ++hh) {
-    gemm_epi(X, 72, w.wqkv + hh * 48, 3 * NW, Sp, 48, NW, stage,
-             [&](int rr, int c, float val) {
-               QKV[rr * RAY_LDQKV + c] = __float2bfloat16(val);
-             });
-    __syncthreads();
-    for (int q0 = 0; q0 < Sp; q0 += QCHUNK) {
-      const int nq = min(QCHUNK, Sp - q0);
-      gemm_store<true>(QKV + q0 * RAY_LDQKV, RAY_LDQKV, QKV + HD, RAY_LDQKV,
-                       Sc, lds, nq, Sp, HD);
-      __syncthreads();
-      for (int row = warp; row < nq; row += NWARPS) {
-        float m = -INFINITY;
-        for (int k = lane; k < S; k += 32) m = fmaxf(m, Sc[row * lds + k] * 0.25f);
-        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-        float sum = 0.f;
-        for (int k = lane; k < Sp; k += 32) {
-          const float e = k < S ? expf(Sc[row * lds + k] * 0.25f - m) : 0.f;
-          P[row * ldp + k] = __float2bfloat16(e);
-          sum += e;
-        }
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        const float inv = 1.f / sum;
-        if (lane == 0) rowinv[row] = inv;
-        if (want_w && q0 + row == 0) {
-          for (int k = lane; k < S; k += 32)
-            wacc[k] += expf(Sc[k] * 0.25f - m) * inv * (1.0f / HEADS);
+  for (int ray = blockIdx.x; ray < R; ray += gridDim.x) {
+    const float* qi = q_in + (size_t)ray * S * NW;
+    float* qo = q + (size_t)ray * S * NW;
+
+    // A. K, V of samples 0 .. Sk - 1 into the block's slab
+    for (int rg = warp; rg < Sk / 16; rg += RAY_WARPS) {
+      float x[8][4];
+      uint32_t a[4][4];
+      load_rows(x, qi, rg * 16, S);
+      ln_rows(x, ln_s, ln_b, x);
+      frag_to_a(x, a, 4);
+#pragma unroll
+      for (int h = 0; h < HEADS; ++h) {
+#pragma unroll
+        for (int part = 1; part <= 2; ++part) {  // k_h, then v_h
+          float acc[2][4] = {};
+          mma_pair(acc, a, Wqkv, RAY_LDQKV, h * 3 * HD + part * HD);
+          store_pair(kvb, 2 * NW, rg * 16, (part - 1) * NW + h * HD, acc);
         }
       }
-      __syncthreads();
-      gemm_epi(P, ldp, QKV + 2 * HD, RAY_LDQKV, nq, HD, Sp, stage,
-               [&](int rr, int c, float val) {
-                 O[(q0 + rr) * 72 + hh * HD + c] = __float2bfloat16(val * rowinv[rr]);
-               });
-      __syncthreads();
     }
-  }
-
-  // q = q_in + out_fc(O)
-  gemm_epi(O, 72, w.wo, NW, Sp, NW, NW, stage, [&](int rr, int c, float val) {
-    if (rr < S) qg[rr * NW + c] = qi[rr * NW + c] + val + w.bo[c];
-  });
-  __syncthreads();
-  // q += ff(ff_norm(q)), 64 rows at a time
-  for (int row = warp; row < Sp; row += NWARPS) {
-    float a = 0.f, b = 0.f;
-    if (row < S) {
-      a = qg[row * NW + 2 * lane];
-      b = qg[row * NW + 2 * lane + 1];
-      ln_warp(a, b, w.fln_s, w.fln_b, lane);
-    }
-    X[row * 72 + 2 * lane] = __float2bfloat16(a);
-    X[row * 72 + 2 * lane + 1] = __float2bfloat16(b);
-  }
-  __syncthreads();
-  for (int c0 = 0; c0 < Sp; c0 += 64) {
-    const int m = min(64, Sp - c0);
-    gemm_epi(X + c0 * 72, 72, w.wf1, 4 * NW, m, 4 * NW, NW, stage,
-             [&](int rr, int c, float val) {
-               Hb[rr * RAY_LDH + c] = __float2bfloat16(fmaxf(val + w.bf1[c], 0.f));
-             });
+    __threadfence();
     __syncthreads();
-    gemm_epi(Hb, RAY_LDH, w.wf2, NW, m, NW, 4 * NW, stage,
-             [&](int rr, int c, float val) {
-               if (c0 + rr < S) qg[(c0 + rr) * NW + c] += val + w.bf2[c];
-             });
-    __syncthreads();
-  }
-  if (want_w)
-    for (int k = tid; k < S; k += NTHREADS) w_out[(size_t)r * S + k] = wacc[k];
-  if (!final_) return;
 
-  // rgb = rgb_fc(mean_s norm(q)), cnt = sum_s w_s * valid_s / V
-  float pa = 0.f, pb = 0.f;
-  for (int row = warp; row < S; row += NWARPS) {
-    float a = qg[row * NW + 2 * lane], b = qg[row * NW + 2 * lane + 1];
-    ln_warp(a, b, fw.norm_s, fw.norm_b, lane);
-    pa += a;
-    pb += b;
-  }
-  atomicAdd(&pool[2 * lane], pa);
-  atomicAdd(&pool[2 * lane + 1], pb);
-  float cnt = 0.f;
-  const size_t N = (size_t)gridDim.x * S;
-  for (int k = tid; k < S; k += NTHREADS) {
-    const size_t n = (size_t)r * S + k;
-    float px = 0.f, py = 0.f, pz = 0.f;  // pts may be null when validity is read
-    if (VSRC == VSRC_PROJ) {
-      px = pts[n * 3];
-      py = pts[n * 3 + 1];
-      pz = pts[n * 3 + 2];
+    // B. queries, 16 rows per warp
+    for (int c0 = 0; c0 < nrg; c0 += RAY_WARPS) {
+      const int rg = c0 + warp;
+      const bool act = rg < nrg;
+      float x[8][4], o[HEADS][2][4], mrow[HEADS][2], lrow[HEADS][2];
+      uint32_t qa[HEADS][4];
+      if (act) {
+        uint32_t a[4][4];
+        float y[8][4];
+        load_rows(x, qi, rg * 16, S);
+        ln_rows(x, ln_s, ln_b, y);
+        frag_to_a(y, a, 4);
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h) {
+          float acc[2][4] = {};
+          mma_pair(acc, a, Wqkv, RAY_LDQKV, h * 3 * HD);
+          frag_to_a(acc, &qa[h], 1);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < HEADS; ++h) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          mrow[h][hr] = -INFINITY;
+          lrow[h][hr] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) o[h][i][0] = o[h][i][1] = o[h][i][2] = o[h][i][3] = 0.f;
+      }
+      auto load_tile = [&](int ti) {
+        bf16* dst = KVt + (ti & 1) * KT * RAY_LDKV;
+        const bf16* src = kvb + (size_t)ti * KT * 2 * NW;
+        for (int i = tid; i < KT * 16; i += RAY_THREADS)
+          cp_async16(dst + (i >> 4) * RAY_LDKV + (i & 15) * 8, src + (size_t)i * 8);
+        cp_async_commit();
+      };
+      load_tile(0);
+      for (int ti = 0; ti < ntile; ++ti) {
+        if (ti + 1 < ntile) {
+          load_tile(ti + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (act) attend_tile(KVt + (ti & 1) * KT * RAY_LDKV, ti * KT, S, qa, o, mrow, lrow);
+        __syncthreads();
+      }
+      if (!act) continue;
+
+      // normalize, out_fc, residual
+      uint32_t oa[HEADS][4];
+#pragma unroll
+      for (int h = 0; h < HEADS; ++h) {
+        float inv[2];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float l = lrow[h][hr];
+          l += __shfl_xor_sync(0xffffffffu, l, 1);
+          l += __shfl_xor_sync(0xffffffffu, l, 2);
+          lrow[h][hr] = l;
+          inv[hr] = 1.f / l;
+        }
+        oa[h][0] = pack_bf16(o[h][0][0] * inv[0], o[h][0][1] * inv[0]);
+        oa[h][1] = pack_bf16(o[h][0][2] * inv[1], o[h][0][3] * inv[1]);
+        oa[h][2] = pack_bf16(o[h][1][0] * inv[0], o[h][1][1] * inv[0]);
+        oa[h][3] = pack_bf16(o[h][1][2] * inv[1], o[h][1][3] * inv[1]);
+      }
+      if (want_w && rg == 0 && lane < 4) {  // query 0 = row g 0 of lanes 0..3
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h) {
+          const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&qa[h][0]);
+          const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&qa[h][2]);
+          q0s[h * HD + 2 * t] = __low2float(lo);
+          q0s[h * HD + 2 * t + 1] = __high2float(lo);
+          q0s[h * HD + 8 + 2 * t] = __low2float(hi);
+          q0s[h * HD + 9 + 2 * t] = __high2float(hi);
+          if (lane == 0) {
+            m0s[h] = mrow[h][0];
+            l0s[h] = lrow[h][0];
+          }
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        float acc[2][4] = {};
+        mma_pair(acc, oa, Wo, RAY_LDW, np * 16);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int c = np * 16 + 8 * i + 2 * t;
+          x[2 * np + i][0] += acc[i][0] + bo[c];
+          x[2 * np + i][1] += acc[i][1] + bo[c + 1];
+          x[2 * np + i][2] += acc[i][2] + bo[c];
+          x[2 * np + i][3] += acc[i][3] + bo[c + 1];
+        }
+      }
+      // x += ff(ff_norm(x)), the hidden layer in chunks of 64
+      {
+        uint32_t a[4][4];
+        float y[8][4];
+        ln_rows(x, fln_s, fln_b, y);
+        frag_to_a(y, a, 4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
+#pragma unroll 1
+        for (int hc = 0; hc < 4; ++hc) {
+          float hid[8][4];
+          uint32_t ha[4][4];
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            float acc[2][4] = {};
+            mma_pair(acc, a, Wf1, RAY_LDF1, hc * NW + np * 16);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int c = hc * NW + np * 16 + 8 * i + 2 * t;
+              hid[2 * np + i][0] = fmaxf(acc[i][0] + bf1[c], 0.f);
+              hid[2 * np + i][1] = fmaxf(acc[i][1] + bf1[c + 1], 0.f);
+              hid[2 * np + i][2] = fmaxf(acc[i][2] + bf1[c], 0.f);
+              hid[2 * np + i][3] = fmaxf(acc[i][3] + bf1[c + 1], 0.f);
+            }
+          }
+          frag_to_a(hid, ha, 4);
+#pragma unroll
+          for (int np = 0; np < 4; ++np)
+            mma_pair(&y[2 * np], ha, Wf2 + hc * NW * RAY_LDW, RAY_LDW, np * 16);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          x[j][0] += y[j][0] + bf2[c];
+          x[j][1] += y[j][1] + bf2[c + 1];
+          x[j][2] += y[j][2] + bf2[c];
+          x[j][3] += y[j][3] + bf2[c + 1];
+        }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = rg * 16 + g + 8 * hr;
+        if (r < S) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *(float2*)(qo + (size_t)r * NW + 8 * j + 2 * t) =
+                make_float2(x[j][2 * hr], x[j][2 * hr + 1]);
+        }
+      }
+      if (final_) {  // pool the rows' norm(q) for rgb
+        ln_rows(x, fw.norm_s, fw.norm_b, x);
+        const bool v0 = rg * 16 + g < S, v1 = rg * 16 + g + 8 < S;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float s = (v0 ? x[j][e] : 0.f) + (v1 ? x[j][2 + e] : 0.f);
+            s += __shfl_xor_sync(0xffffffffu, s, 4);
+            s += __shfl_xor_sync(0xffffffffu, s, 8);
+            s += __shfl_xor_sync(0xffffffffu, s, 16);
+            if (lane < 4) atomicAdd(&pool[8 * j + 2 * t + e], s);
+          }
+        }
+      }
     }
-    int nv = 0;
-    for (int v = 0; v < V; ++v)
-      nv += view_valid<VSRC>(mask, proj, v, N, n, px, py, pz, hf, wf);
-    cnt += wacc[k] * (float)nv;
+    __syncthreads();
+
+    // query 0's weights row: a second pass over the keys with its final max
+    // and sum; then cnt = sum_s w_s * valid_s / V
+    if (want_w) {
+      float cnt = 0.f;
+      const size_t N = (size_t)R * S;
+      for (int k = tid; k < S; k += RAY_THREADS) {
+        const uint4* kr = (const uint4*)(kvb + (size_t)k * 2 * NW);
+        float wk = 0.f;
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const uint4 u = __ldcg(kr + 2 * h + i);
+            const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(p[e]);
+              s += q0s[h * HD + 8 * i + 2 * e] * f.x + q0s[h * HD + 8 * i + 2 * e + 1] * f.y;
+            }
+          }
+          wk += ex2(fmaf(s, SCORE_C, -m0s[h] * SCORE_C)) / l0s[h];
+        }
+        wk *= 1.0f / HEADS;
+        w_out[(size_t)ray * S + k] = wk;
+        if (final_) {
+          const size_t n = (size_t)ray * S + k;
+          float px = 0.f, py = 0.f, pz = 0.f;  // pts may be null when validity is read
+          if (VSRC == VSRC_PROJ) {
+            px = pts[n * 3];
+            py = pts[n * 3 + 1];
+            pz = pts[n * 3 + 2];
+          }
+          int nv = 0;
+          for (int v = 0; v < V; ++v)
+            nv += view_valid<VSRC>(mask, proj, v, N, n, px, py, pz, hf, wf);
+          cnt += wk * (float)nv;
+        }
+      }
+      if (final_) {
+        for (int o_ = 16; o_ > 0; o_ >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o_);
+        if (lane == 0) atomicAdd(&pool[NW], cnt);
+      }
+    }
+    if (final_) {
+      __syncthreads();
+      if (tid < 3) {
+        float acc = fw.rgb_b[tid];
+        for (int c = 0; c < NW; ++c) acc += pool[c] * (1.0f / S) * fw.rgb_w[c * 3 + tid];
+        rgb_out[(size_t)ray * 3 + tid] = acc;
+      }
+      if (tid == 0) cnt_out[ray] = pool[NW] / (float)V;
+      __syncthreads();
+      if (tid < NW + 4) pool[tid] = 0.f;
+    }
+    __syncthreads();  // the slab and query 0's stats are free for the next ray
   }
-  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
-  if (lane == 0) atomicAdd(&pool[NW], cnt);
-  __syncthreads();
-  if (tid < 3) {
-    float acc = fw.rgb_b[tid];
-    for (int c = 0; c < NW; ++c) acc += pool[c] * (1.0f / S) * fw.rgb_w[c * 3 + tid];
-    rgb_out[r * 3 + tid] = acc;
-  }
-  if (tid == 0) cnt_out[r] = pool[NW] / (float)V;
 }
 
 // ---------------------------------------------------------------------------
@@ -886,6 +1264,24 @@ static void read_ray(PtrReader& r, RayW& y) {
   y.bf2 = r.f();
 }
 
+// One ray block launch (k_ray) on `stream`: kv holds kv_blocks slabs of
+// gnt_ray_slab(S) bf16, one per resident block; min(kv_blocks, R) blocks
+// walk the R rays. Returns a cudaError_t.
+template <int VSRC>
+static int launch_ray(const float* q_in, float* q, void* kv, int kv_blocks, const void* pts,
+                      const void* proj, const void* mask, int V, int R, int S, float hf,
+                      float wf, const RayW& w, int want_w, int final_, const FinalW& fw,
+                      void* rgb_out, void* w_out, void* cnt_out, cudaStream_t stream) {
+  if (!kv || kv_blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(k_ray<VSRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)RAY_SMEM);
+  if (err) return (int)err;
+  k_ray<VSRC><<<kv_blocks < R ? kv_blocks : R, RAY_THREADS, RAY_SMEM, stream>>>(
+      q_in, q, (bf16*)kv, (const float*)pts, (const float*)proj, (const uint8_t*)mask, V, R,
+      S, hf, wf, w, want_w, final_, fw, (float*)rgb_out, (float*)w_out, (float*)cnt_out);
+  return (int)cudaGetLastError();
+}
+
 // The whole forward on `stream`: the prologue (k_prologue on rf, or
 // k_prologue_patch on *patch when patch is not null, or k_prologue_lerp on
 // m3's quad rows when it has them), then 8 x (view block, ray block), which
@@ -897,14 +1293,14 @@ static int run_forward(const void* rf, const void* mask, const void* pts,
                        const void* vcode, const void* centers, const void* proj,
                        int V, int R, int S, int C, int Cp, float hf, float wf,
                        const uint64_t* wptrs, int n_ptrs, void* h_scratch,
-                       void* q_scratch, void* rgb_out, void* w_out,
-                       void* cnt_out, void* stream_ptr, const PatchIn* patch = nullptr,
+                       void* q_scratch, void* kv_scratch, int kv_blocks, void* rgb_out,
+                       void* w_out, void* cnt_out, void* stream_ptr,
+                       const PatchIn* patch = nullptr,
                        const Mono3In* m3 = nullptr) {
   if (n_ptrs != N_PTRS || V > MAX_VIEWS || V < 1 || S < 1 || R < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int N = R * S;
-  const int Sp = (S + 15) / 16 * 16;
   PtrReader rd{wptrs, 0};
   HeadW hw;
   hw.w0 = rd.b(); hw.b0 = rd.f(); hw.w1 = rd.b(); hw.b1 = rd.f();
@@ -918,9 +1314,8 @@ static int run_forward(const void* rf, const void* mask, const void* pts,
   fw.norm_s = rd.f(); fw.norm_b = rd.f(); fw.rgb_w = rd.f(); fw.rgb_b = rd.f();
 
   cudaError_t err;
-  const size_t sm_view = view_smem(), sm_ray = ray_layout(Sp).total;
+  const size_t sm_view = view_smem();
   if ((err = cudaFuncSetAttribute(k_view<VSRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_view))) return (int)err;
-  if ((err = cudaFuncSetAttribute(k_ray<VSRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_ray))) return (int)err;
 
   const int nblk = (N + TT - 1) / TT;
   if (patch) {
@@ -953,20 +1348,33 @@ static int run_forward(const void* rf, const void* mask, const void* pts,
         nullptr, rd16, pos16, V, N, S, hf, wf, vw[b], b % 2 == 0);
     if ((err = cudaGetLastError())) return (int)err;
     const int last = b == DEPTH - 1;
-    k_ray<VSRC><<<R, NTHREADS, sm_ray, stream>>>(
-        q, q, (const float*)pts, (const float*)proj, (const uint8_t*)mask, V,
-        S, Sp, hf, wf, rw[b], last, last, fw, (float*)rgb_out, (float*)w_out,
-        (float*)cnt_out);
-    if ((err = cudaGetLastError())) return (int)err;
+    const int rerr = launch_ray<VSRC>(q, q, kv_scratch, kv_blocks, pts, proj, mask, V, R, S,
+                                      hf, wf, rw[b], last, last, fw, rgb_out, w_out, cnt_out,
+                                      stream);
+    if (rerr) return rerr;
   }
   return 0;
 }
 
 extern "C" {
 
-// Shared memory one ray block needs for Sp (padded) samples; the wrappers
-// check it against the device limit before launching.
-size_t gnt_mono4_ray_smem(int sp) { return ray_layout(sp).total; }
+// The ray kernel's shared memory per block, its resident blocks per SM on
+// the current device (negative: a cudaError_t), and the bf16 elements of
+// one block's K / V slab for S samples (S padded to the key tile, x 128).
+// The wrappers size the kv scratch as min(R, blocks per SM x SMs) slabs.
+int gnt_ray_smem_bytes() { return (int)RAY_SMEM; }
+
+int gnt_ray_blocks_per_sm() {
+  cudaError_t err = cudaFuncSetAttribute(
+      k_ray<VSRC_PROJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)RAY_SMEM);
+  if (err) return -(int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k_ray<VSRC_PROJ>, RAY_THREADS,
+                                                      RAY_SMEM);
+  return err ? -(int)err : n;
+}
+
+int gnt_ray_slab(int S) { return (S + KT - 1) / KT * KT * 2 * NW; }
 
 int gnt_mono4_max_views() { return MAX_VIEWS; }
 
@@ -978,11 +1386,11 @@ int gnt_mono4_forward(const void* rf, const void* pts, const void* vcode,
                       const void* centers, const void* proj, int V, int R,
                       int S, int C, int Cp, float hf, float wf,
                       const uint64_t* wptrs, int n_ptrs, void* h_scratch,
-                      void* q_scratch, void* rgb_out, void* w_out,
-                      void* cnt_out, void* stream_ptr) {
+                      void* q_scratch, void* kv_scratch, int kv_blocks, void* rgb_out,
+                      void* w_out, void* cnt_out, void* stream_ptr) {
   return run_forward<VSRC_PROJ>(rf, nullptr, pts, vcode, centers, proj, V, R, S,
                             C, Cp, hf, wf, wptrs, n_ptrs, h_scratch, q_scratch,
-                            rgb_out, w_out, cnt_out, stream_ptr);
+                            kv_scratch, kv_blocks, rgb_out, w_out, cnt_out, stream_ptr);
 }
 
 // K1, patch_rows mode: the features combined in k_prologue_patch from rows
@@ -992,14 +1400,16 @@ int gnt_mono4_patch_forward(const void* rows, const void* coef, const void* pts,
                             const void* vcode, const void* centers, const void* proj,
                             int V, int R, int S, int C, int Cp, int n_pos, int nb,
                             float hf, float wf, const uint64_t* wptrs, int n_ptrs,
-                            void* h_scratch, void* q_scratch, void* rgb_out,
-                            void* w_out, void* cnt_out, void* stream_ptr) {
+                            void* h_scratch, void* q_scratch, void* kv_scratch,
+                            int kv_blocks, void* rgb_out, void* w_out, void* cnt_out,
+                            void* stream_ptr) {
   if (!rows || !coef || n_pos < 1 || n_pos > MAX_NPOS || nb < 1 || R % nb != 0)
     return (int)cudaErrorInvalidValue;
   const PatchIn patch{rows, coef, n_pos, nb};
   return run_forward<VSRC_PROJ>(nullptr, nullptr, pts, vcode, centers, proj, V, R, S,
                                 C, Cp, hf, wf, wptrs, n_ptrs, h_scratch, q_scratch,
-                                rgb_out, w_out, cnt_out, stream_ptr, &patch);
+                                kv_scratch, kv_blocks, rgb_out, w_out, cnt_out, stream_ptr,
+                                &patch);
 }
 
 // K2, in every operand mode of gnt_fused_apply_mono3, one source per
@@ -1019,8 +1429,8 @@ int gnt_mono3_forward(const void* rf, int ld, const void* lerp_rows,
                             const void* vcode, const void* centers, int V, int R,
                             int S, int C, int Cp, float hf, float wf,
                             const uint64_t* wptrs, int n_ptrs, void* h_scratch,
-                            void* q_scratch, void* rgb_out, void* w_out,
-                            void* cnt_out, void* stream_ptr) {
+                            void* q_scratch, void* kv_scratch, int kv_blocks,
+                            void* rgb_out, void* w_out, void* cnt_out, void* stream_ptr) {
   const bool lerp = lerp_rows != nullptr;
   if (lerp == (rf != nullptr) || (lerp && !frac) || (!lerp && ld != C && ld != C + 1) ||
       (mask == nullptr) == (proj == nullptr) || (proj && !pts) ||
@@ -1029,11 +1439,13 @@ int gnt_mono3_forward(const void* rf, int ld, const void* lerp_rows,
   const Mono3In m3{ld, lerp_rows, frac, rd16, pos16};
   if (proj)
     return run_forward<VSRC_PROJ>(rf, nullptr, pts, vcode, centers, proj, V, R, S, C, Cp,
-                                  hf, wf, wptrs, n_ptrs, h_scratch, q_scratch, rgb_out,
-                                  w_out, cnt_out, stream_ptr, nullptr, &m3);
+                                  hf, wf, wptrs, n_ptrs, h_scratch, q_scratch, kv_scratch,
+                                  kv_blocks, rgb_out, w_out, cnt_out, stream_ptr, nullptr,
+                                  &m3);
   return run_forward<VSRC_MASK>(rf, mask, pts, vcode, centers, nullptr, V, R, S, C, Cp,
-                                hf, wf, wptrs, n_ptrs, h_scratch, q_scratch, rgb_out,
-                                w_out, cnt_out, stream_ptr, nullptr, &m3);
+                                hf, wf, wptrs, n_ptrs, h_scratch, q_scratch, kv_scratch,
+                                kv_blocks, rgb_out, w_out, cnt_out, stream_ptr, nullptr,
+                                &m3);
 }
 
 // K3a: one view block over N tokens, q_in [N, 64] f32 -> q_out [N, 64] f32
@@ -1061,22 +1473,19 @@ int gnt_split_view_forward(const void* q_in, void* q_out, const void* h,
 
 // K3b: one ray block over R rays of S samples, q_in [R, S, 64] f32 ->
 // q_out (may be q_in), and w_out [R, S] f32, the head-mean of the first
-// query's attention row. wptrs: N_RAY_PTRS pointers of pack_ray_block.
-int gnt_split_ray_forward(const void* q_in, void* q_out, void* w_out, int R, int S,
-                          const uint64_t* wptrs, int n_ptrs, void* stream_ptr) {
+// query's attention row; kv: kv_blocks slabs of gnt_ray_slab(S) bf16.
+// wptrs: N_RAY_PTRS pointers of pack_ray_block.
+int gnt_split_ray_forward(const void* q_in, void* q_out, void* w_out, void* kv_scratch,
+                          int R, int S, int kv_blocks, const uint64_t* wptrs, int n_ptrs,
+                          void* stream_ptr) {
   if (n_ptrs != N_RAY_PTRS || R < 1 || S < 1) return (int)cudaErrorInvalidValue;
   PtrReader rd{wptrs, 0};
   RayW y;
   read_ray(rd, y);
-  const int Sp = (S + 15) / 16 * 16;
-  const size_t sm = ray_layout(Sp).total;
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(k_ray<VSRC_SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm))) return (int)err;
-  FinalW none{};
-  k_ray<VSRC_SPLIT><<<R, NTHREADS, sm, (cudaStream_t)stream_ptr>>>(
-      (const float*)q_in, (float*)q_out, nullptr, nullptr, nullptr, 1, S, Sp, 0.f,
-      0.f, y, 1, 0, none, nullptr, (float*)w_out, nullptr);
-  return (int)cudaGetLastError();
+  const FinalW none{};
+  return launch_ray<VSRC_SPLIT>((const float*)q_in, (float*)q_out, kv_scratch, kv_blocks,
+                                nullptr, nullptr, nullptr, 1, R, S, 0.f, 0.f, y, 1, 0, none,
+                                nullptr, w_out, nullptr, (cudaStream_t)stream_ptr);
 }
 
 int gnt_split_n_view_ptrs() { return N_VIEW_PTRS; }

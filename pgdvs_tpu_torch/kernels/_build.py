@@ -28,9 +28,11 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-c_void_p, c_int, c_float, c_size_t = (
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
-)
+c_void_p, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# the whole forwards' last arguments: h and q scratch, the ray kernel's K / V
+# scratch and its block count, the rgb, weights and count outputs, the stream
+KERNEL_TAIL = [c_void_p] * 3 + [c_int] + [c_void_p] * 4
 
 # C signatures of the library's entry points (csrc/gnt_fused.cu)
 SIGNATURES = {
@@ -39,14 +41,14 @@ SIGNATURES = {
     # and the stream
     "gnt_mono4_forward": (
         [c_void_p] * 5 + [c_int] * 5 + [c_float, c_float, c_void_p, c_int]
-        + [c_void_p] * 6,
+        + KERNEL_TAIL,
         c_int,
     ),
     # K1's patch_rows mode: rows, coef, then K1's list with n_pos and the
     # rays per row block after the padded C
     "gnt_mono4_patch_forward": (
         [c_void_p] * 6 + [c_int] * 7 + [c_float, c_float, c_void_p, c_int]
-        + [c_void_p] * 6,
+        + KERNEL_TAIL,
         c_int,
     ),
     # K2 in any operand mode: rf, its channel stride, lerp rows, frac, mask,
@@ -54,14 +56,19 @@ SIGNATURES = {
     # K1's list from V on
     "gnt_mono3_forward": (
         [c_void_p, c_int] + [c_void_p] * 9 + [c_int] * 5
-        + [c_float, c_float, c_void_p, c_int] + [c_void_p] * 6,
+        + [c_float, c_float, c_void_p, c_int] + KERNEL_TAIL,
         c_int,
     ),
-    "gnt_mono4_ray_smem": ([c_int], c_size_t),
+    # the ray kernel: shared memory per block, resident blocks per SM,
+    # bf16 elements of one block's K / V slab for S samples
+    "gnt_ray_smem_bytes": ([], c_int),
+    "gnt_ray_blocks_per_sm": ([], c_int),
+    "gnt_ray_slab": ([c_int], c_int),
     "gnt_mono4_max_views": ([], c_int),
     "gnt_mono4_n_ptrs": ([], c_int),
     "gnt_split_view_forward": ([c_void_p] * 5 + [c_int] * 2 + [c_void_p, c_int, c_void_p], c_int),
-    "gnt_split_ray_forward": ([c_void_p] * 3 + [c_int] * 2 + [c_void_p, c_int, c_void_p], c_int),
+    # q in, q out, weights, K / V scratch; R, S, the scratch's blocks
+    "gnt_split_ray_forward": ([c_void_p] * 4 + [c_int] * 3 + [c_void_p, c_int, c_void_p], c_int),
     "gnt_split_n_view_ptrs": ([], c_int),
     "gnt_split_n_ray_ptrs": ([], c_int),
 }

@@ -14,18 +14,19 @@ Inside the kernel, as in mono4's body: view validity (in front, inside
 [0, W-1] x [0, H-1]), the ray-difference code, the 63-dim point embedding,
 rgbfeat_fc + max-pool over views, 8 x [masked per-channel view softmax,
 q_fc on even blocks, 4-head ray attention], LayerNorm + mean + rgb_fc, and
-``inbound_cnt_raw = sum_s w_s * (#valid views at s) / V``. Any S up to the
-shared-memory bound of one ray block (352 samples at the H100's 227 KB);
-no padding is asked of the caller.
+``inbound_cnt_raw = sum_s w_s * (#valid views at s) / V``. Any S; no
+padding is asked of the caller.
 
 What bounds it on the H100: about 1e4 FLOP per (view, ray, sample) token and
 block, mostly the 64x64 value projection, plus S x S attention per head and
 ray. The design (``csrc/gnt_fused.cu``) runs every dense layer as bf16 WMMA
 tiles with f32 accumulation, keeps softmax and LayerNorm statistics in f32,
 streams views one at a time through an online softmax (a ray's [V, S, 64]
-token set never has to fit in shared memory), and holds one ray's S samples
-in shared memory for ray attention. Offline, only exact-by-linearity weight
-compositions are made (wk@wv, wk@wa0, wq@wa0, p1@wa0).
+token set never has to fit in shared memory), and streams a ray's samples
+in key tiles through ray attention (an online softmax in mma.sync
+registers, K / V in a bf16 scratch slab per resident block). Offline, only
+exact-by-linearity weight compositions are made (wk@wv, wk@wa0, wq@wa0,
+p1@wa0).
 
 Not carried from the TPU kernel: 128-lane sample-pair packing, the
 log2(e)/exp2 fold, the LayerNorm selection matmul, the evens-then-odds ray
@@ -175,14 +176,15 @@ def gnt_fused_mono4_plain(gnt: GNT, rgb_feat, pts, view_code, centers, proj,
     return {"rgb": out["rgb"], "weights": out["weights"], "inbound_cnt_raw": cnt}
 
 
-def check_ray_smem(lib, s, dev):
-    """Raise if one ray block of ``s`` samples (padded to 16 inside) needs
-    more shared memory than device ``dev`` allows a block."""
-    smem = lib.gnt_mono4_ray_smem(-(-s // 16) * 16)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"S={s} samples need {smem} B of shared memory per "
-                         f"ray block; the device allows {limit}")
+def ray_scratch(lib, r, s, dev):
+    """The ray kernel's K / V scratch on ``dev`` for R rays of S samples:
+    one bf16 slab of ``gnt_ray_slab(S)`` elements per ray block the card
+    holds at once (at most R): (tensor [blocks, slab], blocks)."""
+    per_sm = lib.gnt_ray_blocks_per_sm()
+    if per_sm < 1:
+        raise RuntimeError(f"gnt_ray_blocks_per_sm failed: {per_sm}")
+    blocks = min(r, per_sm * torch.cuda.get_device_properties(dev).multi_processor_count)
+    return torch.empty((blocks, lib.gnt_ray_slab(s)), dtype=torch.bfloat16, device=dev), blocks
 
 
 def call_entry(lib, entry, n_ptrs, weights, head, tail, dev):
@@ -211,9 +213,9 @@ def launch(entry, params, data, dims, pts, view_code, centers, validity, hw, ext
     the projection against, the weights, scratch and outputs. Validates the
     operands common to all (bf16 data, pts [R, S, 3], view_code [R, 63],
     centers [V+1, 3], all on one CUDA device; ``dims`` = (V, R, S, C)),
-    builds or loads the kernel library, checks the view and shared-memory
-    limits and packs the weights for the device. Raises on any failure, the
-    launch's included.
+    builds or loads the kernel library, checks the view limit and packs
+    the weights for the device. Raises on any failure, the launch's
+    included.
     """
     gnt = params.gnt if isinstance(params, Mono4Weights) else params
     dev = data[0].device
@@ -229,52 +231,53 @@ def launch(entry, params, data, dims, pts, view_code, centers, validity, hw, ext
     for t in (*data, pts, view_code, centers, validity):
         if t.device != dev:
             raise ValueError("all operands must be on the same device")
-    lib, packed = prepare_forward(params, dev, v, s)
+    lib, packed = prepare_forward(params, dev, v)
     data = [t.contiguous() for t in data]
     pts32 = pts.float().contiguous()
     vc = view_code.float().contiguous()
     ctr = centers.float().contiguous()
     validity = validity.contiguous()
-    bufs, outs = forward_buffers(v, r, s, dev)
+    tail, _bufs, outs = forward_buffers(lib, v, r, s, dev)
     call_entry(
         lib, entry, lib.gnt_mono4_n_ptrs(), packed.tensors,
         (*[t.data_ptr() for t in data], pts32.data_ptr(), vc.data_ptr(), ctr.data_ptr(),
          validity.data_ptr(), v, r, s, c, packed.cp, *extra, float(hw[0]), float(hw[1])),
-        [t.data_ptr() for t in bufs], dev)
+        tail, dev)
     return outs
 
 
-def prepare_forward(params, dev, v, s):
+def prepare_forward(params, dev, v):
     """(library, ``Mono4Weights`` for ``dev``) for one whole forward of V
-    views and S samples: builds or loads the kernels, raises past the view
-    and shared-memory limits, packs the weights unless ``params`` already
-    are for ``dev``."""
+    views: builds or loads the kernels, raises past the view limit, packs
+    the weights unless ``params`` already are for ``dev``."""
     from pgdvs_tpu_torch.kernels._build import load_library
 
     lib = load_library().lib
     if v > lib.gnt_mono4_max_views():
         raise ValueError(f"at most {lib.gnt_mono4_max_views()} views, got {v}")
-    check_ray_smem(lib, s, dev)
     if isinstance(params, Mono4Weights) and params.device == dev:
         return lib, params
     gnt = params.gnt if isinstance(params, Mono4Weights) else params
     return lib, pack_mono4_weights(gnt, dev)
 
 
-def forward_buffers(v, r, s, dev):
-    """The scratch (h [V, N, 64] bf16, q [N, 64] f32) and outputs of one
-    whole forward: (the five tensors whose pointers the C entries take
-    last, the outputs dict). The caller holds the tensors until the
-    launch is enqueued."""
+def forward_buffers(lib, v, r, s, dev):
+    """The scratch (h [V, N, 64] bf16, q [N, 64] f32, the ray kernel's
+    K / V slabs) and outputs of one whole forward: (the arguments the C
+    entries take last: h, q, kv, kv's block count, rgb, weights, count;
+    the tensors behind them, which the caller holds until the launch is
+    enqueued; the outputs dict)."""
     n = r * s
     outs = {
         "rgb": torch.empty((r, 3), dtype=torch.float32, device=dev),
         "weights": torch.empty((r, s), dtype=torch.float32, device=dev),
         "inbound_cnt_raw": torch.empty((r,), dtype=torch.float32, device=dev),
     }
+    kv, blocks = ray_scratch(lib, r, s, dev)
     bufs = (torch.empty((v, n, NW), dtype=torch.bfloat16, device=dev),
-            torch.empty((n, NW), dtype=torch.float32, device=dev), *outs.values())
-    return bufs, outs
+            torch.empty((n, NW), dtype=torch.float32, device=dev), kv, *outs.values())
+    tail = [t.data_ptr() for t in bufs]
+    return tail[:3] + [blocks] + tail[3:], bufs, outs
 
 
 def check_proj(proj, v, dev):

@@ -300,8 +300,8 @@ def _launch(params, o: Mono3Operands, dev):
             raise ValueError("all operands must be on the same device")
     # rows [V, R, S, C+1] are read in place in the pre-packed mode
     ops = {k: None if t is None else t.contiguous() for k, t in ops.items()}
-    lib, packed = prepare_forward(params, dev, v, s)
-    bufs, outs = forward_buffers(v, r, s, dev)
+    lib, packed = prepare_forward(params, dev, v)
+    tail, _bufs, outs = forward_buffers(lib, v, r, s, dev)
     ptr = lambda k: 0 if ops[k] is None else ops[k].data_ptr()  # noqa: E731
     ld = ops["feats"].shape[-1] if ops["feats"] is not None else c
     call_entry(
@@ -309,7 +309,7 @@ def _launch(params, o: Mono3Operands, dev):
         (ptr("feats"), ld, ptr("rows"), ptr("frac"), ptr("mask"), ptr("proj"),
          ptr("ray_diff"), ptr("pos"), ptr("pts"), ptr("view_code"), ptr("centers"),
          v, r, s, c, packed.cp, *o.hw),
-        [t.data_ptr() for t in bufs], dev)
+        tail, dev)
     return outs
 
 

@@ -52,7 +52,7 @@ import torch
 from torch import nn
 
 from pgdvs_tpu_torch.kernels.gnt_fused import (
-    DEPTH, NW, call_entry, check_ray_smem, pack_ray_block, pack_view_block, tensor_device,
+    DEPTH, NW, call_entry, pack_ray_block, pack_view_block, ray_scratch, tensor_device,
 )
 from pgdvs_tpu_torch.models.gnt.network import GNT
 
@@ -182,12 +182,13 @@ def gnt_split_ray(q, blk):
     from pgdvs_tpu_torch.kernels._build import load_library
 
     lib = load_library().lib
-    check_ray_smem(lib, s, dev)
     q_in = q.contiguous()
     q_out = torch.empty_like(q_in)
     w = torch.empty((r, s), dtype=torch.float32, device=dev)
+    kv, blocks = ray_scratch(lib, r, s, dev)
     call_entry(lib, "gnt_split_ray_forward", lib.gnt_split_n_ray_ptrs(), packed.tensors,
-               (q_in.data_ptr(), q_out.data_ptr(), w.data_ptr(), r, s), (), dev)
+               (q_in.data_ptr(), q_out.data_ptr(), w.data_ptr(), kv.data_ptr(), r, s, blocks),
+               (), dev)
     gnt_split_ray.launches += 1
     return q_out, w
 

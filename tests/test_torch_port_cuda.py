@@ -86,7 +86,8 @@ def _assert_matches_plain(got, ref, s, behind):
 
 
 @pytest.mark.parametrize("v,r,s,behind", [(5, 16, 32, False), (5, 16, 23, False),
-                                          (5, 16, 32, True), (10, 64, 256, False)])
+                                          (5, 16, 32, True), (10, 64, 256, False),
+                                          (5, 16, 384, False)])
 def test_kernel_matches_plain(card, v, r, s, behind):
     from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
 
@@ -383,3 +384,73 @@ def test_k2_modes_match_plain(card, mode, v, r, s, behind, dyn_frac):
     torch.cuda.synchronize()
     assert k2.gnt_fused_apply_mono3.launches[mode] == before + 1
     _assert_matches_plain(got, k2.gnt_fused_apply_mono3_plain(gnt, *args, **kw), s, behind)
+
+
+@pytest.mark.parametrize("s", [23, 384, 520])
+def test_k3b_any_sample_count_matches_plain(card, s):
+    """The ray kernel streams the sample axis: K3b at S past the old
+    one-block-per-ray cap (368) against its plain version."""
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    _fnet, gnt = init_gnt_models(seed=0, device=card)
+    rt = k3.pack_split_weights(gnt, card).ray[5]
+    gen = torch.Generator(device=card).manual_seed(s)
+    q = torch.randn((16, s, 64), generator=gen, device=card)
+    before = k3.gnt_split_ray.launches
+    got_q, got_w = k3.gnt_split_ray(q, rt)
+    torch.cuda.synchronize()
+    assert k3.gnt_split_ray.launches == before + 1
+    ref_q, ref_w = k3.split_ray_plain(q, rt)
+    torch.testing.assert_close(got_q, ref_q, atol=0.02, rtol=0.02)
+    _assert_weights(got_w, ref_w, s, spread=True)
+
+
+def test_k2_unfolded_above_the_old_cap_matches_plain(card):
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    _fnet, gnt = init_gnt_models(seed=0, device=card)
+    args, kw = _mode_operands(card, 5, 16, 384, False, 0.3, "unfolded")
+    before = k2.gnt_fused_apply_mono3.launches["unfolded"]
+    got = k2.gnt_fused_apply_mono3(gnt, *args, **kw)
+    torch.cuda.synchronize()
+    assert k2.gnt_fused_apply_mono3.launches["unfolded"] == before + 1
+    _assert_matches_plain(got, k2.gnt_fused_apply_mono3_plain(gnt, *args, **kw), 384, False)
+
+
+def test_render_at_384_samples_matches_cpu(card):
+    """The fast preset at n_coarse_samples_per_ray=384, which the old ray
+    kernel refused: K1's patch_rows mode once per ray tile."""
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.renderers.compose import render_novel_view
+    from pgdvs_tpu_torch.renderers.config import RenderConfig, apply_perf_preset
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    data = make_contract_data(h=24, w=32, n_spatial=3, n_frames=6)
+    cfg = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=384, ray_tile=256))
+    noise = torch.from_numpy(np.random.default_rng(0).normal(size=(24, 32, 3)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", card):
+        tdata = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in data.items()
+                 if isinstance(v, np.ndarray)}
+        kp.gnt_fused_mono4_patch.launches = 0
+        outs[str(dev)] = render_novel_view(init_gnt_models(seed=0, device=dev), tdata,
+                                           cfg, noise=noise.to(dev))
+        assert kp.gnt_fused_mono4_patch.launches == (0 if dev == "cpu" else 3)
+    got, ref = outs["cuda"], outs["cpu"]
+    for key, tol in (("combined_rgb", 0.04), ("static_coarse_depth", 0.1),
+                     ("static_coarse_inbound_cnt", 0.02)):
+        torch.testing.assert_close(got[key].cpu(), ref[key], atol=tol, rtol=0)
+
+
+def test_no_sample_cap_is_left(card):
+    """The library has no ray shared-memory query and the wrappers no check
+    against it; the ray kernel reports its own footprint."""
+    from pgdvs_tpu_torch.kernels._build import load_library
+
+    lib = load_library().lib
+    with pytest.raises(AttributeError):
+        lib.gnt_mono4_ray_smem
+    assert not hasattr(k1, "check_ray_smem") and not hasattr(k3, "check_ray_smem")
+    assert lib.gnt_ray_blocks_per_sm() >= 1
+    assert lib.gnt_ray_smem_bytes() <= torch.cuda.get_device_properties(
+        card).shared_memory_per_block_optin
