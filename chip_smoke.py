@@ -23,6 +23,10 @@ exits non-zero without printing a result:
      ray kernel's own line (``[k_ray]``): its ms per launch at the main tile
      beside its bound, the exp floor, its shared memory and blocks per SM, and
      scaled_dot_product_attention as a yardstick for the attention core;
+     and the view kernel's (``[k_view]``): its ms per launch at the main
+     tile (K3a) beside its bound, the bounds of its launches inside K1 / K2,
+     K3a at 1 and 32 views, its shared memory, registers, local memory and
+     blocks per SM;
   3d. K1 patch_rows vs plain: K1 fed raw patch rows and stencil
      coefficients (the combine in its prologue) against its plain version
      at both ray-block geometries (2x2 rays / 16 stencil positions, 4x2 /
@@ -131,6 +135,29 @@ def split_cost(kind, v, r, s):
         mac += r * 2 * s * s * nw                         # QK^T and PV, 4 heads
         nbytes = 2 * n * nw * 2 + n * 4
     return 2 * mac, nbytes
+
+
+def view_block_cost(v, r, s, qfc=False, mask=False, rd16=False, pos16=False):
+    """(FLOP, bytes) of one view-block launch (``k_view``) inside K1 / K2
+    over R rays x S samples x V views, as the port's kernel moves them: the
+    products of ``split_cost("view")``, plus q_fc on an even block (``qfc``:
+    [192 -> 64 -> 64] per token); h [V, N, 64] bf16 read once, q f32 read
+    and written once; the uint8 mask [V, N] (``mask``), the bf16 ray-diff
+    code [V, N, 4] (``rd16``) and the bf16 point + view code [N, 126]
+    (``pos16``) where the mode reads them, else f32 points (and on an even
+    block the f32 view code [R, 63]) to make them from."""
+    n, nw = r * s, 64
+    flops, _ = split_cost("view", v, r, s)
+    if qfc:
+        flops += 2 * n * (3 * nw * nw + nw * nw)
+    made_code = qfc and not pos16
+    nbytes = v * n * nw * 2 + 2 * n * nw * 4
+    nbytes += v * n if mask else 0
+    nbytes += v * n * 8 if rd16 else 0
+    nbytes += n * 126 * 2 if qfc and pos16 else 0
+    nbytes += n * 12 if not (mask and rd16) or made_code else 0  # pts
+    nbytes += r * 63 * 4 if made_code else 0
+    return flops, nbytes
 
 
 def bound_ms(flops, nbytes):
@@ -682,6 +709,67 @@ def phase_ray_kernel(ray_times, r=2048, s=256, heads=4):
         f"scaled_dot_product_attention q,k,v [{r}, {heads}, {s}, 16] bf16 {sdpa:.4f} ms")
 
 
+def _time_k3a(vblk, v, r, s, iters=20):
+    """K3a's ms per launch on the rig at V views, R rays x S samples, with
+    random q and h, the rig's ray-diff code and K3's main-tile mask."""
+    import torch
+
+    from pgdvs_tpu_torch.core.cameras import ray_diff_features
+    from pgdvs_tpu_torch.kernels.gnt_fused_split import gnt_split_view
+
+    ops, hw = _rig(v=v, r=r, s=s, hw=(288, 550), feats=False)
+    rd = ray_diff_features(ops["pts"][None], ops["centers"][0], ops["centers"][1:, None, None, :])
+    mask = _k2_mask(ops, hw, 0.2)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn((r, s, 64), generator=gen, device="cuda")
+    h = torch.randn((v, r, s, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    return _time_ms(lambda: gnt_split_view(q, h, rd, mask, vblk), iters)
+
+
+def phase_view_kernel(gnt, view_times, r=2048, s=256, v=10, blk=2):
+    """The view kernel's own line at the main tile: its ms per launch (the
+    K3a timing) beside its bound at the function's contract, the bounds of
+    the launches inside K1 / K2 (an odd block of K1, an even block of K1 and
+    of K2 unfolded, with q_fc), K3a at 1 and 32 views (what a launch costs
+    per view and apart from its views: the line through V = 1 and 32), its
+    shared memory per block, and per instantiation (validity from the
+    projection test, the mask, the split operands) its registers per thread,
+    local memory per thread (spills and stack) and resident blocks per SM."""
+    import ctypes
+
+    from pgdvs_tpu_torch.kernels._build import load_library
+    from pgdvs_tpu_torch.kernels.gnt_fused_split import pack_split_weights
+
+    lib = load_library().lib
+    vblk = pack_split_weights(gnt, "cuda").view[blk]
+    sweep = {n: _time_k3a(vblk, n, r, s) for n in (1, 32)}
+    per_view = (sweep[32] - sweep[1]) / 31
+    attrs = {}
+    for vsrc, name in enumerate(("proj", "mask", "split")):
+        out = (ctypes.c_int * 3)()
+        err = lib.gnt_view_attrs(vsrc, ctypes.cast(out, ctypes.c_void_p))
+        if err:
+            raise RuntimeError(f"gnt_view_attrs({vsrc}): cudaError {err}")
+        attrs[name] = {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
+    inside = {
+        "K1 odd block": bound_ms(*view_block_cost(v, r, s)),
+        "K1 even block": bound_ms(*view_block_cost(v, r, s, qfc=True)),
+        "K2 unfolded even block": bound_ms(*view_block_cost(v, r, s, qfc=True, mask=True,
+                                                            rd16=True, pos16=True)),
+    }
+    view_bytes = r * s * 64 * 2  # one view's h
+    log(f"[k_view] main tile R={r} S={s} V={v}: {view_times['ms']:.4f} ms per launch (K3a), "
+        f"bound {view_times['bound_ms']:.4f} ms ({view_times['bound_by']}, the function's "
+        "bf16 contract); bound inside K1 / K2: "
+        + ", ".join(f"{k} {b:.4f} ms ({by})" for k, (b, by) in inside.items())
+        + f"; K3a at V=1 {sweep[1]:.4f} ms, V=32 {sweep[32]:.4f} ms: {per_view:.4f} ms per "
+        f"view (h {view_bytes / per_view / 1e9:.3f} TB/s), {sweep[1] - per_view:.4f} ms apart "
+        f"from the views; shared memory {lib.gnt_view_smem_bytes()} B per block; "
+        + ", ".join(f"{k}: {a['registers']} registers, {a['local_bytes']} B local memory "
+                    "(spills and stack), "
+                    f"{a['blocks_per_sm']} block(s) per SM" for k, a in attrs.items()))
+
+
 def slice_config(bundle=None, n_samples=256, preset="fast"):
     """The unmasked config (bundle None) or a named bundle, with
     ``n_samples`` coarse samples, on the fast preset (the JAX package's:
@@ -1001,6 +1089,7 @@ def main() -> int:
     km_worst, km_times = phase_k2_modes_vs_plain(models[1])
     kp_launches, _, patch = phase_main_path(models)
     phase_ray_kernel(k3_times["ray"])
+    phase_view_kernel(models[1], k3_times["view"])
     k1_launches, _, quad1 = phase_main_path(models, preset="quad", tag="[quad]", n_timed=1)
     for what in ("combined_rgb", "static_coarse_rgb"):
         exact_vs_quad(patch[what], quad1[what], tag="[main]", what=what, label="patch")

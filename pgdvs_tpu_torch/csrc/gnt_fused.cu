@@ -46,13 +46,17 @@
 //                k_prologue_patch first combines each token's patch row with
 //                its stencil coefficients, k_prologue_lerp its four quad taps
 //                with the bilinear weights of its frac (f32, rounded to bf16).
-//   k_view       one view transformer (+ q_fc on even blocks) for 64
+//   k_view       one view transformer (+ q_fc on even blocks), a persistent
+//                grid (one 256-thread block per SM, the block's weights
+//                staged once with cp.async); each warp takes tiles of 16
 //                tokens: validity (recomputed, or read from the mask) and
-//                the ray-diff code from pts and the camera centres (or read
-//                from memory: K3a in f32, K2's unfolded mode in bf16, which
-//                reads its q_fc point + view code too), views streamed one
-//                at a time through an online per-channel softmax, so a
-//                token's [V, 64] set never has to sit in shared memory.
+//                the ray-diff code (made from pts and the camera centres, or
+//                read: K3a in f32, K2's unfolded mode in bf16, which reads
+//                its q_fc point + view code too), then the views streamed
+//                through a per-warp cp.async ring into an online
+//                per-channel softmax whose products, logits and statistics
+//                never leave mma.sync registers; out_fc, the feed-forward
+//                and q_fc follow in registers.
 //   k_ray        one ray transformer block, a persistent grid (one block
 //                per SM at 140 KB of shared memory, weights staged once
 //                per block with cp.async) walking the rays: K / V of a
@@ -67,18 +71,18 @@
 //                with query 0's final max and sum), and the last block of
 //                K1 / K2 rgb and the weighted valid-view count.
 //
-// Bounds on the card: k_prologue and k_view run bf16 WMMA tiles (16x16x16,
-// f32 accumulate) with the per-channel view softmax and the layer norms as
-// f32 CUDA core work; k_ray runs mma.sync m16n8k16 (bf16, f32 accumulate)
-// fed by ldmatrix, and its softmax takes one FFMA and one ex2.approx per
-// score. q stays f32 in global memory between kernels (it is small next to
-// h); h is written once and read once per block. k_ray reads q twice per
-// token (the K / V pass and the query pass, the second from L2) and writes
-// it once. At the main tile (R=2048, S=256) its 537 M exponentials at the
+// Bounds on the card: k_prologue runs bf16 WMMA tiles (16x16x16, f32
+// accumulate); k_view and k_ray run mma.sync m16n8k16 / m16n8k8 (bf16, f32
+// accumulate) fed by ldmatrix, with the softmax statistics and layer norms
+// in f32 registers. q stays f32 in global memory between kernels (it is small
+// next to h); h is written once and read once per block. k_view reads q
+// twice per token (the second time from L2) and writes it once; k_ray reads
+// q twice per token (the K / V pass and the query pass) and writes it once.
+// k_view is bound by bytes: per launch at the main tile (V=10, N=2048*256)
+// it reads h [V, N, 64] bf16 (0.67 GB) and q, and writes q, against ~0.07
+// TFLOP of products. At the main tile k_ray's 537 M exponentials at the
 // SFU's 16 per clock per SM take longer than its 8.6e10 FLOP at the
-// tensor-core peak. K3a is the one kernel here bound by bytes: per launch
-// it reads h [V, N, 64] bf16 and the f32 ray-diff code once, against ~0.1
-// TFLOP of products.
+// tensor-core peak.
 //
 // All dense layers run here; the host only composes weights offline
 // (wk@wv, wk@wa0, wq@wa0, p1@wa0, exact by linearity).
@@ -97,10 +101,9 @@ typedef __nv_bfloat16 bf16;
 #define POSENC 63
 #define HEADS 4
 #define HD 16
-#define TT 64          // tokens per block, prologue + view kernels
+#define TT 64          // tokens per block, prologue kernels
 #define NTHREADS 256
 #define NWARPS 8
-#define STAGE_LD 20
 #define MAX_VIEWS 32
 
 // ---------------------------------------------------------------------------
@@ -143,51 +146,6 @@ __device__ void gemm_store(const bf16* A, int lda, const bf16* B, int ldb,
   }
 }
 
-// epi(row, col, value) for every element of A @ B, through a per-warp
-// [16 x STAGE_LD] f32 staging tile (stage holds NWARPS of them).
-template <class Epi>
-__device__ void gemm_epi(const bf16* A, int lda, const bf16* B, int ldb,
-                         int M, int N, int K, float* stage, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* st = stage + warp * 16 * STAGE_LD;
-  const int ntn = N / 16;
-  for (int t = warp; t < (M / 16) * ntn; t += NWARPS) {
-    const int mt = t / ntn, nt = t % ntn;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    tile_mma<false>(acc, A, lda, B, ldb, mt, nt, K);
-    wmma::store_matrix_sync(st, acc, STAGE_LD, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      const int r = i >> 4, c = i & 15;
-      epi(mt * 16 + r, nt * 16 + c, st[r * STAGE_LD + c]);
-    }
-    __syncwarp();
-  }
-}
-
-// Layer norm of one 64-wide row held by 4 consecutive lanes (16 each).
-__device__ __forceinline__ void ln_quad(const float* x, const float* scale,
-                                        const float* bias, int g, float* out) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) s += x[i];
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  const float mu = s * (1.0f / NW);
-  float v = 0.f;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const float d = x[i] - mu;
-    v += d * d;
-  }
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  const float rs = rsqrtf(v * (1.0f / NW) + 1e-6f);
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    out[i] = (x[i] - mu) * rs * scale[g * 16 + i] + bias[g * 16 + i];
-}
-
 // In front of the camera and inside [0, W-1] x [0, H-1] (project_points +
 // pixel_inbound). P: the 3x4 K @ w2c rows of one view.
 __device__ __forceinline__ bool point_valid(const float* P, float x, float y,
@@ -211,7 +169,8 @@ struct HeadW {
 struct ViewW {
   const float *ln_s, *ln_b;
   const bf16 *wqa0, *wbig;
-  const float *bbig, *p0, *p0b, *wa1, *ba1;
+  const float *bbig, *p0, *p0b;
+  const bf16* wa1; const float* ba1;
   const bf16* wout; const float* bout;
   const float *fln_s, *fln_b;
   const bf16* wf1; const float* bf1;
@@ -429,282 +388,31 @@ __device__ __forceinline__ bool view_valid(const uint8_t* mask, const float* pro
 }
 
 // Ray-difference code of point p for source view v: the unit direction of
-// (to target - to source) and their dot product (cameras.ray_diff_features).
+// (to target - to source) and their dot product (cameras.ray_diff_features),
+// each normalisation one reciprocal and three products.
 // centers: [V+1, 3], target first.
 __device__ __forceinline__ void ray_diff_code(const float* centers, int v, float px,
                                               float py, float pz, float* rd) {
   float ax = centers[0] - px, ay = centers[1] - py, az = centers[2] - pz;
-  const float an = sqrtf(ax * ax + ay * ay + az * az) + 1e-6f;
-  ax /= an; ay /= an; az /= an;
+  const float ia = 1.f / (sqrtf(ax * ax + ay * ay + az * az) + 1e-6f);
+  ax *= ia; ay *= ia; az *= ia;
   const float* cv = centers + 3 * (v + 1);
   float bx = cv[0] - px, by = cv[1] - py, bz = cv[2] - pz;
-  const float bn = sqrtf(bx * bx + by * by + bz * bz) + 1e-6f;
-  bx /= bn; by /= bn; bz /= bn;
+  const float ib = 1.f / (sqrtf(bx * bx + by * by + bz * bz) + 1e-6f);
+  bx *= ib; by *= ib; bz *= ib;
   const float dx = ax - bx, dy = ay - by, dz = az - bz;
-  const float dn = fmaxf(sqrtf(dx * dx + dy * dy + dz * dz), 1e-6f);
-  rd[0] = dx / dn;
-  rd[1] = dy / dn;
-  rd[2] = dz / dn;
+  const float id = 1.f / fmaxf(sqrtf(dx * dx + dy * dy + dz * dz), 1e-6f);
+  rd[0] = dx * id;
+  rd[1] = dy * id;
+  rd[2] = dz * id;
   rd[3] = ax * bx + ay * by + az * bz;
 }
 
 // ---------------------------------------------------------------------------
-// k_view: one view transformer block (+ q_fc_0/1 when has_qfc), q_in -> q_out
-// (the same buffer in K1 / K2). VSRC_SPLIT reads no pts, centres or view code
-// and needs has_qfc == 0. rd16 / pos16 (K2's unfolded modes, may be null):
-// the bf16 ray-diff code [V, N, 4] / point + view code [N, 126] read in place
-// of making them; pts may be null when neither is made and validity is read.
+// mma.sync helpers (k_view, k_ray): cp.async, ldmatrix, m16n8k16 / m16n8k8
+// bf16 tiles with f32 accumulators, and 16-row x 64-column f32 blocks in the
+// accumulator layout
 // ---------------------------------------------------------------------------
-#define VIEW_LDA 88   // [h_v (64) | pos_in (8) | zero (16)]
-#define VIEW_LDC 84
-#define VIEW_LDH 264
-
-template <int VSRC>
-__global__ void __launch_bounds__(NTHREADS)
-k_view(const bf16* __restrict__ h, const float* q_in, float* q_out,
-       const float* __restrict__ pts, const float* __restrict__ vcode,
-       const float* __restrict__ centers, const float* __restrict__ proj,
-       const uint8_t* __restrict__ mask, const float* __restrict__ ray_diff,
-       const bf16* __restrict__ rd16, const bf16* __restrict__ pos16,
-       int V, int N, int S, float hf, float wf, ViewW w, int has_qfc) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* A = (bf16*)smem;                                  // [TT x 88]
-  float* Cs = (float*)(A + TT * VIEW_LDA);                // [TT x 84]
-  bf16* X = (bf16*)(Cs + TT * VIEW_LDC);                  // [TT x 72]
-  float* QA = (float*)(X + TT * 72);                      // [TT x 20]
-  bf16* H1 = (bf16*)(QA + TT * 20);                       // [TT x 264]
-  float* stage = (float*)(H1 + TT * VIEW_LDH);            // [8 x 16 x 20]
-  float* pts_s = stage + NWARPS * 16 * STAGE_LD;          // [TT x 3]
-  unsigned* vmask = (unsigned*)(pts_s + TT * 3);          // [TT]
-  int* vcnt = (int*)(vmask + TT);                         // [TT]
-  float* wa1_s = (float*)(vcnt + TT);                     // [8 x 64]
-
-  const int n0 = blockIdx.x * TT;
-  const int tid = threadIdx.x, t = tid >> 2, g = tid & 3;
-  const bool live = n0 + t < N;
-
-  float qr[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    qr[i] = live ? q_in[(size_t)(n0 + t) * NW + g * 16 + i] : 0.f;
-
-  if (tid < TT) {
-    const int n = min(n0 + tid, N - 1);
-    float px = 0.f, py = 0.f, pz = 0.f;
-    if (VSRC != VSRC_SPLIT && pts) {
-      px = pts[n * 3];
-      py = pts[n * 3 + 1];
-      pz = pts[n * 3 + 2];
-    }
-    pts_s[tid * 3] = px;
-    pts_s[tid * 3 + 1] = py;
-    pts_s[tid * 3 + 2] = pz;
-    unsigned m = 0;
-    int cnt = 0;
-    for (int v = 0; v < V; ++v) {
-      if (view_valid<VSRC>(mask, proj, v, N, n, px, py, pz, hf, wf)) {
-        m |= 1u << v;
-        ++cnt;
-      }
-    }
-    vmask[tid] = m;
-    vcnt[tid] = cnt;
-  }
-  for (int i = tid; i < PH * NW; i += NTHREADS) wa1_s[i] = w.wa1[i];
-  for (int i = tid; i < TT * 16; i += NTHREADS)
-    A[(i >> 4) * VIEW_LDA + 72 + (i & 15)] = __float2bfloat16(0.f);
-
-  // x = attn_norm(q); qa = x @ (wq @ wa0)
-  {
-    float xo[16];
-    ln_quad(qr, w.ln_s, w.ln_b, g, xo);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) X[t * 72 + g * 16 + i] = __float2bfloat16(xo[i]);
-  }
-  __syncthreads();
-  gemm_store(X, 72, w.wqa0, 16, QA, 20, TT, 16, NW);
-  __syncthreads();
-
-  float mx[16], den[16], agg[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    mx[i] = -INFINITY;
-    den[i] = 0.f;
-    agg[i] = 0.f;
-  }
-
-  for (int v = 0; v < V; ++v) {
-    // A = [h_v | relu(pos_fc_0(ray_diff_v)) | 0]
-    const bf16* hv = h + ((size_t)v * N + n0) * NW;
-    for (int i = tid; i < TT * 8; i += NTHREADS) {
-      const int r = i >> 3, c8 = i & 7;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (n0 + r < N) val = ((const uint4*)(hv + (size_t)r * NW))[c8];
-      *(uint4*)(A + r * VIEW_LDA + c8 * 8) = val;
-    }
-    if (tid < TT) {
-      float rd[4];
-      if (VSRC == VSRC_SPLIT) {
-        const float4 r4 = ((const float4*)ray_diff)[(size_t)v * N + min(n0 + tid, N - 1)];
-        rd[0] = r4.x; rd[1] = r4.y; rd[2] = r4.z; rd[3] = r4.w;
-      } else if (rd16) {
-        const bf16* r4 = rd16 + ((size_t)v * N + min(n0 + tid, N - 1)) * 4;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) rd[k] = __bfloat162float(r4[k]);
-      } else {
-        ray_diff_code(centers, v, pts_s[tid * 3], pts_s[tid * 3 + 1], pts_s[tid * 3 + 2], rd);
-      }
-#pragma unroll
-      for (int j = 0; j < PH; ++j) {
-        float p = w.p0b[j];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) p += rd[k] * w.p0[k * PH + j];
-        A[tid * VIEW_LDA + NW + j] = __float2bfloat16(fmaxf(p, 0.f));
-      }
-    }
-    __syncthreads();
-    // [val (64) | a0 w/o the q side (8) | 0 (8)]
-    gemm_store(A, VIEW_LDA, w.wbig, 80, Cs, VIEW_LDC, TT, 80, 80);
-    __syncthreads();
-    const bool valid = (vmask[t] >> v) & 1u;
-    if (valid || vcnt[t] == 0) {
-      float tj[PH];
-#pragma unroll
-      for (int j = 0; j < PH; ++j)
-        tj[j] = fmaxf(Cs[t * VIEW_LDC + NW + j] + w.bbig[NW + j] - QA[t * 20 + j], 0.f);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int c = g * 16 + i;
-        float lg = w.ba1[c];
-#pragma unroll
-        for (int j = 0; j < PH; ++j) lg += tj[j] * wa1_s[j * NW + c];
-        const float val = Cs[t * VIEW_LDC + c] + w.bbig[c];
-        const float mn = fmaxf(mx[i], lg);
-        const float sc = __expf(mx[i] - mn);
-        const float e = __expf(lg - mn);
-        den[i] = den[i] * sc + e;
-        agg[i] = agg[i] * sc + e * val;
-        mx[i] = mn;
-      }
-    }
-    __syncthreads();
-  }
-
-  // x = out_fc(agg) + q
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    X[t * 72 + g * 16 + i] = __float2bfloat16(agg[i] / den[i]);
-  __syncthreads();
-  gemm_store(X, 72, w.wout, NW, Cs, VIEW_LDC, TT, NW, NW);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 16; ++i) qr[i] += Cs[t * VIEW_LDC + g * 16 + i] + w.bout[g * 16 + i];
-  // q = x + ff(ff_norm(x))
-  {
-    float xo[16];
-    ln_quad(qr, w.fln_s, w.fln_b, g, xo);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) X[t * 72 + g * 16 + i] = __float2bfloat16(xo[i]);
-  }
-  __syncthreads();
-  gemm_epi(X, 72, w.wf1, 4 * NW, TT, 4 * NW, NW, stage,
-           [&](int r, int c, float val) {
-             H1[r * VIEW_LDH + c] = __float2bfloat16(fmaxf(val + w.bf1[c], 0.f));
-           });
-  __syncthreads();
-  gemm_store(H1, VIEW_LDH, w.wf2, NW, Cs, VIEW_LDC, TT, NW, 4 * NW);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 16; ++i) qr[i] += Cs[t * VIEW_LDC + g * 16 + i] + w.bf2[g * 16 + i];
-
-  if (has_qfc) {
-    // q = q_fc_1(relu(q_fc_0([q | pts_code | view_code])))  (K = 192)
-    const int ldq = 200;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) H1[t * ldq + g * 16 + i] = __float2bfloat16(qr[i]);
-    if (tid < TT) {
-      bf16* row = H1 + tid * ldq;
-      const int n = min(n0 + tid, N - 1);
-      if (pos16) {
-        const bf16* src = pos16 + (size_t)n * 2 * POSENC;
-        for (int k = 0; k < 2 * POSENC; ++k) row[NW + k] = src[k];
-      } else {
-        float p3[3] = {pts_s[tid * 3], pts_s[tid * 3 + 1], pts_s[tid * 3 + 2]};
-        float s3[3], c3[3];
-        for (int k = 0; k < 3; ++k) {
-          row[NW + k] = __float2bfloat16(p3[k]);
-          s3[k] = sinf(p3[k]);
-          c3[k] = cosf(p3[k]);
-        }
-        for (int f = 0; f < 10; ++f) {
-          for (int k = 0; k < 3; ++k) {
-            row[NW + 3 + 6 * f + k] = __float2bfloat16(s3[k]);
-            row[NW + 6 + 6 * f + k] = __float2bfloat16(c3[k]);
-            const float s2 = 2.f * s3[k] * c3[k];
-            const float c2 = c3[k] * c3[k] - s3[k] * s3[k];
-            s3[k] = s2;
-            c3[k] = c2;
-          }
-        }
-        const int ray = n / S;
-        for (int k = 0; k < POSENC; ++k)
-          row[NW + POSENC + k] = __float2bfloat16(vcode[(size_t)ray * POSENC + k]);
-      }
-      for (int k = NW + 2 * POSENC; k < ldq; ++k) row[k] = __float2bfloat16(0.f);
-    }
-    __syncthreads();
-    gemm_epi(H1, ldq, w.wq0, NW, TT, NW, 192, stage,
-             [&](int r, int c, float val) {
-               X[r * 72 + c] = __float2bfloat16(fmaxf(val + w.bq0[c], 0.f));
-             });
-    __syncthreads();
-    gemm_store(X, 72, w.wq1, NW, Cs, VIEW_LDC, TT, NW, NW);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 16; ++i) qr[i] = Cs[t * VIEW_LDC + g * 16 + i] + w.bq1[g * 16 + i];
-  }
-  if (live) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) q_out[(size_t)(n0 + t) * NW + g * 16 + i] = qr[i];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// k_ray: one ray transformer block, q_in -> q (the same buffer in K1 / K2).
-// A persistent grid: each block stages the block's weights in shared memory
-// once, then takes rays blockIdx.x, blockIdx.x + gridDim.x, ... For each ray:
-//
-//   A. K and V of every sample (LN, the k / v columns of wqkv) into the
-//      block's slab of kv ([Sk x 128] bf16, Sk = S padded to the key tile;
-//      pad rows are LN(0) projected, finite, and masked out of the softmax).
-//   B. the queries in chunks of 16 * RAY_WARPS rows, one warp per 16 rows and
-//      all four heads: LN, Q, then the key tiles of kv streamed through a
-//      cp.async double buffer with an online softmax per (row, head), scores
-//      and probabilities in mma.sync registers (the QK^T accumulator rescaled,
-//      exponentiated and repacked as the A operand of P.V), out_fc, the
-//      residual, LN, the 64 -> 256 -> 64 feed-forward in four hidden chunks,
-//      the residual, one f32 store per element of the rows below S.
-//
-// want_w: query 0's final max and sum are kept, and a second pass over the
-// keys writes the head-mean of its normalized attention row; final: then rgb
-// and the weighted valid-view count (K1 / K2's last block).
-// ---------------------------------------------------------------------------
-#define RAY_WARPS 8
-#define RAY_THREADS (32 * RAY_WARPS)
-#define KT 64            // keys per streamed tile
-#define RAY_LDQKV 200    // smem row strides (bf16): 16 bytes past a multiple
-#define RAY_LDW 72       // of 128, so ldmatrix rows fall in distinct banks
-#define RAY_LDF1 264
-#define RAY_LDKV 136
-#define RAY_NPAR 640     // ln_s, ln_b, bo, fln_s, fln_b, bf2 (64 each), bf1 (256)
-// QK^T scale 1/sqrt(16) with log2(e) folded in, for ex2
-#define SCORE_C (0.25f * 1.4426950408889634f)
-
-static constexpr size_t RAY_SMEM =
-    ((size_t)NW * RAY_LDQKV + NW * RAY_LDW + NW * RAY_LDF1 + 4 * NW * RAY_LDW +
-     2 * KT * RAY_LDKV) * 2 +
-    (size_t)(RAY_NPAR + NW + 8 + NW + 4) * 4;
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -718,6 +426,12 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// 8 bytes (cache-all; the source 8-byte aligned)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -728,7 +442,7 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void cp_rows(bf16* dst, int ld, const bf16* src, int cols,
                                         int rows) {
   const int c8 = cols / 8;
-  for (int i = threadIdx.x; i < rows * c8; i += RAY_THREADS)
+  for (int i = threadIdx.x; i < rows * c8; i += blockDim.x)
     cp_async16(dst + (i / c8) * ld + (i % c8) * 8, src + (size_t)i * 8);
 }
 
@@ -744,6 +458,18 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
                : "r"(smem_u32(p)));
 }
 
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
 // c += a @ b, one m16n8k16 tile (PTX ISA fragment layouts: g = lane / 4,
 // t = lane % 4; A regs (g, 2t..) (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..);
 // B regs (k 2t.., n g) (k 2t+8.., n g); C (g, 2t..) (g+8, 2t..))
@@ -753,6 +479,14 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a @ b, one m16n8k8 tile (A regs (g, 2t..) (g+8, 2t..); B (k 2t.., n g))
+__device__ __forceinline__ void mma16808(float c[4], const uint32_t a[2], uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // B fragments of n-tiles n0 and n0 + 8 at k-step k0 of a [K x N] row-major
@@ -868,6 +602,501 @@ __device__ __forceinline__ void store_pair(bf16* dst, int ld, int row0, int col0
     *(uint32_t*)(dst + (size_t)(row0 + g + 8) * ld + c) = pack_bf16(acc[i][2], acc[i][3]);
   }
 }
+
+// ---------------------------------------------------------------------------
+// k_view: one view transformer block (+ q_fc_0/1 when has_qfc), q_in -> q_out.
+// VSRC_SPLIT reads no pts, centres or view code and needs has_qfc == 0. rd16 /
+// pos16 (K2's unfolded modes, may be null): the bf16 ray-diff code [V, N, 4]
+// / point + view code [N, 126] read in place of making them; pts may be null
+// when neither is made and validity is read.
+//
+// A persistent grid: each block stages the block's weights in shared memory
+// once with cp.async, then every warp walks its own tiles of VT = 16 tokens
+// (tiles blockIdx.x * VIEW_WARPS + warp, then + gridDim.x * VIEW_WARPS, ...)
+// with no block barrier. Per tile, in mma.sync m16n8k16 registers:
+//
+//   validity of every (token, view) once (two lanes per token, views split
+//   even / odd; a token with no valid view attends to all of them), x =
+//   LN(q), the q side of attn_fc[0] (x @ (wq @ wa0)); then the views, whose
+//   h rows (16 x 128 B, one contiguous span of [V, N, 64]) and read ray-diff
+//   codes stream through a VSTAGES-deep cp.async ring of the warp's own
+//   (the flattened (tile, view) sequence, so the next tile's first views
+//   load during this tile's epilogue). Per view: pos_fc_0 of the ray-diff
+//   code into the stage row beside h, the composed [72 x 72] product (val |
+//   the k side of a0) with the biases as the accumulators' start, t =
+//   relu(a0) repacked in registers as the bf16 A operand of the logit
+//   product attn_fc[2] (m16n8k8), and per (token, channel) the online
+//   softmax with one ex2 per element (of the old max and the new logit only
+//   the smaller one's exponential is not 1).
+//   Then agg / den repacked as out_fc's A operand, the residual (q reloaded,
+//   L2), LN, the 64 -> 256 -> 64 feed-forward in four hidden chunks, and
+//   q_fc on [q | point code | view code] (the code staged in the free ring
+//   stage in two 64-column halves). One f32 store per element below N.
+//
+// q may be updated in place (q_in == q_out, K1 / K2): each token is read and
+// written by the one warp that owns its tile, which reads its rows (at the
+// tile's start and again for the residual) before it writes them.
+// ---------------------------------------------------------------------------
+#define VIEW_WARPS 8
+#define VIEW_THREADS (32 * VIEW_WARPS)
+#define VT 16            // tokens per warp tile (one mma m-tile)
+#define VSTAGES 3        // the per-warp h ring
+#define VIEW_LDH 88      // stage row [h (64) | pos_in (8) | -]: smem row strides
+#define VIEW_LDB 88      // (bf16) are an odd number of 16-byte units, so the
+#define VIEW_LDQA 24     // 8 rows of an ldmatrix fall in distinct banks
+#define VIEW_LDW 72
+#define VIEW_LDF1 264
+#define VSTAGE_BYTES (VT * VIEW_LDH * 2 + VT * 16)  // h + pos_in rows, read ray-diff code
+#define LOG2E 1.4426950408889634f
+// f32 parameters in shared memory (offsets in floats, all even)
+#define P_LNS 0
+#define P_LNB 64
+#define P_BBIG 128   // 72: val bias (64), a0 bias (8)
+#define P_P0 200     // pos_fc_0 [4 x 8]
+#define P_P0B 232
+#define P_BA1 240
+#define P_BOUT 304
+#define P_FLNS 368
+#define P_FLNB 432
+#define P_BF1 496    // 256
+#define P_BF2 752
+#define P_BQ0 816
+#define P_BQ1 880
+#define VIEW_NPAR 944
+#define VIEW_NGEO (MAX_VIEWS * 12 + (MAX_VIEWS + 1) * 3 + 1)  // proj rows, centres
+
+static constexpr size_t VIEW_WBYTES =
+    ((size_t)(NW + PH) * VIEW_LDB + NW * VIEW_LDQA + PH * VIEW_LDW + NW * VIEW_LDW +
+     NW * VIEW_LDF1 + 4 * NW * VIEW_LDW + 3 * NW * VIEW_LDW + NW * VIEW_LDW) * 2;
+static constexpr size_t VIEW_SMEM = VIEW_WBYTES +
+    (size_t)VIEW_WARPS * VSTAGES * VSTAGE_BYTES + (size_t)(VIEW_NPAR + VIEW_NGEO) * 4;
+
+template <int VSRC>
+__global__ void __launch_bounds__(VIEW_THREADS, 1)
+k_view(const bf16* __restrict__ h, const float* q_in, float* q_out,
+       const float* __restrict__ pts, const float* __restrict__ vcode,
+       const float* __restrict__ centers, const float* __restrict__ proj,
+       const uint8_t* __restrict__ mask, const float* __restrict__ ray_diff,
+       const bf16* __restrict__ rd16, const bf16* __restrict__ pos16,
+       int V, int N, int S, float hf, float wf, ViewW w, int has_qfc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Wb = (bf16*)smem;                         // wbig rows 0..71: [h | pos_in] -> [val | a0 | 0]
+  bf16* Wqa = Wb + (NW + PH) * VIEW_LDB;          // [64 x 16] wq @ wa0
+  bf16* Wa1 = Wqa + NW * VIEW_LDQA;               // [8 x 64] attn_fc[2]
+  bf16* Wo = Wa1 + PH * VIEW_LDW;                 // [64 x 64]
+  bf16* Wf1 = Wo + NW * VIEW_LDW;                 // [64 x 256]
+  bf16* Wf2 = Wf1 + NW * VIEW_LDF1;               // [256 x 64]
+  bf16* Wq0 = Wf2 + 4 * NW * VIEW_LDW;            // [192 x 64]
+  bf16* Wq1 = Wq0 + 3 * NW * VIEW_LDW;            // [64 x 64]
+  unsigned char* ring = smem + VIEW_WBYTES;       // [warps x stages] of VSTAGE_BYTES
+  float* par = (float*)(ring + VIEW_WARPS * VSTAGES * VSTAGE_BYTES);
+  float* geo = par + VIEW_NPAR;                   // proj [V x 12], centres at MAX_VIEWS * 12
+  float* ctr = geo + MAX_VIEWS * 12;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2,
+            t = lane & 3;
+  cp_rows(Wb, VIEW_LDB, w.wbig, 80, NW + PH);
+  cp_rows(Wqa, VIEW_LDQA, w.wqa0, 16, NW);
+  cp_rows(Wa1, VIEW_LDW, w.wa1, NW, PH);
+  cp_rows(Wo, VIEW_LDW, w.wout, NW, NW);
+  cp_rows(Wf1, VIEW_LDF1, w.wf1, 4 * NW, NW);
+  cp_rows(Wf2, VIEW_LDW, w.wf2, NW, 4 * NW);
+  if (has_qfc) {
+    cp_rows(Wq0, VIEW_LDW, w.wq0, NW, 3 * NW);
+    cp_rows(Wq1, VIEW_LDW, w.wq1, NW, NW);
+  }
+  cp_async_commit();
+  auto put = [&](int off, const float* src, int n) {
+    for (int i = tid; i < n; i += VIEW_THREADS) par[off + i] = src[i];
+  };
+  put(P_LNS, w.ln_s, NW);
+  put(P_LNB, w.ln_b, NW);
+  put(P_BBIG, w.bbig, NW + PH);
+  put(P_P0, w.p0, 4 * PH);
+  put(P_P0B, w.p0b, PH);
+  put(P_BA1, w.ba1, NW);
+  put(P_BOUT, w.bout, NW);
+  put(P_FLNS, w.fln_s, NW);
+  put(P_FLNB, w.fln_b, NW);
+  put(P_BF1, w.bf1, 4 * NW);
+  put(P_BF2, w.bf2, NW);
+  if (has_qfc) {
+    put(P_BQ0, w.bq0, NW);
+    put(P_BQ1, w.bq1, NW);
+  }
+  if (VSRC == VSRC_PROJ) for (int i = tid; i < V * 12; i += VIEW_THREADS) geo[i] = proj[i];
+  if (VSRC != VSRC_SPLIT && !rd16)
+    for (int i = tid; i < (V + 1) * 3; i += VIEW_THREADS) ctr[i] = centers[i];
+  cp_async_wait<0>();
+  __syncthreads();  // the only block barrier: warps are independent from here
+
+  unsigned char* wring = ring + warp * VSTAGES * VSTAGE_BYTES;
+  const int ntiles = (N + VT - 1) / VT, wstride = gridDim.x * VIEW_WARPS,
+            first = blockIdx.x * VIEW_WARPS + warp;
+  const int n_items = first < ntiles ? ((ntiles - 1 - first) / wstride + 1) * V : 0;
+  const int tk = lane >> 1, half = lane & 1;  // a token of the tile, two lanes each
+
+  // item k of the warp's (tile, view) sequence into ring stage k % VSTAGES:
+  // h rows (tokens past N read token N-1's), the read ray-diff code; always
+  // one commit group per item, empty past the end
+  auto issue = [&](int k) {
+    if (k < n_items) {
+      const int n0 = (first + (k / V) * wstride) * VT, v = k % V;
+      unsigned char* st = wring + (k % VSTAGES) * VSTAGE_BYTES;
+      bf16* sh = (bf16*)st;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = lane + 32 * c, r = i >> 3, c8 = i & 7;
+        const int n = min(n0 + r, N - 1);
+        cp_async16(sh + r * VIEW_LDH + c8 * 8, h + ((size_t)v * N + n) * NW + c8 * 8);
+      }
+      unsigned char* srd = st + VT * VIEW_LDH * 2;
+      if (lane < VT) {
+        const size_t vn = (size_t)v * N + min(n0 + lane, N - 1);
+        if (VSRC == VSRC_SPLIT) cp_async16(srd + lane * 16, ray_diff + vn * 4);
+        else if (rd16) cp_async8(srd + lane * 8, rd16 + vn * 4);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float mx[8][4], den[8][4], agg[8][4], qb[4];
+  float px = 0.f, py = 0.f, pz = 0.f;  // token tk's point
+  issue(0);
+  issue(1);
+  int k = 0;  // the warp's item
+  for (int tile = first; tile < ntiles; tile += wstride) {
+    const int n0 = tile * VT;
+    // the tile's validity, LN(q) and the q side of a0
+    unsigned vm0, vm1;  // the valid views of rows g and g + 8
+    {
+      const int n = min(n0 + tk, N - 1);
+      if (VSRC != VSRC_SPLIT && pts) {
+        px = pts[(size_t)n * 3];
+        py = pts[(size_t)n * 3 + 1];
+        pz = pts[(size_t)n * 3 + 2];
+      }
+      unsigned m = 0;
+      for (int vv = half; vv < V; vv += 2)
+        if (view_valid<VSRC>(mask, geo, vv, N, n, px, py, pz, hf, wf)) m |= 1u << vv;
+      m |= __shfl_xor_sync(0xffffffffu, m, 1);
+      if (!m) m = V == 32 ? 0xffffffffu : (1u << V) - 1u;  // none valid: attend to all
+      vm0 = __shfl_sync(0xffffffffu, m, 2 * g);
+      vm1 = __shfl_sync(0xffffffffu, m, 2 * g + 16);
+      float x[8][4];
+      uint32_t a[4][4];
+      load_rows(x, q_in, n0, N);
+      ln_rows(x, par + P_LNS, par + P_LNB, x);
+      frag_to_a(x, a, 4);
+      float qa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t b[4];
+        ldb_kn(b, Wqa, VIEW_LDQA, kk * 16, 0);
+        mma16816(qa, a[kk], b[0], b[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qb[e] = par[P_BBIG + NW + 2 * t + (e & 1)] - qa[e];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          mx[j][e] = -INFINITY;
+          den[j][e] = 0.f;
+          agg[j][e] = 0.f;
+        }
+    }
+    bf16* sh = nullptr;
+    for (int v = 0; v < V; ++v, ++k) {
+      __syncwarp();  // every lane is done with the stage item k + 2 refills
+      issue(k + 2);
+      cp_async_wait<2>();
+      __syncwarp();
+      unsigned char* st = wring + (k % VSTAGES) * VSTAGE_BYTES;
+      sh = (bf16*)st;
+
+      // pos_in = relu(pos_fc_0(ray-diff code of (tk, v))), 4 columns a lane
+      {
+        float rd[4];
+        const unsigned char* srd = st + VT * VIEW_LDH * 2;
+        if (VSRC == VSRC_SPLIT) {
+          const float4 r4 = *(const float4*)(srd + tk * 16);
+          rd[0] = r4.x; rd[1] = r4.y; rd[2] = r4.z; rd[3] = r4.w;
+        } else if (rd16) {
+          const __nv_bfloat162* r2 = (const __nv_bfloat162*)(srd + tk * 8);
+          const float2 lo = __bfloat1622float2(r2[0]), hi = __bfloat1622float2(r2[1]);
+          rd[0] = lo.x; rd[1] = lo.y; rd[2] = hi.x; rd[3] = hi.y;
+        } else {
+          ray_diff_code(ctr, v, px, py, pz, rd);
+        }
+        float p[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = half * 4 + jj;
+          float s = par[P_P0B + j];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) s += rd[kk] * par[P_P0 + kk * PH + j];
+          p[jj] = fmaxf(s, 0.f);
+        }
+        *(uint2*)(sh + tk * VIEW_LDH + NW + half * 4) =
+            make_uint2(pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]));
+      }
+      __syncwarp();
+
+      // [val | a0] = [h_v | pos_in] @ wbig + [bbig | bbig_a0 - qa]
+      float acc[9][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 b2 = *(const float2*)(par + P_BBIG + 8 * j + 2 * t);
+        acc[j][0] = acc[j][2] = b2.x;
+        acc[j][1] = acc[j][3] = b2.y;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[8][e] = qb[e];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4], b[4];
+        ldsm_x4(a, sh + (lane & 15) * VIEW_LDH + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          ldb_kn(b, Wb, VIEW_LDB, kk * 16, np * 16);
+          mma16816(acc[2 * np], a, b[0], b[1]);
+          mma16816(acc[2 * np + 1], a, b[2], b[3]);
+        }
+        ldb_kn(b, Wb, VIEW_LDB, kk * 16, NW);
+        mma16816(acc[8], a, b[0], b[1]);
+      }
+      {  // the pos_in rows of wbig: one k-step of 8
+        uint32_t a8[2], b[4];
+        ldsm_x2(a8, sh + (lane & 15) * VIEW_LDH + NW);
+        const bf16* brow = Wb + (NW + (lane & 7)) * VIEW_LDB;
+#pragma unroll
+        for (int nq = 0; nq < 2; ++nq) {
+          ldsm_x4_t(b, brow + nq * 32 + (lane >> 3) * 8);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma16808(acc[4 * nq + i], a8, b[i]);
+        }
+        ldsm_x2_t(b, brow + NW + ((lane >> 3) & 1) * 8);
+        mma16808(acc[8], a8, b[0]);
+      }
+
+      // lg = bf16(relu(a0)) @ wa1 + ba1, then the online softmax per element
+      uint32_t ta[2], bl[8];
+      ta[0] = pack_bf16(fmaxf(acc[8][0], 0.f), fmaxf(acc[8][1], 0.f));
+      ta[1] = pack_bf16(fmaxf(acc[8][2], 0.f), fmaxf(acc[8][3], 0.f));
+      ldsm_x4_t(bl, Wa1 + (lane & 7) * VIEW_LDW + (lane >> 3) * 8);
+      ldsm_x4_t(bl + 4, Wa1 + (lane & 7) * VIEW_LDW + 32 + (lane >> 3) * 8);
+      const bool ok0 = (vm0 >> v) & 1u, ok1 = (vm1 >> v) & 1u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 b2 = *(const float2*)(par + P_BA1 + 8 * j + 2 * t);
+        float lg[4] = {b2.x, b2.y, b2.x, b2.y};
+        mma16808(lg, ta, bl[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float d = (e < 2 ? ok0 : ok1) ? lg[e] - mx[j][e] : -INFINITY;
+          const float ed = ex2(-fabsf(d) * LOG2E);
+          const bool up = d > 0.f;
+          const float sc = up ? ed : 1.f, p = up ? 1.f : ed;
+          mx[j][e] = up ? lg[e] : mx[j][e];
+          den[j][e] = fmaf(den[j][e], sc, p);
+          agg[j][e] = fmaf(agg[j][e], sc, p * acc[j][e]);
+        }
+      }
+    }
+
+    {
+      // x = out_fc(agg / den) + q
+      uint32_t a[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) agg[j][e] /= den[j][e];
+      frag_to_a(agg, a, 4);
+      float x[8][4];
+      load_rows(x, q_in, n0, N);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        float o[2][4] = {};
+        mma_pair(o, a, Wo, VIEW_LDW, np * 16);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 b2 = *(const float2*)(par + P_BOUT + np * 16 + 8 * i + 2 * t);
+          x[2 * np + i][0] += o[i][0] + b2.x;
+          x[2 * np + i][1] += o[i][1] + b2.y;
+          x[2 * np + i][2] += o[i][2] + b2.x;
+          x[2 * np + i][3] += o[i][3] + b2.y;
+        }
+      }
+      // x += ff(ff_norm(x)), the hidden layer in chunks of 64
+      {
+        float y[8][4];
+        ln_rows(x, par + P_FLNS, par + P_FLNB, y);
+        frag_to_a(y, a, 4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
+#pragma unroll 1
+        for (int hc = 0; hc < 4; ++hc) {
+          float hid[8][4];
+          uint32_t ha[4][4];
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            float o[2][4] = {};
+            mma_pair(o, a, Wf1, VIEW_LDF1, hc * NW + np * 16);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float2 b2 =
+                  *(const float2*)(par + P_BF1 + hc * NW + np * 16 + 8 * i + 2 * t);
+              hid[2 * np + i][0] = fmaxf(o[i][0] + b2.x, 0.f);
+              hid[2 * np + i][1] = fmaxf(o[i][1] + b2.y, 0.f);
+              hid[2 * np + i][2] = fmaxf(o[i][2] + b2.x, 0.f);
+              hid[2 * np + i][3] = fmaxf(o[i][3] + b2.y, 0.f);
+            }
+          }
+          frag_to_a(hid, ha, 4);
+#pragma unroll
+          for (int np = 0; np < 4; ++np)
+            mma_pair(&y[2 * np], ha, Wf2 + hc * NW * VIEW_LDW, VIEW_LDW, np * 16);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 b2 = *(const float2*)(par + P_BF2 + 8 * j + 2 * t);
+          x[j][0] += y[j][0] + b2.x;
+          x[j][1] += y[j][1] + b2.y;
+          x[j][2] += y[j][2] + b2.x;
+          x[j][3] += y[j][3] + b2.y;
+        }
+      }
+      if (has_qfc) {
+        // q = q_fc_1(relu(q_fc_0([q | pts_code | view_code])))  (K = 192): the
+        // code's two 64-column halves staged in turn in the last view's stage,
+        // free until the next tile's first view refills it
+        bf16* cb = sh;  // [16 x VIEW_LDW]
+        float hq[8][4];
+        frag_to_a(x, a, 4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 b2 = *(const float2*)(par + P_BQ0 + 8 * j + 2 * t);
+          hq[j][0] = hq[j][2] = b2.x;
+          hq[j][1] = hq[j][3] = b2.y;
+        }
+#pragma unroll
+        for (int np = 0; np < 4; ++np) mma_pair(&hq[2 * np], a, Wq0, VIEW_LDW, np * 16);
+        const int n = min(n0 + tk, N - 1);
+#pragma unroll 1
+        for (int part = 0; part < 2; ++part) {
+          bf16* row = cb + tk * VIEW_LDW;
+          if (pos16) {  // code columns 64 * part + 32 * half .. + 31
+            const uint32_t* src = (const uint32_t*)(pos16 + (size_t)n * 2 * POSENC +
+                                                    64 * part + 32 * half);
+            uint32_t* dst = (uint32_t*)(row + 32 * half);
+            const int nw = part == 1 && half == 1 ? 15 : 16;  // 126 columns, then 0
+            for (int i = 0; i < 16; ++i) dst[i] = i < nw ? src[i] : 0u;
+          } else if (part == 0) {  // [pts (3) | sin, cos x 10 octaves (60) | view code 0]
+            if (half == 0) {
+              const float p3[3] = {px, py, pz};
+              float s3[3], c3[3];
+#pragma unroll
+              for (int kk = 0; kk < 3; ++kk) {
+                row[kk] = __float2bfloat16(p3[kk]);
+                s3[kk] = sinf(p3[kk]);
+                c3[kk] = cosf(p3[kk]);
+              }
+#pragma unroll
+              for (int f = 0; f < 10; ++f) {
+#pragma unroll
+                for (int kk = 0; kk < 3; ++kk) {
+                  row[3 + 6 * f + kk] = __float2bfloat16(s3[kk]);
+                  row[6 + 6 * f + kk] = __float2bfloat16(c3[kk]);
+                  const float s2 = 2.f * s3[kk] * c3[kk];
+                  const float c2 = c3[kk] * c3[kk] - s3[kk] * s3[kk];
+                  s3[kk] = s2;
+                  c3[kk] = c2;
+                }
+              }
+            } else {
+              row[POSENC] = __float2bfloat16(vcode[(size_t)(n / S) * POSENC]);
+            }
+          } else {  // view code 1..62, then 0
+            const float* vc = vcode + (size_t)(n / S) * POSENC + 1;
+            for (int c = 32 * half; c < 32 * half + 32; ++c)
+              row[c] = __float2bfloat16(c < POSENC - 1 ? vc[c] : 0.f);
+          }
+          __syncwarp();
+          uint32_t ca[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            ldsm_x4(ca[kk], cb + (lane & 15) * VIEW_LDW + kk * 16 + (lane >> 4) * 8);
+          __syncwarp();
+#pragma unroll
+          for (int np = 0; np < 4; ++np)
+            mma_pair(&hq[2 * np], ca, Wq0 + (1 + part) * NW * VIEW_LDW, VIEW_LDW,
+                     np * 16);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hq[j][e] = fmaxf(hq[j][e], 0.f);
+        frag_to_a(hq, a, 4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 b2 = *(const float2*)(par + P_BQ1 + 8 * j + 2 * t);
+          x[j][0] = x[j][2] = b2.x;
+          x[j][1] = x[j][3] = b2.y;
+        }
+#pragma unroll
+        for (int np = 0; np < 4; ++np) mma_pair(&x[2 * np], a, Wq1, VIEW_LDW, np * 16);
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = n0 + g + 8 * hr;
+        if (r < N) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *(float2*)(q_out + (size_t)r * NW + 8 * j + 2 * t) =
+                make_float2(x[j][2 * hr], x[j][2 * hr + 1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the empty groups past the end
+}
+
+// ---------------------------------------------------------------------------
+// k_ray: one ray transformer block, q_in -> q (the same buffer in K1 / K2).
+// A persistent grid: each block stages the block's weights in shared memory
+// once, then takes rays blockIdx.x, blockIdx.x + gridDim.x, ... For each ray:
+//
+//   A. K and V of every sample (LN, the k / v columns of wqkv) into the
+//      block's slab of kv ([Sk x 128] bf16, Sk = S padded to the key tile;
+//      pad rows are LN(0) projected, finite, and masked out of the softmax).
+//   B. the queries in chunks of 16 * RAY_WARPS rows, one warp per 16 rows and
+//      all four heads: LN, Q, then the key tiles of kv streamed through a
+//      cp.async double buffer with an online softmax per (row, head), scores
+//      and probabilities in mma.sync registers (the QK^T accumulator rescaled,
+//      exponentiated and repacked as the A operand of P.V), out_fc, the
+//      residual, LN, the 64 -> 256 -> 64 feed-forward in four hidden chunks,
+//      the residual, one f32 store per element of the rows below S.
+//
+// want_w: query 0's final max and sum are kept, and a second pass over the
+// keys writes the head-mean of its normalized attention row; final: then rgb
+// and the weighted valid-view count (K1 / K2's last block).
+// ---------------------------------------------------------------------------
+#define RAY_WARPS 8
+#define RAY_THREADS (32 * RAY_WARPS)
+#define KT 64            // keys per streamed tile
+#define RAY_LDQKV 200    // smem row strides (bf16): 16 bytes past a multiple
+#define RAY_LDW 72       // of 128, so ldmatrix rows fall in distinct banks
+#define RAY_LDF1 264
+#define RAY_LDKV 136
+#define RAY_NPAR 640     // ln_s, ln_b, bo, fln_s, fln_b, bf2 (64 each), bf1 (256)
+// QK^T scale 1/sqrt(16) with log2(e) folded in, for ex2
+#define SCORE_C (0.25f * LOG2E)
+
+static constexpr size_t RAY_SMEM =
+    ((size_t)NW * RAY_LDQKV + NW * RAY_LDW + NW * RAY_LDF1 + 4 * NW * RAY_LDW +
+     2 * KT * RAY_LDKV) * 2 +
+    (size_t)(RAY_NPAR + NW + 8 + NW + 4) * 4;
 
 // One key tile (KT keys from key0, K columns 0..63 and V columns 64..127 of
 // kt) for the warp's 16 query rows and all four heads: scores in registers,
@@ -1234,13 +1463,6 @@ k_ray(const float* q_in, float* q, bf16* __restrict__ kv, const float* __restric
 // ---------------------------------------------------------------------------
 // host entry
 // ---------------------------------------------------------------------------
-static inline size_t view_smem() {
-  return (size_t)TT * VIEW_LDA * 2 + (size_t)TT * VIEW_LDC * 4 + (size_t)TT * 72 * 2 +
-         (size_t)TT * 20 * 4 + (size_t)TT * VIEW_LDH * 2 +
-         (size_t)NWARPS * 16 * STAGE_LD * 4 + (size_t)TT * 3 * 4 + (size_t)TT * 4 * 2 +
-         (size_t)PH * NW * 4;
-}
-
 // Reads device pointers in the packing order of kernels/gnt_fused.py
 // (pack_view_block, pack_ray_block).
 struct PtrReader {
@@ -1252,7 +1474,7 @@ struct PtrReader {
 
 static void read_view(PtrReader& r, ViewW& a) {
   a.ln_s = r.f(); a.ln_b = r.f(); a.wqa0 = r.b(); a.wbig = r.b(); a.bbig = r.f();
-  a.p0 = r.f(); a.p0b = r.f(); a.wa1 = r.f(); a.ba1 = r.f(); a.wout = r.b();
+  a.p0 = r.f(); a.p0b = r.f(); a.wa1 = r.b(); a.ba1 = r.f(); a.wout = r.b();
   a.bout = r.f(); a.fln_s = r.f(); a.fln_b = r.f(); a.wf1 = r.b(); a.bf1 = r.f();
   a.wf2 = r.b(); a.bf2 = r.f(); a.wq0 = r.b(); a.bq0 = r.f(); a.wq1 = r.b();
   a.bq1 = r.f();
@@ -1262,6 +1484,25 @@ static void read_ray(PtrReader& r, RayW& y) {
   y.ln_s = r.f(); y.ln_b = r.f(); y.wqkv = r.b(); y.wo = r.b(); y.bo = r.f();
   y.fln_s = r.f(); y.fln_b = r.f(); y.wf1 = r.b(); y.bf1 = r.f(); y.wf2 = r.b();
   y.bf2 = r.f();
+}
+
+// The view kernel's grid for N tokens on the current device: enough blocks
+// for every warp a tile, at most its resident blocks on every SM; raises the
+// kernel's shared-memory limit first. Returns the grid (> 0) or a negated
+// cudaError_t.
+template <int VSRC>
+static int view_grid(int N) {
+  cudaError_t err = cudaFuncSetAttribute(
+      k_view<VSRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)VIEW_SMEM);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_view<VSRC>,
+                                                                VIEW_THREADS, VIEW_SMEM);
+  if (!err) err = cudaGetDevice(&dev);
+  if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return -(int)err;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  const int want = ((N + VT - 1) / VT + VIEW_WARPS - 1) / VIEW_WARPS;
+  return want < per_sm * sms ? want : per_sm * sms;
 }
 
 // One ray block launch (k_ray) on `stream`: kv holds kv_blocks slabs of
@@ -1314,8 +1555,8 @@ static int run_forward(const void* rf, const void* mask, const void* pts,
   fw.norm_s = rd.f(); fw.norm_b = rd.f(); fw.rgb_w = rd.f(); fw.rgb_b = rd.f();
 
   cudaError_t err;
-  const size_t sm_view = view_smem();
-  if ((err = cudaFuncSetAttribute(k_view<VSRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_view))) return (int)err;
+  const int vgrid = view_grid<VSRC>(N);
+  if (vgrid < 0) return -vgrid;
 
   const int nblk = (N + TT - 1) / TT;
   if (patch) {
@@ -1342,7 +1583,7 @@ static int run_forward(const void* rf, const void* mask, const void* pts,
   const bf16* rd16 = m3 ? (const bf16*)m3->rd16 : nullptr;
   const bf16* pos16 = m3 ? (const bf16*)m3->pos16 : nullptr;
   for (int b = 0; b < DEPTH; ++b) {
-    k_view<VSRC><<<nblk, NTHREADS, sm_view, stream>>>(
+    k_view<VSRC><<<vgrid, VIEW_THREADS, VIEW_SMEM, stream>>>(
         (const bf16*)h_scratch, q, q, (const float*)pts, (const float*)vcode,
         (const float*)centers, (const float*)proj, (const uint8_t*)mask,
         nullptr, rd16, pos16, V, N, S, hf, wf, vw[b], b % 2 == 0);
@@ -1372,6 +1613,39 @@ int gnt_ray_blocks_per_sm() {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k_ray<VSRC_PROJ>, RAY_THREADS,
                                                       RAY_SMEM);
   return err ? -(int)err : n;
+}
+
+// The view kernel's shared memory per block, and for its instantiation
+// vsrc (VSRC_PROJ, VSRC_MASK, VSRC_SPLIT) out[0..2] = registers per thread,
+// local memory per thread in bytes (spills and stack), resident blocks per
+// SM on the current device. Returns a cudaError_t.
+int gnt_view_smem_bytes() { return (int)VIEW_SMEM; }
+
+int gnt_view_attrs(int vsrc, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err;
+  int grid;
+  if (vsrc == VSRC_PROJ) {
+    err = cudaFuncGetAttributes(&fa, k_view<VSRC_PROJ>);
+    grid = view_grid<VSRC_PROJ>(1 << 30);
+  } else if (vsrc == VSRC_MASK) {
+    err = cudaFuncGetAttributes(&fa, k_view<VSRC_MASK>);
+    grid = view_grid<VSRC_MASK>(1 << 30);
+  } else if (vsrc == VSRC_SPLIT) {
+    err = cudaFuncGetAttributes(&fa, k_view<VSRC_SPLIT>);
+    grid = view_grid<VSRC_SPLIT>(1 << 30);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err) return (int)err;
+  if (grid < 0) return -grid;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev))) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = grid / sms;
+  return 0;
 }
 
 int gnt_ray_slab(int S) { return (S + KT - 1) / KT * KT * 2 * NW; }
@@ -1461,10 +1735,9 @@ int gnt_split_view_forward(const void* q_in, void* q_out, const void* h,
   PtrReader rd{wptrs, 0};
   ViewW a;
   read_view(rd, a);
-  const size_t sm = view_smem();
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(k_view<VSRC_SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm))) return (int)err;
-  k_view<VSRC_SPLIT><<<(N + TT - 1) / TT, NTHREADS, sm, (cudaStream_t)stream_ptr>>>(
+  const int grid = view_grid<VSRC_SPLIT>(N);
+  if (grid < 0) return -grid;
+  k_view<VSRC_SPLIT><<<grid, VIEW_THREADS, VIEW_SMEM, (cudaStream_t)stream_ptr>>>(
       (const bf16*)h, (const float*)q_in, (float*)q_out, nullptr, nullptr, nullptr,
       nullptr, (const uint8_t*)mask, (const float*)ray_diff, nullptr, nullptr, V, N, 1,
       0.f, 0.f, a, 0);

@@ -64,6 +64,11 @@ SIGNATURES = {
     "gnt_ray_smem_bytes": ([], c_int),
     "gnt_ray_blocks_per_sm": ([], c_int),
     "gnt_ray_slab": ([c_int], c_int),
+    # the view kernel: shared memory per block; for a validity source (0
+    # projection, 1 mask, 2 split) registers, local memory bytes and resident
+    # blocks per SM into an int[3]
+    "gnt_view_smem_bytes": ([], c_int),
+    "gnt_view_attrs": ([c_int, c_void_p], c_int),
     "gnt_mono4_max_views": ([], c_int),
     "gnt_mono4_n_ptrs": ([], c_int),
     "gnt_split_view_forward": ([c_void_p] * 5 + [c_int] * 2 + [c_void_p, c_int, c_void_p], c_int),

@@ -19,14 +19,16 @@ padding is asked of the caller.
 
 What bounds it on the H100: about 1e4 FLOP per (view, ray, sample) token and
 block, mostly the 64x64 value projection, plus S x S attention per head and
-ray. The design (``csrc/gnt_fused.cu``) runs every dense layer as bf16 WMMA
-tiles with f32 accumulation, keeps softmax and LayerNorm statistics in f32,
-streams views one at a time through an online softmax (a ray's [V, S, 64]
-token set never has to fit in shared memory), and streams a ray's samples
-in key tiles through ray attention (an online softmax in mma.sync
-registers, K / V in a bf16 scratch slab per resident block). Offline, only
-exact-by-linearity weight compositions are made (wk@wv, wk@wa0, wq@wa0,
-p1@wa0).
+ray. The design (``csrc/gnt_fused.cu``) runs every dense layer as bf16
+tensor-core tiles with f32 accumulation and keeps softmax and LayerNorm
+statistics in f32. The view block streams views one at a time per warp
+through a cp.async ring into an online per-channel softmax held in mma.sync
+registers (a ray's [V, S, 64] token set never has to fit in shared memory);
+the ray block streams a ray's samples in key tiles through ray attention
+(an online softmax in mma.sync registers, K / V in a bf16 scratch slab per
+resident block). Both run a persistent grid with the block's weights staged
+once per block. Offline, only exact-by-linearity weight compositions are
+made (wk@wv, wk@wa0, wq@wa0, p1@wa0).
 
 Not carried from the TPU kernel: 128-lane sample-pair packing, the
 log2(e)/exp2 fold, the LayerNorm selection matmul, the evens-then-odds ray
@@ -83,7 +85,9 @@ def tensor_device(device) -> torch.device:
 def pack_view_block(vt, qf, device) -> List[Optional[torch.Tensor]]:
     """One view transformer ``vt`` and the q_fc MLP ``qf`` that follows it
     (None: the four q_fc pointers are null) in the kernel's 21-pointer
-    order (``read_view`` in the .cu)."""
+    order (``read_view`` in the .cu). Matrices in bf16, attn_fc[2] too (its
+    input is rounded to bf16, as in the JAX kernels); biases, LayerNorm and
+    pos_fc_0 in float32."""
     a = vt.attn
     dev0 = a.k_fc.weight.device
     wk, wa0 = _k(a.k_fc), _k(a.attn_fc[0])
@@ -99,7 +103,7 @@ def pack_view_block(vt, qf, device) -> List[Optional[torch.Tensor]]:
     f32, b16 = (lambda x: _f32(x, device)), (lambda x: _b16(x, device))
     out = [
         f32(vt.attn_norm.weight), f32(vt.attn_norm.bias), b16(wqa0),
-        b16(wbig), f32(bbig), f32(_k(p0)), f32(p0.bias), f32(_k(a1)),
+        b16(wbig), f32(bbig), f32(_k(p0)), f32(p0.bias), b16(_k(a1)),
         f32(a1.bias), b16(_k(a.out_fc)), f32(a.out_fc.bias),
         f32(vt.ff_norm.weight), f32(vt.ff_norm.bias), b16(_k(vt.ff.fc1)),
         f32(vt.ff.fc1.bias), b16(_k(vt.ff.fc2)), f32(vt.ff.fc2.bias),

@@ -10,7 +10,8 @@ Without a card every test skips. Tolerances: rgb atol/rtol 0.02, count 0.01
 weights 0.05 / S, a share of their mean 1/S, which rejects weights written
 uniform or in a wrong sample order wherever the samples of a ray differ.
 One K3 half-block's q: atol 0.02 + 2 % of |q|. The tiny renders are held to
-the slice's bounds.
+the slice's bounds. Shapes include N not a multiple of the view kernel's
+16-token tile and V from 1 to 32.
 """
 
 import collections
@@ -280,6 +281,41 @@ def test_k3_half_blocks_match_plain(card, v, r, s, behind, dyn_frac, all_dyn):
     ref_q, ref_w = k3.split_ray_plain(q, rt)
     torch.testing.assert_close(got_q, ref_q, atol=0.02, rtol=0.02)
     _assert_weights(got_w, ref_w, s, spread=True)  # random q spreads them
+
+
+@pytest.mark.parametrize("v,r,s", [(1, 5, 23), (32, 5, 23), (10, 7, 13)])
+def test_k3a_view_counts_and_ragged_n_match_plain(card, v, r, s):
+    """K3a at one view, at the 32 the validity bitmask holds, and with N
+    (115, 91) not a multiple of the view kernel's 16-token tile."""
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    _fnet, gnt = init_gnt_models(seed=0, device=card)
+    _ops, q, h, rd, mask = _split_operands(card, v, r, s, False, 0.3, 2)
+    vt = k3.pack_split_weights(gnt, card).view[4]
+    before = k3.gnt_split_view.launches
+    got = k3.gnt_split_view(q, h, rd, mask, vt)
+    torch.cuda.synchronize()
+    assert k3.gnt_split_view.launches == before + 1
+    torch.testing.assert_close(got, k3.split_view_plain(q, h, rd, mask, vt),
+                               atol=0.02, rtol=0.02)
+
+
+def test_k1_and_k2_unfolded_ragged_tile_match_plain(card):
+    """K1 and K2's unfolded mode on 5 rays x 23 samples: N = 115 tokens, not a
+    multiple of the view kernel's 16-token tile."""
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    _fnet, gnt = init_gnt_models(seed=0, device=card)
+    ops = [o.to(card) if torch.is_tensor(o) else o for o in _operands(5, 5, 23)]
+    got = k1.gnt_fused_mono4(gnt, *ops)
+    torch.cuda.synchronize()
+    _assert_matches_plain(got, k1.gnt_fused_mono4_plain(gnt, *ops), 23, False)
+    args, kw = _mode_operands(card, 5, 5, 23, False, 0.3, "unfolded")
+    before = k2.gnt_fused_apply_mono3.launches["unfolded"]
+    got = k2.gnt_fused_apply_mono3(gnt, *args, **kw)
+    torch.cuda.synchronize()
+    assert k2.gnt_fused_apply_mono3.launches["unfolded"] == before + 1
+    _assert_matches_plain(got, k2.gnt_fused_apply_mono3_plain(gnt, *args, **kw), 23, False)
 
 
 @pytest.mark.parametrize("v,r,s,behind,dyn_frac,all_dyn", SPLIT_CASES)
