@@ -26,7 +26,12 @@ exits non-zero without printing a result:
      and the view kernel's (``[k_view]``): its ms per launch at the main
      tile (K3a) beside its bound, the bounds of its launches inside K1 / K2,
      K3a at 1 and 32 views, its shared memory, registers, local memory and
-     blocks per SM;
+     blocks per SM; and the prologue's (``[k_prologue]``): ``k_prologue``
+     alone (``gnt_prologue``) per loader at the main tile (sampled features
+     at row stride 35 and 36, patch rows on 4x2 and 2x2 blocks, quad rows),
+     h and q held against ``prologue_plain``, ms per launch beside its bound
+     (``prologue_cost``), registers, local memory, shared memory per block
+     and blocks per SM;
   3d. K1 patch_rows vs plain: K1 fed raw patch rows and stencil
      coefficients (the combine in its prologue) against its plain version
      at both ray-block geometries (2x2 rays / 16 stencil positions, 4x2 /
@@ -85,6 +90,9 @@ KERNEL_TOL = {"rgb": 0.02, "weights": 0.05, "inbound_cnt_raw": 0.01}
 # one half-block's q (K3a, K3b) against its plain version: atol, plus the
 # same share of |q| as rgb (bf16 operands, f32 accumulation, one block deep)
 Q_TOL = 0.02
+# the prologue's h and q against prologue_plain: one bf16 ulp of relative
+# error (2^-7) plus an atol for a hidden value rounded the other way
+PRO_TOL = {"atol": 0.01, "rtol": 2.0 ** -7}
 # the slice's end-to-end bounds (tests/test_gnt_model.py)
 SLICE_TOL = {"rgb": 0.04, "depth": 0.1, "inbound_cnt": 0.02, "dyn_cnt": 0.02}
 SEED = 0
@@ -770,6 +778,129 @@ def phase_view_kernel(gnt, view_times, r=2048, s=256, v=10, blk=2):
                     f"{a['blocks_per_sm']} block(s) per SM" for k, a in attrs.items()))
 
 
+def prologue_cost(v, r, s, c, source, ld=None, n_pos=0, nb=1):
+    """(FLOP, bytes) of one prologue launch (``k_prologue``) over R rays x S
+    samples x V views at C channels from ``source`` (``gnt_prologue.
+    PROLOGUE_SOURCES``): rgbfeat_fc_0/1 (2 V N (C 64 + 64 64) FLOP) plus the
+    patch combine (2 n_pos C per (view, token)) or the quad combine (8 C),
+    counted at the bf16 peak as ``patch_cost`` counts it; the features read
+    once (bf16 rows of ``ld`` channels; patch rows [V, R/nb, S, n_pos C] and
+    coefficients [V, R, S, n_pos] bf16; quad rows [V, N, 4C] bf16 and frac
+    [V, N, 2] f32), the head weights read once, h [V, N, 64] bf16 and q [N,
+    64] f32 written once."""
+    n, nw = r * s, 64
+    flops = 2 * v * n * (c * nw + nw * nw)
+    if source == "rgb_feat":
+        nbytes = v * n * (ld or c) * 2
+    elif source == "patch":
+        nbytes = v * (r // nb) * s * n_pos * c * 2 + v * n * n_pos * 2
+        flops += 2 * n_pos * c * v * n
+    else:
+        nbytes = v * n * (4 * c * 2 + 2 * 4)
+        flops += 2 * 4 * c * v * n
+    nbytes += (c * nw + nw * nw) * 2 + 2 * nw * 4 + v * n * nw * 2 + n * nw * 4
+    return flops, nbytes
+
+
+# the prologue's loaders timed at the main tile: (label, source, row stride,
+# n_pos, rays per row block)
+PROLOGUE_LOADERS = (("rgb_feat ld35", "rgb_feat", 35, 0, 1),
+                    ("rgb_feat ld36", "rgb_feat", 36, 0, 1),
+                    ("patch 4x2", "patch", 35, 24, 8),
+                    ("patch 2x2", "patch", 35, 16, 4),
+                    ("quad_rows", "quad_rows", 35, 0, 1))
+
+
+def _prologue_operands(source, v, r, s, ld, n_pos, nb, seed=5, device="cuda"):
+    """Random operands of ``gnt_prologue`` for one loader: bf16 features
+    [V, R, S, ld]; patch rows [V, R/nb, S, n_pos*35] and coefficients
+    [V, R/4, 4, S, n_pos], non-negative and summing to 1 per tap; or raw
+    quad rows [V, R, S, 140] and offsets in [-0.6, 1.6]."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if source == "rgb_feat":
+        return {"rgb_feat": torch.randn((v, r, s, ld), generator=gen,
+                                        device=device).to(torch.bfloat16)}
+    if source == "patch":
+        rows = torch.randn((v, r // nb, s, n_pos * 35), generator=gen, device=device) * 0.5
+        coef = torch.rand((v, r // 4, 4, s, n_pos), generator=gen, device=device)
+        return {"rows": rows.to(torch.bfloat16),
+                "coef": (coef / coef.sum(-1, keepdim=True)).to(torch.bfloat16)}
+    rows = torch.randn((v, r, s, 4 * 35), generator=gen, device=device) * 0.5
+    frac = torch.rand((v, r, s, 2), generator=gen, device=device) * 2.2 - 0.6
+    return {"rows": rows.to(torch.bfloat16), "frac": frac}
+
+
+def check_prologue(name, got, ref, worst):
+    """Hold the prologue's (h, q) to the plain version's within PRO_TOL,
+    raising ``worst``'s entries to the max errors."""
+    import torch
+
+    for key, a, b in (("h", got[0], ref[0]), ("q", got[1], ref[1])):
+        a, b = a.float(), b.float()
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}/{key}: shape {tuple(a.shape)} vs {tuple(b.shape)} "
+                                 "or non-finite")
+        err = (a - b).abs()
+        worst[key] = max(worst.get(key, 0.0), float(err.max()))
+        if not bool((err <= PRO_TOL["atol"] + PRO_TOL["rtol"] * b.abs()).all()):
+            raise AssertionError(f"{name}/{key}: max err {float(err.max())} over {PRO_TOL}")
+
+
+def phase_prologue_kernel(gnt, v=10, r=2048, s=256):
+    """The prologue's own line: ``k_prologue`` alone (``gnt_prologue``) for
+    each of PROLOGUE_LOADERS, first on small cases (V = 1 and 32, S = 23, N
+    not a multiple of 8) and then at the main tile, h and q held against
+    ``prologue_plain``; at the main tile its ms per launch (20 launches,
+    CUDA events) beside the plain version's and the bound, and per loader
+    the registers, local memory, shared memory per block and resident
+    blocks per SM. Returns {source: (worst errors, times)} of the loaders
+    the kernels line reports (row stride 35, patch 4x2, quad rows)."""
+    import ctypes
+
+    from pgdvs_tpu_torch.kernels._build import load_library
+    from pgdvs_tpu_torch.kernels.gnt_fused import pack_mono4_weights
+    from pgdvs_tpu_torch.kernels.gnt_prologue import (
+        PROLOGUE_SOURCES, gnt_prologue, prologue_features, prologue_plain,
+    )
+
+    lib = load_library().lib
+    packed = pack_mono4_weights(gnt, "cuda")
+    out, parts = {}, []
+    for label, source, ld, n_pos, nb in PROLOGUE_LOADERS:
+        worst = {}
+        for cv, cr, cs in ((1, 12, 23), (32, 4, 23), (v, r, s)):
+            if cr % nb:
+                continue
+            ops = _prologue_operands(source, cv, cr, cs, ld, n_pos, nb)
+            got = gnt_prologue(packed, **ops)
+            ref = prologue_plain(gnt, prologue_features(35, **ops))
+            check_prologue(f"k_prologue {label} V={cv} R={cr} S={cs}", got, ref, worst)
+            del got, ref
+        times = {"ms": _time_ms(lambda: gnt_prologue(packed, **ops), 20),
+                 "plain_ms": _time_ms(lambda: prologue_plain(gnt, prologue_features(35, **ops)),
+                                      3)}
+        times["bound_ms"], times["bound_by"] = bound_ms(*prologue_cost(
+            v, r, s, 35, source, ld, n_pos, nb))
+        attrs = (ctypes.c_int * 4)()
+        err = lib.gnt_prologue_attrs(PROLOGUE_SOURCES[source], 35, ld, n_pos, nb,
+                                     ctypes.cast(attrs, ctypes.c_void_p))
+        if err:
+            raise RuntimeError(f"gnt_prologue_attrs({label}): cudaError {err}")
+        parts.append(
+            f"{label}: {times['ms']:.4f} ms (plain {times['plain_ms']:.3f}), bound "
+            f"{times['bound_ms']:.4f} ms ({times['bound_by']}; "
+            f"{times['bound_ms'] / times['ms']:.1%} of it), h err {worst['h']:.3e}, q err "
+            f"{worst['q']:.3e}, {attrs[0]} registers, {attrs[1]} B local memory, "
+            f"{attrs[2]} B shared memory per block, {attrs[3]} block(s) per SM")
+        if label in ("rgb_feat ld35", "patch 4x2", "quad_rows"):
+            out[source] = (worst, times)
+        del ops
+    log(f"[k_prologue] main tile R={r} S={s} V={v}, C=35, per launch: " + "; ".join(parts))
+    return out
+
+
 def slice_config(bundle=None, n_samples=256, preset="fast"):
     """The unmasked config (bundle None) or a named bundle, with
     ``n_samples`` coarse samples, on the fast preset (the JAX package's:
@@ -893,41 +1024,51 @@ def dyn_points_kept(data, cfg):
     return kept, cand
 
 
+PROLOGUE_ROWS = ("rgb_feat", "patch", "quad_rows")
 KERNELS = ("gnt_fused_mono4", "gnt_fused_mono4_patch", "gnt_fused_mono3",
            "gnt_split_view", "gnt_split_ray",
-           *(f"gnt_fused_apply_mono3[{mode}]" for mode in MONO3_MODES))
+           *(f"gnt_fused_apply_mono3[{mode}]" for mode in MONO3_MODES),
+           *(f"gnt_prologue[{src}]" for src in PROLOGUE_ROWS))
 
 
 def _launch_counters():
     """{kernel name: wrapper} of the wrappers with a plain launch count, and
-    ``gnt_fused_apply_mono3``, whose count is per operand mode."""
+    {row name prefix: wrapper} of those whose count is a Counter
+    (``gnt_fused_apply_mono3`` per operand mode, ``gnt_prologue`` per
+    source)."""
     from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4
     from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_apply_mono3, gnt_fused_mono3
     from pgdvs_tpu_torch.kernels.gnt_fused_patch import gnt_fused_mono4_patch
     from pgdvs_tpu_torch.kernels.gnt_fused_split import gnt_split_ray, gnt_split_view
+    from pgdvs_tpu_torch.kernels.gnt_prologue import gnt_prologue
 
-    return {"gnt_fused_mono4": gnt_fused_mono4, "gnt_fused_mono4_patch": gnt_fused_mono4_patch,
-            "gnt_fused_mono3": gnt_fused_mono3, "gnt_split_view": gnt_split_view,
-            "gnt_split_ray": gnt_split_ray}, gnt_fused_apply_mono3
+    return ({"gnt_fused_mono4": gnt_fused_mono4, "gnt_fused_mono4_patch": gnt_fused_mono4_patch,
+             "gnt_fused_mono3": gnt_fused_mono3, "gnt_split_view": gnt_split_view,
+             "gnt_split_ray": gnt_split_ray},
+            {"gnt_fused_apply_mono3": (gnt_fused_apply_mono3, MONO3_MODES),
+             "gnt_prologue": (gnt_prologue, PROLOGUE_ROWS)})
 
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
     import collections
 
-    plain, per_mode = _launch_counters()
+    plain, keyed = _launch_counters()
     for fn in plain.values():
         fn.launches = 0
-    per_mode.launches = collections.Counter()
+    for fn, _keys in keyed.values():
+        fn.launches = collections.Counter()
 
 
 def read_launches():
-    """{kernel name: launches since reset_launches}, a K2 mode by its row
-    name (every mode that launched, and MONO3_MODES)."""
-    plain, per_mode = _launch_counters()
+    """{kernel name: launches since reset_launches}; a K2 mode or a
+    prologue source by its row name (every key that launched, and
+    MONO3_MODES / PROLOGUE_ROWS)."""
+    plain, keyed = _launch_counters()
     counts = {name: fn.launches for name, fn in plain.items()}
-    for mode in (*MONO3_MODES, *per_mode.launches):
-        counts[f"gnt_fused_apply_mono3[{mode}]"] = per_mode.launches[mode]
+    for prefix, (fn, keys) in keyed.items():
+        for key in (*keys, *fn.launches):
+            counts[f"{prefix}[{key}]"] = fn.launches[key]
     return counts
 
 
@@ -1090,6 +1231,7 @@ def main() -> int:
     kp_launches, _, patch = phase_main_path(models)
     phase_ray_kernel(k3_times["ray"])
     phase_view_kernel(models[1], k3_times["view"])
+    pro = phase_prologue_kernel(models[1])
     k1_launches, _, quad1 = phase_main_path(models, preset="quad", tag="[quad]", n_timed=1)
     for what in ("combined_rgb", "static_coarse_rgb"):
         exact_vs_quad(patch[what], quad1[what], tag="[main]", what=what, label="patch")
@@ -1108,6 +1250,8 @@ def main() -> int:
     rows = []
     # K3a / K3b and K2's modes other than unfolded run on no render path:
     # their launches on the paths are 0, read from the [exact] run
+    # the prologue alone is a direct call: its launches on the paths are 0,
+    # read from the [exact] run (the whole forwards launch its kernel)
     for kname, replaces, worst, times, launches in (
             ("gnt_fused_mono4", "pgdvs_tpu/kernels/gnt_fused_mono4.py:736",
              k1_worst, k1_times, k1_launches),
@@ -1122,7 +1266,11 @@ def main() -> int:
              k3_worst["ray"], k3_times["ray"], ke_launches),
             *((f"gnt_fused_apply_mono3[{mode}]",
                f"pgdvs_tpu/kernels/gnt_fused_mono3.py:444 ({mode})",
-               km_worst[mode], km_times[mode], ke_launches) for mode in MONO3_MODES)):
+               km_worst[mode], km_times[mode], ke_launches) for mode in MONO3_MODES),
+            *((f"gnt_prologue[{src}]",
+               "pgdvs_tpu/kernels/gnt_fused_mono4.py:736 and gnt_fused_mono3.py:444 "
+               f"(rgbfeat_fc + max over views; {src})",
+               pro[src][0], pro[src][1], ke_launches) for src in PROLOGUE_ROWS)):
         rows.append({
             "name": kname,
             "route": "cuda",
@@ -1134,8 +1282,9 @@ def main() -> int:
             "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"],
             "bound_by": times["bound_by"],
-            # no single PyTorch call computes the GNT forward, or a
-            # half-block with its weights row
+            # no single PyTorch call computes the GNT forward, a half-block
+            # with its weights row, or the prologue (two dense layers, a
+            # ReLU, a bf16 rounding and a max over views)
             "library_ms": None,
         })
     log(json.dumps({"kernels": rows}))

@@ -1,6 +1,6 @@
 // Fused GNT transformer forward (depth 8, width 64) for Hopper (sm_90a).
 //
-// Five entry points share the kernels below. The three whole forwards differ
+// Six entry points share the kernels below. The three whole forwards differ
 // only in their prologue, in where the per-(view, token) validity comes from
 // (the VSRC template parameter of k_view / k_ray) and in whether the ray-diff
 // and point codes are read or made (Mono3In):
@@ -11,7 +11,8 @@
 //                      Wrapper: pgdvs_tpu_torch/kernels/gnt_fused.py.
 //   gnt_mono4_patch_forward  the same function on its patch_rows contract
 //                      (raw patch rows + stencil coefficients, the combine in
-//                      k_prologue_patch). Wrapper: kernels/gnt_fused_patch.py.
+//                      k_prologue's patch loader). Wrapper:
+//                      kernels/gnt_fused_patch.py.
 //   gnt_mono3_forward  replaces pgdvs_tpu/kernels/gnt_fused_mono3.py:
 //                      gnt_fused_apply_mono3 in each of its operand modes:
 //                      validity read from a uint8 mask [V, R, S] (in bounds,
@@ -20,7 +21,8 @@
 //                      the bf16 ray-diff code and point + view code read
 //                      (the unfolded mode) or made (fold_ray_diff,
 //                      fold_pos_code); sampled features, or raw quad rows +
-//                      frac combined in k_prologue_lerp (fold_lerp). Wrapper:
+//                      frac combined in k_prologue's quad-rows loader
+//                      (fold_lerp). Wrapper:
 //                      kernels/gnt_fused_mono3.py.
 //
 // The two split entry points run one half-block each, with the ray-diff
@@ -34,6 +36,10 @@
 //                           weights row; no epilogue, no count.
 //                           Wrapper of both: kernels/gnt_fused_split.py.
 //
+// gnt_prologue_forward runs the whole forwards' first kernel alone (h and q
+// from any of its feature sources), for tests and timing. Wrapper:
+// kernels/gnt_prologue.py.
+//
 // Each wrapper module also holds the plain torch version its kernel is
 // checked against.
 //
@@ -42,10 +48,15 @@
 // every ray. Three kernels, launched from a host loop over the 8 blocks:
 //
 //   k_prologue   rgbfeat_fc_0/1 per view token -> h [V, N, 64] bf16 and the
-//                max-pool over views -> q [N, 64] f32 (N = R * S tokens);
-//                k_prologue_patch first combines each token's patch row with
-//                its stencil coefficients, k_prologue_lerp its four quad taps
-//                with the bilinear weights of its frac (f32, rounded to bf16).
+//                max-pool over views -> q [N, 64] f32 (N = R * S tokens), a
+//                persistent grid (w0 / w1 staged once per block), fc_0 and
+//                fc_1 in mma.sync registers per warp and 16-token tile; one
+//                loader per feature source: sampled features read (row
+//                stride C or C+1), patch rows combined with their stencil
+//                coefficients (each staged row value serving the 4 or 8 rays
+//                that share it), or quad taps combined with the bilinear
+//                weights of their frac (f32, rounded to bf16). The prologue
+//                alone: gnt_prologue_forward (kernels/gnt_prologue.py).
 //   k_view       one view transformer (+ q_fc on even blocks), a persistent
 //                grid (one 256-thread block per SM, the block's weights
 //                staged once with cp.async); each warp takes tiles of 16
@@ -71,13 +82,15 @@
 //                with query 0's final max and sum), and the last block of
 //                K1 / K2 rgb and the weighted valid-view count.
 //
-// Bounds on the card: k_prologue runs bf16 WMMA tiles (16x16x16, f32
-// accumulate); k_view and k_ray run mma.sync m16n8k16 / m16n8k8 (bf16, f32
-// accumulate) fed by ldmatrix, with the softmax statistics and layer norms
-// in f32 registers. q stays f32 in global memory between kernels (it is small
+// Bounds on the card: all three run mma.sync m16n8k16 (k_view also
+// m16n8k8; bf16, f32 accumulate) fed by ldmatrix, with the softmax
+// statistics and layer norms in f32 registers. q stays f32 in global memory between kernels (it is small
 // next to h); h is written once and read once per block. k_view reads q
 // twice per token (the second time from L2) and writes it once; k_ray reads
 // q twice per token (the K / V pass and the query pass) and writes it once.
+// k_prologue is bound by bytes: per launch at the main tile it reads the
+// features once (0.37 GB sampled, 1.35 GB of patch rows + coefficients) and
+// writes h (0.67 GB) and q (0.13 GB), against 7.5e10 FLOP of products.
 // k_view is bound by bytes: per launch at the main tile (V=10, N=2048*256)
 // it reads h [V, N, 64] bf16 (0.67 GB) and q, and writes q, against ~0.07
 // TFLOP of products. At the main tile k_ray's 537 M exponentials at the
@@ -89,11 +102,9 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 #define NW 64
@@ -101,50 +112,7 @@ typedef __nv_bfloat16 bf16;
 #define POSENC 63
 #define HEADS 4
 #define HD 16
-#define TT 64          // tokens per block, prologue kernels
-#define NTHREADS 256
-#define NWARPS 8
 #define MAX_VIEWS 32
-
-// ---------------------------------------------------------------------------
-// WMMA helpers. A: bf16 row-major (lda); B: bf16 row-major [K x N] (ldb) or,
-// with B_COL, element (k, n) at B[n * ldb + k]. M, N, K multiples of 16.
-// Output tiles are spread over the block's 8 warps.
-// ---------------------------------------------------------------------------
-template <bool B_COL>
-__device__ __forceinline__ void tile_mma(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float>& acc,
-    const bf16* A, int lda, const bf16* B, int ldb, int mt, int nt, int K) {
-  wmma::fill_fragment(acc, 0.0f);
-  for (int k = 0; k < K; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + mt * 16 * lda + k, lda);
-    if (B_COL) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, B + (size_t)nt * 16 * ldb + k, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    } else {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, B + (size_t)k * ldb + nt * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-  }
-}
-
-// C[M x N] f32 (ldc) = A @ B
-template <bool B_COL = false>
-__device__ void gemm_store(const bf16* A, int lda, const bf16* B, int ldb,
-                           float* C, int ldc, int M, int N, int K) {
-  const int warp = threadIdx.x >> 5;
-  const int ntn = N / 16;
-  for (int t = warp; t < (M / 16) * ntn; t += NWARPS) {
-    const int mt = t / ntn, nt = t % ntn;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    tile_mma<B_COL>(acc, A, lda, B, ldb, mt, nt, K);
-    wmma::store_matrix_sync(C + mt * 16 * ldc + nt * 16, acc, ldc,
-                            wmma::mem_row_major);
-  }
-}
 
 // In front of the camera and inside [0, W-1] x [0, H-1] (project_points +
 // pixel_inbound). P: the 3x4 K @ w2c rows of one view.
@@ -196,164 +164,7 @@ struct FinalW {
 #define DEPTH 8
 #define N_PTRS (N_HEAD_PTRS + DEPTH * (N_VIEW_PTRS + N_RAY_PTRS) + N_FINAL_PTRS)
 
-// ---------------------------------------------------------------------------
-// k_prologue: h = rgbfeat_fc_1(relu(rgbfeat_fc_0(rgb_feat))), q = max_v h
-// ---------------------------------------------------------------------------
-// The body both prologues share, for the block's TT tokens from n0: per
-// view v, load(v, A, lda) fills the A tile [TT x Cp] (bf16, zero past C and
-// past N) and syncs; then h = fc_1(relu(fc_0(A))) -> hout, q = max_v h.
-template <class Load>
-__device__ __forceinline__ void prologue_body(int V, int N, int Cp, const HeadW& w,
-                                              bf16* __restrict__ hout,
-                                              float* __restrict__ qout,
-                                              unsigned char* smem, Load load) {
-  const int lda = Cp + 8;
-  bf16* A = (bf16*)smem;                       // [TT x lda]
-  bf16* A2 = A + TT * lda;                     // [TT x 72]
-  float* Cs = (float*)(A2 + TT * 72);          // [TT x 68]
-  const int n0 = blockIdx.x * TT;
-  const int tid = threadIdx.x, t = tid >> 2, g = tid & 3;
-  float qm[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) qm[i] = -INFINITY;
-
-  for (int v = 0; v < V; ++v) {
-    load(v, A, lda);
-    gemm_store(A, lda, w.w0, NW, Cs, 68, TT, NW, Cp);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int c = g * 16 + i;
-      A2[t * 72 + c] = __float2bfloat16(fmaxf(Cs[t * 68 + c] + w.b0[c], 0.f));
-    }
-    __syncthreads();
-    gemm_store(A2, 72, w.w1, NW, Cs, 68, TT, NW, NW);
-    __syncthreads();
-    if (n0 + t < N) {
-      bf16* dst = hout + ((size_t)v * N + n0 + t) * NW + g * 16;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const bf16 hb = __float2bfloat16(Cs[t * 68 + g * 16 + i] + w.b1[g * 16 + i]);
-        dst[i] = hb;
-        qm[i] = fmaxf(qm[i], __bfloat162float(hb));
-      }
-    }
-    __syncthreads();
-  }
-  if (n0 + t < N) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) qout[(size_t)(n0 + t) * NW + g * 16 + i] = qm[i];
-  }
-}
-
-__host__ __device__ inline size_t prologue_smem(int cp) {
-  return (size_t)TT * (cp + 8) * 2 + (size_t)TT * 72 * 2 + (size_t)TT * 68 * 4;
-}
-
-// rf rows are ld >= C channels apart (ld = C + 1 for K2's pre-packed mode,
-// whose trailing validity channel is not read here).
-__global__ void __launch_bounds__(NTHREADS)
-k_prologue(const bf16* __restrict__ rf, int V, int N, int C, int ld, int Cp, HeadW w,
-           bf16* __restrict__ hout, float* __restrict__ qout) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int n0 = blockIdx.x * TT;
-  prologue_body(V, N, Cp, w, hout, qout, smem, [&](int v, bf16* A, int lda) {
-    const bf16* src = rf + ((size_t)v * N + n0) * ld;
-    for (int i = threadIdx.x; i < TT * Cp; i += NTHREADS) {
-      const int r = i / Cp, c = i - r * Cp;
-      A[r * lda + c] = (c < C && n0 + r < N) ? src[(size_t)r * ld + c]
-                                             : __float2bfloat16(0.f);
-    }
-    __syncthreads();
-  });
-}
-
-// A tile of view v from stencil rows: token n = ray*S + s takes the row
-// rows[v, ray / nb, s, :] (n_pos positions x C channels) and its
-// coefficients cf[(n - n0) * n_pos + p] (staged in shared memory):
-// rgb_feat[c] = sum_p row[p*C + c] * cf[p], in f32 and p order, rounded once
-// to bf16.
-__device__ __forceinline__ void combine_rows(const bf16* __restrict__ rows,
-                                             const float* cf, int v, int n0, int R,
-                                             int S, int C, int Cp, int n_pos, int nb,
-                                             bf16* A, int lda) {
-  const int N = R * S, nrb = R / nb, row_len = n_pos * C;
-  for (int i = threadIdx.x; i < TT * Cp; i += NTHREADS) {
-    const int r = i / Cp, c = i - r * Cp, n = n0 + r;
-    float acc = 0.f;
-    if (c < C && n < N) {
-      const int ray = n / S, s = n - ray * S;
-      const bf16* row = rows + (((size_t)v * nrb + ray / nb) * S + s) * row_len + c;
-      const float* k = cf + r * n_pos;
-      for (int p = 0; p < n_pos; ++p) acc += __bfloat162float(row[p * C]) * k[p];
-    }
-    A[r * lda + c] = __float2bfloat16(acc);
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// k_prologue_patch: K1's prologue on its patch_rows operands. Token n = r*S +
-// s of view v takes the row rows[v, r / nb, s, :] (n_pos stencil positions x
-// C channels) and the coefficients coef[v, r, s, :] ([V, R/4, 4, S, n_pos] is
-// [V, R, S, n_pos] in memory): rgb_feat[c] = sum_p row[p*C + c] * coef[p],
-// combined in f32 and rounded to bf16 into the A tile. The block's TT tokens'
-// coefficients are staged in shared memory ([TT x n_pos] f32 after the
-// k_prologue layout) once per view.
-// ---------------------------------------------------------------------------
-#define MAX_NPOS 32
-
-__global__ void __launch_bounds__(NTHREADS)
-k_prologue_patch(const bf16* __restrict__ rows, const bf16* __restrict__ coef, int V,
-                 int R, int S, int C, int Cp, int n_pos, int nb, HeadW w,
-                 bf16* __restrict__ hout, float* __restrict__ qout) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* cf = (float*)(smem + prologue_smem(Cp));      // [TT x n_pos]
-  const int N = R * S, n0 = blockIdx.x * TT;
-  prologue_body(V, N, Cp, w, hout, qout, smem, [&](int v, bf16* A, int lda) {
-    for (int i = threadIdx.x; i < TT * n_pos; i += NTHREADS) {
-      const int n = n0 + i / n_pos;
-      cf[i] = n < N ? __bfloat162float(coef[((size_t)v * N + n) * n_pos + i % n_pos])
-                    : 0.f;
-    }
-    __syncthreads();
-    combine_rows(rows, cf, v, n0, R, S, C, Cp, n_pos, nb, A, lda);
-  });
-}
-
-// ---------------------------------------------------------------------------
-// k_prologue_lerp: K2's fold_lerp prologue. Token n of view v takes its raw
-// quad row rows[v, n, :] (the fused map's pixels (y, x), (y, x+1), (y+1, x),
-// (y+1, x+1), C channels each) and frac[v, n, :] = (x - sx, y - sy) f32. The
-// zero-pad bilinear weights max(0, 1-|f|), max(0, 1-|f-1|) per axis are made
-// in f32 and staged ([TT x 4] after the k_prologue layout); the four taps
-// combine as k_prologue_patch's stencil (one ray per row, 4 positions).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NTHREADS)
-k_prologue_lerp(const bf16* __restrict__ rows, const float* __restrict__ frac, int V,
-                int R, int S, int C, int Cp, HeadW w, bf16* __restrict__ hout,
-                float* __restrict__ qout) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* cf = (float*)(smem + prologue_smem(Cp));      // [TT x 4]
-  const int N = R * S, n0 = blockIdx.x * TT;
-  prologue_body(V, N, Cp, w, hout, qout, smem, [&](int v, bf16* A, int lda) {
-    if (threadIdx.x < TT) {
-      const size_t n = (size_t)v * N + min(n0 + (int)threadIdx.x, N - 1);
-      const float fx = frac[2 * n], fy = frac[2 * n + 1];
-      const float wx0 = fmaxf(0.f, 1.f - fabsf(fx)), wx1 = fmaxf(0.f, 1.f - fabsf(fx - 1.f));
-      const float wy0 = fmaxf(0.f, 1.f - fabsf(fy)), wy1 = fmaxf(0.f, 1.f - fabsf(fy - 1.f));
-      float* k = cf + threadIdx.x * 4;
-      k[0] = wx0 * wy0;
-      k[1] = wx1 * wy0;
-      k[2] = wx0 * wy1;
-      k[3] = wx1 * wy1;
-    }
-    __syncthreads();
-    combine_rows(rows, cf, v, n0, R, S, C, Cp, 4, 1, A, lda);
-  });
-}
-
-// The patch_rows operands of K1 (k_prologue_patch runs instead of k_prologue).
+// The patch_rows operands of K1 (k_prologue's patch loader).
 struct PatchIn {
   const void* rows;
   const void* coef;
@@ -361,7 +172,7 @@ struct PatchIn {
 };
 
 // K2's operand sources beyond K1's (gnt_mono3_forward): the channel stride of
-// rf; raw quad rows + frac (k_prologue_lerp runs instead of k_prologue); the
+// rf; raw quad rows + frac (k_prologue's quad-rows loader); the
 // ray-diff code (bf16 [V, N, 4]) and the point + view code (bf16 [N, 126])
 // read from memory instead of made from pts. Null pointers: not used.
 struct Mono3In {
@@ -601,6 +412,456 @@ __device__ __forceinline__ void store_pair(bf16* dst, int ld, int row0, int col0
     *(uint32_t*)(dst + (size_t)(row0 + g) * ld + c) = pack_bf16(acc[i][0], acc[i][1]);
     *(uint32_t*)(dst + (size_t)(row0 + g + 8) * ld + c) = pack_bf16(acc[i][2], acc[i][3]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// k_prologue: per view token h = bf16(rgbfeat_fc_1(bf16(relu(rgbfeat_fc_0(x)))))
+// -> h [V, N, 64] bf16, and q = max_v h -> [N, 64] f32, x the token's features
+// in bf16 from one of three sources (the SRC template parameter):
+//
+//   PSRC_RF     rf [V, N, ld] bf16, channels 0..C-1 of each row (ld = C, or
+//               C + 1 for K2's pre-packed rows, whose validity channel is
+//               not read);
+//   PSRC_PATCH  K1's patch rows rows [V, R/NB, S, n_pos*C] and coefficients
+//               coef [V, R, S, n_pos] (both bf16): token (r, s) takes
+//               x[c] = sum_p rows[v, r / NB, s, p*C + c] * coef[v, r, s, p],
+//               accumulated in f32 in p order and rounded once to bf16;
+//   PSRC_LERP   K2 fold_lerp's raw quad rows [V, N, 4C] bf16 (pixels (y, x),
+//               (y, x+1), (y+1, x), (y+1, x+1)) and frac [V, N, 2] f32: the
+//               four taps combined the same way with the zero-pad bilinear
+//               weights max(0, 1-|f|), max(0, 1-|f-1|) per axis.
+//
+// A persistent grid of 8-warp blocks: each block stages w0 [Cp x 64], w1
+// [64 x 64] (bf16) and the biases in shared memory once. Then per view and
+// 16-token tile a warp runs fc_0 and fc_1 as mma.sync m16n8k16 tiles in
+// registers: the accumulators start at the biases, relu(fc_0) is rounded and
+// repacked as fc_1's A fragments, fc_1's output is rounded to bf16 into q's
+// running max (accumulator layout) and leaves through the warp's [16 x 72]
+// shared tile as 16-byte stores; q is written once per tile.
+//
+// PSRC_RF / PSRC_LERP: every warp walks its own 16-token tiles with its own
+// cp.async ring over its (tile, view) items, no block barrier. A tile's rows
+// of one view are one contiguous span (16 * ld bf16, or 16 * 4C bf16 and
+// 16 * 2 f32), copied as the enclosing 16-byte-aligned span, clamped to the
+// tensor's end (a 16-byte chunk holding a byte of the tensor lies in its
+// page); the A fragments are filled from it with 2-byte shared loads.
+//
+// PSRC_PATCH: an item is (row block rb, 8 / NB sample tiles of 16): the NB
+// rays of rb that share its rows. Per view the block stages the item's rows
+// (one contiguous span) and the NB rays' coefficient spans through a 2-stage
+// cp.async ring; then each staged row value is loaded once into f32 and FMAd
+// into NB accumulators, one per ray, and the combined bf16 A tiles go to the
+// warps' shared tiles (warp w: ray w % NB, sample tile w / NB). Two block
+// barriers per view: the stage has landed, and the A tiles are written.
+// ---------------------------------------------------------------------------
+#define PSRC_RF 0
+#define PSRC_PATCH 1
+#define PSRC_LERP 2
+#define PRO_WARPS 8
+#define PRO_THREADS (32 * PRO_WARPS)
+#define PT 16               // tokens per warp tile (one mma m-tile)
+#define PRO_LDW 72          // bf16 row stride of w0, w1 and the warp tiles: an
+                            // odd number of 16-byte units, so the 8 rows of an
+                            // ldmatrix fall in distinct banks
+#define PRO_TILE_BYTES (PT * PRO_LDW * 2)
+#define MAX_CP 64
+#define MAX_NPOS 32
+#define PRO_FRAC_BYTES (PT * 2 * 4 + 32)
+
+// w0 (Cp rows), w1, b0, b1
+__host__ __device__ inline int pro_wbytes(int cp) { return (cp + NW) * PRO_LDW * 2 + 2 * NW * 4; }
+__host__ __device__ inline int pro_round16(int x) { return (x + 15) & ~15; }
+// a ring stage of the warp loaders: the span of 16 tokens of `row_bytes`
+// each, with room for the 16-byte alignment on both ends (+ frac for LERP)
+__host__ __device__ inline int pro_span_bytes(int row_bytes) { return pro_round16(PT * row_bytes + 32); }
+
+template <int SRC>
+__host__ __device__ constexpr int pro_stages() { return SRC == PSRC_RF ? 3 : 2; }
+
+// Copy bytes [b0, b1) of the tensor at base (b1 already clamped to its end)
+// as the enclosing 16-byte-aligned chunks into dst, lane by lane of a warp
+// (step 32) or thread by thread of a block (step PRO_THREADS); returns the
+// offset of byte b0 in dst.
+__device__ __forceinline__ int copy_span(unsigned char* dst, const void* base, size_t b0,
+                                         size_t b1, int first, int step) {
+  const uintptr_t a = (uintptr_t)base + b0;
+  const uintptr_t lo = a & ~(uintptr_t)15, hi = ((uintptr_t)base + b1 + 15) & ~(uintptr_t)15;
+  const int n = (int)((hi - lo) >> 4);
+  for (int i = first; i < n; i += step)
+    cp_async16(dst + 16 * i, (const void*)(lo + 16 * (uintptr_t)i));
+  return (int)(a - lo);
+}
+
+// h and q's running max of the warp's 16 tokens for one view, from x's A
+// fragments, which fill(kk, a) makes for k-step kk (ks k-steps of 16
+// channels) as fc_0 needs them: rows 0 .. nrows-1 of the tile go to hrows
+// (row r at hrows + r * 64) through the warp's tile ht.
+template <class Fill>
+__device__ __forceinline__ void prologue_tokens(Fill fill, int ks, const bf16* W0,
+                                                const bf16* W1, const float* b0,
+                                                const float* b1, float (*qm)[4], bf16* ht,
+                                                bf16* __restrict__ hrows, int nrows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 bb = *(const float2*)(b0 + 8 * j + 2 * t);
+    acc[j][0] = acc[j][2] = bb.x;
+    acc[j][1] = acc[j][3] = bb.y;
+  }
+#pragma unroll
+  for (int kk = 0; kk < MAX_CP / 16; ++kk) {
+    if (kk >= ks) break;
+    uint32_t xa[4];
+    fill(kk, xa);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldb_kn(b, W0, PRO_LDW, kk * 16, np * 16);
+      mma16816(acc[2 * np], xa, b[0], b[1]);
+      mma16816(acc[2 * np + 1], xa, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = fmaxf(acc[j][e], 0.f);
+  uint32_t a[4][4];
+  frag_to_a(acc, a, 4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 bb = *(const float2*)(b1 + 8 * j + 2 * t);
+    acc[j][0] = acc[j][2] = bb.x;
+    acc[j][1] = acc[j][3] = bb.y;
+  }
+#pragma unroll
+  for (int np = 0; np < 4; ++np) mma_pair(&acc[2 * np], a, W1, PRO_LDW, np * 16);
+  __syncwarp();  // every lane has read ht (a patch A tile) before it takes h
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(acc[j][2 * hr], acc[j][2 * hr + 1]);
+      const float2 f = __bfloat1622float2(hv);
+      qm[j][2 * hr] = fmaxf(qm[j][2 * hr], f.x);
+      qm[j][2 * hr + 1] = fmaxf(qm[j][2 * hr + 1], f.y);
+      *(__nv_bfloat162*)(ht + (g + 8 * hr) * PRO_LDW + 8 * j + 2 * t) = hv;
+    }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int i = lane + 32 * c, r = i >> 3, c8 = i & 7;
+    if (r < nrows)
+      *(uint4*)(hrows + (size_t)r * NW + c8 * 8) = *(const uint4*)(ht + r * PRO_LDW + c8 * 8);
+  }
+  __syncwarp();
+}
+
+// rows 0 .. nrows-1 of q's running max (the accumulator layout) to qrows
+__device__ __forceinline__ void store_qmax(float (*qm)[4], float* __restrict__ qrows,
+                                           int nrows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = g + 8 * hr;
+    if (r < nrows) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *(float2*)(qrows + (size_t)r * NW + 8 * j + 2 * t) =
+            make_float2(qm[j][2 * hr], qm[j][2 * hr + 1]);
+    }
+  }
+}
+
+// A element (row, col) of a warp tile: x of token row, channel col (0 past
+// C and past the tile's nrows rows), as bf16 bits. RF: raw rows ld apart.
+// LERP: 4 taps of C channels per row, weights wt (of the element's row).
+template <int SRC>
+__device__ __forceinline__ uint32_t pro_elem(const bf16* raw, int ld, int C, int nrows,
+                                             int row, int col, const float* wt) {
+  if (col >= C || row >= nrows) return 0u;
+  if constexpr (SRC == PSRC_RF) {
+    return __bfloat16_as_ushort(raw[row * ld + col]);
+  } else {
+    const bf16* p = raw + row * 4 * C + col;
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc = fmaf(__bfloat162float(p[k * C]), wt[k], acc);
+    return __bfloat16_as_ushort(__float2bfloat16(acc));
+  }
+}
+
+template <int SRC, int NB>
+__global__ void __launch_bounds__(PRO_THREADS, 2)
+k_prologue(const void* __restrict__ src_a, const void* __restrict__ src_b, int ld, int V,
+           int R, int S, int C, int Cp, int n_pos, HeadW w, bf16* __restrict__ hout,
+           float* __restrict__ qout, int stage_bytes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* W0 = (bf16*)smem;                          // [Cp x 72]
+  bf16* W1 = W0 + Cp * PRO_LDW;                    // [64 x 72]
+  float* b0 = (float*)(W1 + NW * PRO_LDW);
+  float* b1 = b0 + NW;
+  unsigned char* ring = smem + pro_wbytes(Cp);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2,
+            t = lane & 3;
+  const int N = R * S, ks = Cp / 16;
+  cp_rows(W0, PRO_LDW, w.w0, NW, Cp);
+  cp_rows(W1, PRO_LDW, w.w1, NW, NW);
+  cp_async_commit();
+  for (int i = tid; i < NW; i += PRO_THREADS) {
+    b0[i] = w.b0[i];
+    b1[i] = w.b1[i];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float qm[8][4];
+  if constexpr (SRC == PSRC_PATCH) {
+    constexpr int TPI = PRO_WARPS / NB;            // sample tiles per item
+    const bf16* rows = (const bf16*)src_a;
+    const bf16* coef = (const bf16*)src_b;
+    const int nrb = R / NB, row_len = n_pos * C, nst = (S + PT - 1) / PT,
+              groups = (nst + TPI - 1) / TPI, n_items = nrb * groups;
+    const int rows_cap = PT * TPI * row_len * 2, coef_cap = PT * TPI * n_pos * 2;
+    bf16* tiles = (bf16*)(ring + 2 * stage_bytes);  // [8 x 16 x 72], warp w's tile w
+    bf16* ht = tiles + warp * PT * PRO_LDW;
+    const int ri = warp % NB, jt = warp / NB;       // the warp's ray and sample tile
+    const int n_steps = blockIdx.x < n_items ? ((n_items - 1 - blockIdx.x) / gridDim.x + 1) * V : 0;
+
+    // step k (item k / V of the block's, view k % V) into stage k % 2: the
+    // rows span, then NB coefficient spans, each 16-byte aligned; always one
+    // commit group
+    auto issue = [&](int k) {
+      if (k < n_steps) {
+        const int item = blockIdx.x + (k / V) * gridDim.x, v = k % V;
+        const int rb = item / groups, sb = (item % groups) * PT * TPI;
+        const int ns = min(PT * TPI, S - sb);
+        unsigned char* st = ring + (k & 1) * stage_bytes;
+        const int rchunks = ns * row_len / 8, cchunks = ns * n_pos / 8;
+        const bf16* rsrc = rows + (((size_t)v * nrb + rb) * S + sb) * row_len;
+        for (int i = tid; i < rchunks + NB * cchunks; i += PRO_THREADS) {
+          if (i < rchunks) {
+            cp_async16(st + 16 * i, rsrc + (size_t)8 * i);
+          } else {
+            const int ray = (i - rchunks) / cchunks, j = i - rchunks - ray * cchunks;
+            const bf16* csrc = coef + (((size_t)v * R + rb * NB + ray) * S + sb) * n_pos;
+            cp_async16(st + rows_cap + ray * coef_cap + 16 * j, csrc + (size_t)8 * j);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+
+    issue(0);
+    int k = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int rb = item / groups, sb = (item % groups) * PT * TPI;
+      const int ns = min(PT * TPI, S - sb), s0 = sb + jt * PT;
+      const int nrows = max(0, min(PT, S - s0));   // the warp's tokens in this item
+      const size_t n0 = (size_t)(rb * NB + ri) * S + s0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) qm[j][0] = qm[j][1] = qm[j][2] = qm[j][3] = -INFINITY;
+      for (int v = 0; v < V; ++v, ++k) {
+        issue(k + 1);  // stage (k+1) % 2 was last read by step k - 1's combine
+        cp_async_wait<1>();
+        __syncthreads();  // step k landed; every warp is done with its tile
+        const unsigned char* st = ring + (k & 1) * stage_bytes;
+        const bf16* srows = (const bf16*)st;
+        const bf16* scoef = (const bf16*)(st + rows_cap);
+        for (int u = tid; u < PT * TPI * Cp; u += PRO_THREADS) {
+          const int js = u / Cp, c = u - js * Cp;
+          float acc[NB];
+#pragma unroll
+          for (int i = 0; i < NB; ++i) acc[i] = 0.f;
+          if (c < C && js < ns) {
+            const bf16* row = srows + js * row_len + c;
+            const bf16* cf = scoef + js * n_pos;
+            for (int p0 = 0; p0 < n_pos; p0 += 8) {
+              float x[8];
+#pragma unroll
+              for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(row[(p0 + e) * C]);
+#pragma unroll
+              for (int i = 0; i < NB; ++i) {
+                const uint4 u4 = *(const uint4*)(cf + i * (coef_cap / 2) + p0);
+                const __nv_bfloat162* k2 = (const __nv_bfloat162*)&u4;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float2 kf = __bfloat1622float2(k2[e]);
+                  acc[i] = fmaf(x[2 * e], kf.x, acc[i]);
+                  acc[i] = fmaf(x[2 * e + 1], kf.y, acc[i]);
+                }
+              }
+            }
+          }
+          bf16* dst = tiles + ((js / PT) * NB) * PT * PRO_LDW + (js % PT) * PRO_LDW + c;
+#pragma unroll
+          for (int i = 0; i < NB; ++i) dst[i * PT * PRO_LDW] = __float2bfloat16(acc[i]);
+        }
+        __syncthreads();  // the A tiles are written
+        if (nrows > 0) {
+          auto fill = [&](int kk, uint32_t* a) {
+            ldsm_x4(a, ht + (lane & 15) * PRO_LDW + kk * 16 + (lane >> 4) * 8);
+          };
+          prologue_tokens(fill, ks, W0, W1, b0, b1, qm, ht, hout + ((size_t)v * N + n0) * NW,
+                          nrows);
+        }
+      }
+      if (nrows > 0) store_qmax(qm, qout + n0 * NW, nrows);
+    }
+  } else {
+    constexpr int STAGES = pro_stages<SRC>();
+    const int rbytes = SRC == PSRC_RF ? ld * 2 : 8 * C;  // bytes per token row
+    const int span = pro_span_bytes(rbytes);
+    const size_t total = (size_t)V * N * rbytes;
+    unsigned char* wring = ring + warp * (STAGES * stage_bytes + PRO_TILE_BYTES);
+    bf16* ht = (bf16*)(wring + STAGES * stage_bytes);
+    const int ntiles = (N + PT - 1) / PT, wstride = gridDim.x * PRO_WARPS,
+              first = blockIdx.x * PRO_WARPS + warp;
+    const int n_items = first < ntiles ? ((ntiles - 1 - first) / wstride + 1) * V : 0;
+
+    // item k of the warp's (tile, view) sequence into stage k % STAGES;
+    // always one commit group
+    auto issue = [&](int k) {
+      if (k < n_items) {
+        const int n0 = (first + (k / V) * wstride) * PT, v = k % V;
+        unsigned char* st = wring + (k % STAGES) * stage_bytes;
+        const size_t b = ((size_t)v * N + n0) * rbytes;
+        copy_span(st, src_a, b, min(b + (size_t)PT * rbytes, total), lane, 32);
+        if (SRC == PSRC_LERP) {
+          const size_t f = ((size_t)v * N + n0) * 8;
+          copy_span(st + span, src_b, f, min(f + PT * 8, (size_t)V * N * 8), lane, 32);
+        }
+      }
+      cp_async_commit();
+    };
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) issue(s);
+    int k = 0;
+    for (int tile = first; tile < ntiles; tile += wstride) {
+      const int n0 = tile * PT, nrows = min(PT, N - n0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) qm[j][0] = qm[j][1] = qm[j][2] = qm[j][3] = -INFINITY;
+      for (int v = 0; v < V; ++v, ++k) {
+        __syncwarp();  // every lane is done with the stage item k + STAGES - 1 refills
+        issue(k + STAGES - 1);
+        cp_async_wait<STAGES - 1>();
+        __syncwarp();
+        const unsigned char* st = wring + (k % STAGES) * stage_bytes;
+        const size_t b = ((size_t)v * N + n0) * rbytes;
+        const bf16* raw = (const bf16*)(st + (((uintptr_t)src_a + b) & 15));
+        float wt[2][4] = {};
+        if (SRC == PSRC_LERP) {
+          const size_t f = ((size_t)v * N + n0) * 8;
+          const float* fr = (const float*)(st + span + (((uintptr_t)src_b + f) & 15));
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = min(g + 8 * hr, nrows - 1);
+            const float fx = fr[2 * r], fy = fr[2 * r + 1];
+            const float wx0 = fmaxf(0.f, 1.f - fabsf(fx)), wx1 = fmaxf(0.f, 1.f - fabsf(fx - 1.f));
+            const float wy0 = fmaxf(0.f, 1.f - fabsf(fy)), wy1 = fmaxf(0.f, 1.f - fabsf(fy - 1.f));
+            wt[hr][0] = wx0 * wy0;
+            wt[hr][1] = wx1 * wy0;
+            wt[hr][2] = wx0 * wy1;
+            wt[hr][3] = wx1 * wy1;
+          }
+        }
+        auto fill = [&](int kk, uint32_t* a) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {  // regs (g, 2t..) (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..)
+            const int row = g + 8 * (q & 1), col = kk * 16 + 2 * t + 8 * (q >> 1);
+            const float* wq = wt[q & 1];
+            a[q] = pro_elem<SRC>(raw, ld, C, nrows, row, col, wq) |
+                   pro_elem<SRC>(raw, ld, C, nrows, row, col + 1, wq) << 16;
+          }
+        };
+        prologue_tokens(fill, ks, W0, W1, b0, b1, qm, ht, hout + ((size_t)v * N + n0) * NW,
+                        nrows);
+      }
+      store_qmax(qm, qout + (size_t)n0 * NW, nrows);
+    }
+  }
+  cp_async_wait<0>();  // the empty groups past the end
+}
+
+// One prologue launch's operands (gnt_prologue_forward): src_a / src_b are
+// rf / -, rows / coef, or quad rows / frac for PSRC_RF / PSRC_PATCH /
+// PSRC_LERP.
+struct ProArgs {
+  int src;
+  const void* a;
+  const void* b;
+  int ld, V, R, S, C, Cp, n_pos, nb;
+  HeadW w;
+  void* h;
+  void* q;
+};
+
+// Launch k_prologue<SRC, NB> on `stream`, or with attrs (int[4]) only report
+// its registers per thread, local memory bytes per thread, shared memory per
+// block and resident blocks per SM. Returns a cudaError_t.
+template <int SRC, int NB>
+static int prologue_run(const ProArgs& p, cudaStream_t stream, int* attrs) {
+  void (*kern)(const void*, const void*, int, int, int, int, int, int, int, HeadW, bf16*,
+               float*, int) = k_prologue<SRC, NB>;
+  int stage, smem;
+  if (SRC == PSRC_PATCH) {
+    stage = (PRO_WARPS / NB) * PT * (p.n_pos * p.C + NB * p.n_pos) * 2;
+    smem = pro_wbytes(p.Cp) + 2 * stage + PRO_WARPS * PRO_TILE_BYTES;
+  } else {
+    stage = SRC == PSRC_RF ? pro_span_bytes(p.ld * 2) : pro_span_bytes(8 * p.C) + PRO_FRAC_BYTES;
+    smem = pro_wbytes(p.Cp) + PRO_WARPS * (pro_stages<SRC>() * stage + PRO_TILE_BYTES);
+  }
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, PRO_THREADS, smem);
+  if (!err) err = cudaGetDevice(&dev);
+  if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (attrs) {
+    cudaFuncAttributes fa;
+    if ((err = cudaFuncGetAttributes(&fa, kern))) return (int)err;
+    attrs[0] = fa.numRegs;
+    attrs[1] = (int)fa.localSizeBytes;
+    attrs[2] = smem;
+    attrs[3] = per_sm;
+    return 0;
+  }
+  const int N = p.R * p.S;
+  int want;
+  if (SRC == PSRC_PATCH) {
+    const int tpi = PRO_WARPS / NB, groups = ((p.S + PT - 1) / PT + tpi - 1) / tpi;
+    want = p.R / NB * groups;
+  } else {
+    want = ((N + PT - 1) / PT + PRO_WARPS - 1) / PRO_WARPS;
+  }
+  const int grid = want < per_sm * sms ? want : per_sm * sms;
+  k_prologue<SRC, NB><<<grid, PRO_THREADS, smem, stream>>>(
+      p.a, p.b, p.ld, p.V, p.R, p.S, p.C, p.Cp, p.n_pos, p.w, (bf16*)p.h, (float*)p.q, stage);
+  return (int)cudaGetLastError();
+}
+
+// Check a prologue's operands and run the loader for its source. Returns a
+// cudaError_t (cudaErrorInvalidValue for what the kernel does not take).
+static int prologue_dispatch(const ProArgs& p, cudaStream_t stream, int* attrs = nullptr) {
+  if (p.V < 1 || p.V > MAX_VIEWS || p.R < 1 || p.S < 1 || p.C < 1 || p.Cp % 16 ||
+      p.Cp > MAX_CP || p.C > p.Cp || (!attrs && (!p.a || !p.h || !p.q)))
+    return (int)cudaErrorInvalidValue;
+  if (p.src == PSRC_RF) {
+    if (p.ld < p.C || p.ld > p.Cp + 1) return (int)cudaErrorInvalidValue;
+    return prologue_run<PSRC_RF, 1>(p, stream, attrs);
+  }
+  if (p.src == PSRC_LERP) {
+    if (!attrs && !p.b) return (int)cudaErrorInvalidValue;
+    return prologue_run<PSRC_LERP, 1>(p, stream, attrs);
+  }
+  if (p.src != PSRC_PATCH || p.nb < 1 || p.n_pos < 8 || p.n_pos > MAX_NPOS || p.n_pos % 8 ||
+      p.R % p.nb || (!attrs && (!p.b || ((uintptr_t)p.a & 15) || ((uintptr_t)p.b & 15))))
+    return (int)cudaErrorInvalidValue;
+  if (p.nb == 8) return prologue_run<PSRC_PATCH, 8>(p, stream, attrs);
+  if (p.nb == 4) return prologue_run<PSRC_PATCH, 4>(p, stream, attrs);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -1523,9 +1784,9 @@ static int launch_ray(const float* q_in, float* q, void* kv, int kv_blocks, cons
   return (int)cudaGetLastError();
 }
 
-// The whole forward on `stream`: the prologue (k_prologue on rf, or
-// k_prologue_patch on *patch when patch is not null, or k_prologue_lerp on
-// m3's quad rows when it has them), then 8 x (view block, ray block), which
+// The whole forward on `stream`: the prologue (k_prologue's loader of rf,
+// of *patch when patch is not null, or of m3's quad rows when it has them),
+// then 8 x (view block, ray block), which
 // read m3's ray-diff and point codes where it has them. wptrs: N_PTRS device
 // pointers in the order of pack_mono4_weights
 // (pgdvs_tpu_torch/kernels/gnt_fused.py). Returns a cudaError_t.
@@ -1558,27 +1819,20 @@ static int run_forward(const void* rf, const void* mask, const void* pts,
   const int vgrid = view_grid<VSRC>(N);
   if (vgrid < 0) return -vgrid;
 
-  const int nblk = (N + TT - 1) / TT;
+  ProArgs pro{PSRC_RF, rf, nullptr, m3 ? m3->ld : C, V, R, S, C, Cp, 0, 1, hw,
+              h_scratch, q_scratch};
   if (patch) {
-    const size_t sm_pro = prologue_smem(Cp) + (size_t)TT * patch->n_pos * 4;
-    if ((err = cudaFuncSetAttribute(k_prologue_patch, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
-    k_prologue_patch<<<nblk, NTHREADS, sm_pro, stream>>>(
-        (const bf16*)patch->rows, (const bf16*)patch->coef, V, R, S, C, Cp, patch->n_pos,
-        patch->nb, hw, (bf16*)h_scratch, (float*)q_scratch);
+    pro.src = PSRC_PATCH;
+    pro.a = patch->rows;
+    pro.b = patch->coef;
+    pro.n_pos = patch->n_pos;
+    pro.nb = patch->nb;
   } else if (m3 && m3->lerp_rows) {
-    const size_t sm_pro = prologue_smem(Cp) + (size_t)TT * 4 * 4;
-    if ((err = cudaFuncSetAttribute(k_prologue_lerp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
-    k_prologue_lerp<<<nblk, NTHREADS, sm_pro, stream>>>(
-        (const bf16*)m3->lerp_rows, (const float*)m3->frac, V, R, S, C, Cp, hw,
-        (bf16*)h_scratch, (float*)q_scratch);
-  } else {
-    const size_t sm_pro = prologue_smem(Cp);
-    if ((err = cudaFuncSetAttribute(k_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_pro))) return (int)err;
-    k_prologue<<<nblk, NTHREADS, sm_pro, stream>>>(
-        (const bf16*)rf, V, N, C, m3 ? m3->ld : C, Cp, hw, (bf16*)h_scratch,
-        (float*)q_scratch);
+    pro.src = PSRC_LERP;
+    pro.a = m3->lerp_rows;
+    pro.b = m3->frac;
   }
-  if ((err = cudaGetLastError())) return (int)err;
+  if ((err = (cudaError_t)prologue_dispatch(pro, stream))) return (int)err;
   float* q = (float*)q_scratch;
   const bf16* rd16 = m3 ? (const bf16*)m3->rd16 : nullptr;
   const bf16* pos16 = m3 ? (const bf16*)m3->pos16 : nullptr;
@@ -1648,6 +1902,32 @@ int gnt_view_attrs(int vsrc, int* out) {
   return 0;
 }
 
+// The prologue alone (k_prologue), for tests and timing: h [V, N, 64] bf16
+// and q [N, 64] f32 of N = R * S tokens from source src (PSRC_RF: a = rf
+// [V, N, ld]; PSRC_PATCH: a = rows [V, R/nb, S, n_pos*C], b = coef [V, R, S,
+// n_pos]; PSRC_LERP: a = quad rows [V, N, 4C], b = frac [V, N, 2] f32) and
+// the head weights w0 [Cp, 64] bf16, b0 [64] f32, w1 [64, 64] bf16, b1 [64]
+// f32. Returns a cudaError_t.
+int gnt_prologue_forward(int src, const void* a, const void* b, int ld, int V, int R, int S,
+                         int C, int Cp, int n_pos, int nb, const void* w0, const void* b0,
+                         const void* w1, const void* b1, void* h, void* q, void* stream_ptr) {
+  const HeadW hw{(const bf16*)w0, (const float*)b0, (const bf16*)w1, (const float*)b1};
+  if (!w0 || !b0 || !w1 || !b1) return (int)cudaErrorInvalidValue;
+  const ProArgs p{src, a, b, ld, V, R, S, C, Cp, n_pos, nb, hw, h, q};
+  return prologue_dispatch(p, (cudaStream_t)stream_ptr);
+}
+
+// The prologue's loader for source src at C channels (row stride ld for
+// PSRC_RF, n_pos positions and nb rays per row block for PSRC_PATCH) on the
+// current device: out[0..3] = registers per thread, local memory per thread
+// in bytes (spills and stack), shared memory per block in bytes, resident
+// blocks per SM. Returns a cudaError_t.
+int gnt_prologue_attrs(int src, int C, int ld, int n_pos, int nb, int* out) {
+  const ProArgs p{src, nullptr, nullptr, ld, 1, nb, 1, C, (C + 15) / 16 * 16, n_pos, nb,
+                  HeadW{}, nullptr, nullptr};
+  return prologue_dispatch(p, nullptr, out);
+}
+
 int gnt_ray_slab(int S) { return (S + KT - 1) / KT * KT * 2 * NW; }
 
 int gnt_mono4_max_views() { return MAX_VIEWS; }
@@ -1667,7 +1947,7 @@ int gnt_mono4_forward(const void* rf, const void* pts, const void* vcode,
                             kv_scratch, kv_blocks, rgb_out, w_out, cnt_out, stream_ptr);
 }
 
-// K1, patch_rows mode: the features combined in k_prologue_patch from rows
+// K1, patch_rows mode: the features combined in k_prologue's patch loader from rows
 // (bf16 [V, R/nb, S, n_pos*C]) and coef (bf16 [V, R/4, 4, S, n_pos]); the rest
 // as gnt_mono4_forward.
 int gnt_mono4_patch_forward(const void* rows, const void* coef, const void* pts,

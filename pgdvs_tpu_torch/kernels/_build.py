@@ -59,6 +59,15 @@ SIGNATURES = {
         + [c_float, c_float, c_void_p, c_int] + KERNEL_TAIL,
         c_int,
     ),
+    # the prologue alone: source (0 rgb_feat, 1 patch rows, 2 quad rows),
+    # its two operands, rf's row stride; V, R, S, C, padded C, n_pos, rays
+    # per row block; w0, b0, w1, b1; h and q out; the stream
+    "gnt_prologue_forward": ([c_int, c_void_p, c_void_p] + [c_int] * 8 + [c_void_p] * 7,
+                             c_int),
+    # the prologue's loader for a source at C, ld, n_pos, rays per row block:
+    # registers, local memory bytes, shared memory bytes per block and
+    # resident blocks per SM into an int[4]
+    "gnt_prologue_attrs": ([c_int] * 5 + [c_void_p], c_int),
     # the ray kernel: shared memory per block, resident blocks per SM,
     # bf16 elements of one block's K / V slab for S samples
     "gnt_ray_smem_bytes": ([], c_int),

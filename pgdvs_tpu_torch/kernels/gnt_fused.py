@@ -236,7 +236,7 @@ def launch(entry, params, data, dims, pts, view_code, centers, validity, hw, ext
         if t.device != dev:
             raise ValueError("all operands must be on the same device")
     lib, packed = prepare_forward(params, dev, v)
-    data = [t.contiguous() for t in data]
+    data = [aligned16(t) for t in data]
     pts32 = pts.float().contiguous()
     vc = view_code.float().contiguous()
     ctr = centers.float().contiguous()
@@ -248,6 +248,13 @@ def launch(entry, params, data, dims, pts, view_code, centers, validity, hw, ext
          validity.data_ptr(), v, r, s, c, packed.cp, *extra, float(hw[0]), float(hw[1])),
         tail, dev)
     return outs
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, copied if its data does not start on a 16-byte
+    boundary (the patch loader streams its operands in 16-byte chunks)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def prepare_forward(params, dev, v):

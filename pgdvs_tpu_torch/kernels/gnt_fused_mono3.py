@@ -52,9 +52,9 @@ reads 8 B of ray-diff code per (view, token) and 252 B of q_fc code per
 token; fold_lerp reads 4x the feature bytes. The design is K1's kernels
 (``csrc/gnt_fused.cu``): the mask bytes load into the per-token view
 bitmask K1 fills from its projection test, the read codes replace the made
-ones where ``k_view`` builds its A tiles, and ``k_prologue_lerp`` combines
-the four taps in f32 (the zero-pad bilinear weights from frac) before K1's
-``rgbfeat_fc``. The weights are K1's packed weights.
+ones where ``k_view`` builds its A tiles, and ``k_prologue``'s quad-rows
+loader combines the four taps in f32 (the zero-pad bilinear weights from
+frac) before K1's ``rgbfeat_fc``. The weights are K1's packed weights.
 
 Not carried from the TPU kernel: the cross-block width-folded k/v/pos
 projections (a TPU lane-utilisation trick), ray_block, interpret and the

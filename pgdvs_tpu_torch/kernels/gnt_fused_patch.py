@@ -24,14 +24,17 @@ What bounds it on the H100: K1's dense products (compute-bound, 1.63 ms per
 2048-ray tile at the bf16 peak) plus the combine, 2 * n_pos * C FLOP per
 (view, token) on CUDA cores, and its operands: the rows (1.10 GB at the
 main tile, 4x2) and coefficients (0.25 GB), against K1's 0.37 GB of sampled
-features. The design (``csrc/gnt_fused.cu``, ``k_prologue_patch``) changes
-only K1's prologue: per 64 tokens and view it stages the tokens'
-coefficients in shared memory, combines each token's row in float32
-registers, rounds the result to bf16 into the shared-memory A tile and runs
-rgbfeat_fc_0/1 and the max-pool over views as ``k_prologue`` does; the view
-and ray kernels and their host loop are K1's. A row serves the B rays of
-its block from different blocks of the grid, so it is read B times, mostly
-from L2. The JAX package composes the combine into rgbfeat_fc_0 with a
+features. The design (``csrc/gnt_fused.cu``, ``k_prologue``'s patch
+loader) changes only K1's prologue: a block's item is one row block and
+8 / B sample tiles of 16, so it holds the B rays that share the item's rows.
+Per view it stages the rows (one contiguous span) and the B rays'
+coefficient spans through a 2-stage cp.async ring; each staged row value is
+loaded once into float32 and accumulated into the B rays' combined features
+(p order), which are rounded to bf16 into the warps' A tiles, and each warp
+runs rgbfeat_fc_0/1 and the max-pool over views for one ray's 16 tokens in
+mma.sync registers. So a row is read once per view, for all the rays that
+share it. The view and ray kernels and their host loop are K1's.
+The JAX package composes the combine into rgbfeat_fc_0 with a
 tiled weight and an expansion matmul, a TPU layout device; the port packs
 K1's weights unchanged (``pack_mono4_weights``).
 

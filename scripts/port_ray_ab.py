@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's view and ray kernels in the tree this is run from, to
-compare two trees on one card.
+"""Time the port's view, ray and prologue kernels in the tree this is run
+from, to compare two trees on one card.
 
     python3 scripts/port_ray_ab.py --label change
     (cd _chip_copy/parent && python3 ../../scripts/port_ray_ab.py --label parent)
@@ -10,9 +10,11 @@ Imports ``pgdvs_tpu_torch`` and ``chip_smoke`` from the current directory
 tree's kernels, and prints one JSON line: the label, the card's name and
 power limit, K3a (``gnt_split_view``: one view block alone, ``k_view``, V=10)
 and K3b (``gnt_split_ray``: one ray block alone, ``k_ray``) in ms per launch
-at the main tile (R=2048, S=256, 20 launches each) and K1
-(``gnt_fused_mono4``: a whole forward, 8 view and 8 ray blocks among its
-kernels) in ms per 2048-ray tile (V=10, 5 launches), with CUDA events after
+at the main tile (R=2048, S=256, 20 launches each), K1
+(``gnt_fused_mono4``: a whole forward, the prologue and 8 view and 8 ray
+blocks) and K1 ``patch_rows`` (``gnt_fused_mono4_patch`` on 4x2 blocks, 24
+stencil positions: its prologue combines the patch rows) in ms per 2048-ray
+tile (V=10, 5 launches each), with CUDA events after
 a warm-up, random weights and inputs from fixed seeds. Run the trees in
 turns (parent, change, change, parent) within one call. Needs a CUDA device.
 """
@@ -40,6 +42,7 @@ def main() -> int:
     import chip_smoke as cs
     from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4, pack_mono4_weights
     from pgdvs_tpu_torch.core.cameras import ray_diff_features
+    from pgdvs_tpu_torch.kernels.gnt_fused_patch import gnt_fused_mono4_patch
     from pgdvs_tpu_torch.kernels.gnt_fused_split import (
         gnt_split_ray, gnt_split_view, pack_split_weights,
     )
@@ -62,9 +65,12 @@ def main() -> int:
     packed = pack_mono4_weights(gnt, "cuda")
     k1_args = (ops["rgb_feat"], ops["pts"], ops["view_code"], ops["centers"], ops["proj"], hw)
     k1_ms = cs._time_ms(lambda: gnt_fused_mono4(packed, *k1_args), 5)
+    patch_args = cs._patch_ops(cs.MAIN_TILE, 8, 24)
+    k1p_ms = cs._time_ms(lambda: gnt_fused_mono4_patch(packed, *patch_args), 5)
     print(json.dumps({"label": args.label, "device": smi, "tree": os.getcwd(),
                       "k3a_ms_per_launch": view_ms, "k3b_ms_per_launch": ray_ms,
-                      "k1_ms_per_tile": k1_ms}), flush=True)
+                      "k1_ms_per_tile": k1_ms, "k1_patch_rows_ms_per_tile": k1p_ms}),
+          flush=True)
     return 0
 
 

@@ -1,5 +1,6 @@
 """The hand kernels (K1 on sampled features and on patch rows, K2 in each
-operand mode, K3a, K3b) against their plain versions, on a CUDA card only.
+operand mode, K3a, K3b, the prologue alone per loader) against their plain
+versions, on a CUDA card only.
 
 No JAX here, so the file runs on the GPU machine:
 
@@ -490,3 +491,73 @@ def test_no_sample_cap_is_left(card):
     assert lib.gnt_ray_blocks_per_sm() >= 1
     assert lib.gnt_ray_smem_bytes() <= torch.cuda.get_device_properties(
         card).shared_memory_per_block_optin
+
+
+# the prologue alone: (source, row stride or (rays per row block, n_pos), V,
+# R, S); N = R * S not a multiple of 8 where the geometry allows it
+PROLOGUE_CASES = [
+    ("rgb_feat", 35, 1, 5, 23), ("rgb_feat", 36, 1, 5, 23), ("rgb_feat", 35, 32, 5, 23),
+    ("rgb_feat", 36, 32, 3, 7), ("patch", (4, 16), 1, 12, 23), ("patch", (4, 16), 32, 4, 23),
+    ("patch", (8, 24), 1, 8, 23), ("patch", (8, 24), 32, 8, 40),
+    ("quad_rows", None, 1, 5, 23), ("quad_rows", None, 32, 3, 23),
+]
+
+
+def _prologue_operands(source, geom, v, r, s, dev, seed=11):
+    rng = np.random.default_rng(seed)
+
+    def b16(a):
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).to(dev)
+
+    if source == "rgb_feat":
+        return {"rgb_feat": b16(rng.normal(0, 2, (v, r, s, geom)))}
+    if source == "patch":
+        nb, n_pos = geom
+        coef = rng.uniform(size=(v, r // 4, 4, s, n_pos))
+        return {"rows": b16(rng.normal(0, 2, (v, r // nb, s, n_pos * 35))),
+                "coef": b16(coef / coef.sum(-1, keepdims=True))}
+    return {"rows": b16(rng.normal(0, 2, (v, r, s, 140))),
+            "frac": torch.from_numpy(rng.uniform(-0.6, 1.6, (v, r, s, 2)).astype(np.float32))
+            .to(dev)}
+
+
+@pytest.mark.parametrize("source,geom,v,r,s", PROLOGUE_CASES)
+def test_prologue_matches_plain(card, source, geom, v, r, s):
+    """``k_prologue`` alone against ``prologue_plain``: h and q within one
+    bf16 ulp of relative error plus 0.01 (chip_smoke.PRO_TOL); V = 1 and 32,
+    S = 23, ragged tiles, row stride 35 and 36, both patch geometries and
+    the quad-rows loader."""
+    from pgdvs_tpu_torch.kernels import gnt_prologue as kpro
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    gnt = init_gnt_models(seed=0, device=card)[1]
+    ops = _prologue_operands(source, geom, v, r, s, card)
+    before = kpro.gnt_prologue.launches[source]
+    h, q = kpro.gnt_prologue(gnt, **ops)
+    torch.cuda.synchronize()
+    assert kpro.gnt_prologue.launches[source] == before + 1
+    ref_h, ref_q = kpro.prologue_plain(gnt, kpro.prologue_features(35, **ops))
+    assert h.shape == (v, r * s, 64) and h.dtype == torch.bfloat16 and q.shape == (r * s, 64)
+    for got, ref in ((h.float(), ref_h.float()), (q, ref_q)):
+        assert bool(torch.isfinite(got).all())
+        err = (got - ref).abs()
+        assert bool((err <= 0.01 + 2.0 ** -7 * ref.abs()).all()), float(err.max())
+
+
+def test_prologue_reads_rows_at_any_offset(card):
+    """Sampled features whose data starts 2 bytes past a 16-byte boundary
+    (the loader copies each tile's enclosing aligned span) give the same h
+    and q as an aligned copy."""
+    from pgdvs_tpu_torch.kernels import gnt_prologue as kpro
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    gnt = init_gnt_models(seed=0, device=card)[1]
+    feats = _prologue_operands("rgb_feat", 35, 3, 5, 23, card)["rgb_feat"]
+    buf = torch.empty(feats.numel() + 8, dtype=torch.bfloat16, device=card)
+    off = buf[1:feats.numel() + 1].view(feats.shape)
+    off.copy_(feats)
+    assert off.data_ptr() % 16 != 0
+    h, q = kpro.gnt_prologue(gnt, off)
+    h0, q0 = kpro.gnt_prologue(gnt, feats)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h0) and torch.equal(q, q0)
