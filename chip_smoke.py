@@ -62,7 +62,19 @@ exits non-zero without printing a result:
      run on no path: phases 3c and 3e are their only launches;
   7. ``[s384]``: the fast preset at 384 samples per ray (above the old cap)
      on a 64x96 view: one K1 patch_rows launch per ray tile, the crop against
-     the plain path on the CPU.
+     the plain path on the CPU;
+  8. the renderer's other modes, each checked as the main path is (launches
+     as routed, the crop against the plain path on the CPU, s/view, peak
+     memory): ``[fine]``, the fast preset with 64 fine samples on 256 (two
+     K1 patch_rows launches per ray tile, the clamp fraction of each pass);
+     ``[fine-exact]``, `default` on the exact preset likewise (K2 unfolded
+     at S = 256, then 320); ``[stride2]``, `default` quad at render stride 2
+     (a 144x275 render, the dynamic layer resized to it); ``[fused]`` and
+     ``[quad_i8]``, the unmasked preset with those samplers (K2 with the
+     sampler's mask, K1 on the dequantized int8 samples), PSNR / SSIM
+     against [quad]'s image; ``[view_std]``, a GNT made with ret_view_std at
+     64x96 (the plain network on the card: no kernel launch), its view-std
+     maps finite, non-zero and held against the CPU too.
 
 The second-to-last line is a JSON object describing each kernel (its times,
 its launches on its path and its bound on the card); the last line is
@@ -95,6 +107,9 @@ Q_TOL = 0.02
 PRO_TOL = {"atol": 0.01, "rtol": 2.0 ** -7}
 # the slice's end-to-end bounds (tests/test_gnt_model.py)
 SLICE_TOL = {"rgb": 0.04, "depth": 0.1, "inbound_cnt": 0.02, "dyn_cnt": 0.02}
+# the composited view-std maps (per-block feature stds of order 0.5-1.5)
+# against the plain path on the CPU (tests/test_torch_port_view_std.py)
+VIEW_STD_TOL = 0.01
 SEED = 0
 # NVIDIA H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3), at the
 # card's full 700 W power limit
@@ -604,6 +619,44 @@ def phase_k2_modes_vs_plain(gnt):
     return worst, times
 
 
+# the fine pass's tile: 256 coarse + 64 fine samples ([fine], [fine-exact])
+FINE_TILE = dict(v=10, r=2048, s=320, hw=(288, 550))
+
+
+def phase_fine_tiles(gnt):
+    """The kernels of the fine pass at its tile (S = 320): K1 patch_rows on
+    4x2 blocks and K2 unfolded, each against its plain version, then both
+    times and the bound (``patch_cost`` / ``mono3_cost``). Returns
+    {kernel row name: times}."""
+    import torch
+
+    from pgdvs_tpu_torch.kernels.gnt_fused import pack_mono4_weights
+    from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import (
+        gnt_fused_apply_mono3, gnt_fused_apply_mono3_plain,
+    )
+    from pgdvs_tpu_torch.kernels.gnt_fused_patch import (
+        gnt_fused_mono4_patch, gnt_fused_mono4_patch_plain,
+    )
+
+    packed = pack_mono4_weights(gnt, "cuda")
+    v, r, s = FINE_TILE["v"], FINE_TILE["r"], FINE_TILE["s"]
+    times = {"gnt_fused_mono4_patch": {}, "gnt_fused_apply_mono3[unfolded]": {}}
+    args = _patch_ops(FINE_TILE, 8, 24)
+    patch = (lambda: gnt_fused_mono4_patch(packed, *args),
+             lambda: gnt_fused_mono4_patch_plain(gnt, *args))
+    margs, opts, _valid = _mono3_args(FINE_TILE, 0.2, "unfolded")
+    unfolded = (lambda: gnt_fused_apply_mono3(packed, *margs, **opts),
+                lambda: gnt_fused_apply_mono3_plain(gnt, *margs, **opts))
+    for name, (kernel, plain), cost in (
+            ("gnt_fused_mono4_patch", patch, patch_cost(v, r, s, 35, 24, 8)),
+            ("gnt_fused_apply_mono3[unfolded]", unfolded, mono3_cost(v, r, s, 35, "unfolded"))):
+        got = kernel()
+        torch.cuda.synchronize()
+        _check_against_plain(f"{name} fine_tile", FINE_TILE, got, plain(), {})
+        _time_main_tile(f"{name} (fine pass)", times[name], (v, r, s), cost, kernel, plain)
+    return times
+
+
 K3_CASES = [
     ("small", dict(v=5, r=64, s=32), 0.3),
     ("odd_s", dict(v=5, r=64, s=23), 0.3),
@@ -901,11 +954,13 @@ def phase_prologue_kernel(gnt, v=10, r=2048, s=256):
     return out
 
 
-def slice_config(bundle=None, n_samples=256, preset="fast"):
+def slice_config(bundle=None, n_samples=256, preset="fast", **overrides):
     """The unmasked config (bundle None) or a named bundle, with
     ``n_samples`` coarse samples, on the fast preset (the JAX package's:
     patch without the dyn mask, quad with it), on it with quad sampling
-    ("quad") or on the exact sampler ("exact")."""
+    ("quad") or on the exact sampler ("exact"); then ``overrides`` (fine
+    samples, render stride, another epipolar mode), as ``run.py`` applies a
+    user's after the preset."""
     from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
     from pgdvs_tpu_torch.renderers.config import RenderConfig, apply_perf_preset
 
@@ -917,12 +972,13 @@ def slice_config(bundle=None, n_samples=256, preset="fast"):
         cfg = RenderConfig() if preset == "exact" else apply_perf_preset(RenderConfig())
     if preset == "quad":
         cfg = cfg.replace(epipolar_mode="quad")
-    return cfg.replace(n_coarse_samples_per_ray=n_samples)
+    return cfg.replace(n_coarse_samples_per_ray=n_samples, **overrides)
 
 
 def _sampling_setup(models, data, cfg):
     """What render_image_gnt sets up before its tile loop: the resolved cfg
-    and patch block, the sampling maps and the target's rays in image order."""
+    and patch block, the sampling maps, the target's rays in image order
+    and the render size (rh, rw) of ``cfg.render_stride``."""
     import torch
 
     from pgdvs_tpu_torch.core import cameras
@@ -935,18 +991,20 @@ def _sampling_setup(models, data, cfg):
     h, w = src.shape[1:3]
     tgt = data["flat_cam_tgt"]
     with torch.no_grad():
-        cfg, block = resolve_epipolar_cfg(cfg, gnt, h, w)
+        rays_o, rays_d, _uv, (rh, rw) = cameras.get_rays(
+            h, w, cameras.flat_cam_intrinsics(tgt), cameras.flat_cam_c2w(tgt),
+            stride=cfg.render_stride)
+        cfg, block = resolve_epipolar_cfg(cfg, gnt, rh, rw)
         maps = build_sampling_maps(cfg, src, fnet(src), masks, block)
-        rays_o, rays_d, _uv, _ = cameras.get_rays(
-            h, w, cameras.flat_cam_intrinsics(tgt), cameras.flat_cam_c2w(tgt))
-    return cfg, block, maps, rays_o, rays_d
+    return cfg, block, maps, rays_o, rays_d, (rh, rw)
 
 
-def crop_on_cpu(models, data, cfg, rows, cols):
-    """Static layer for a crop of target pixels, rendered by the plain path
-    on the CPU from the same sampling maps the card built. On patch the
-    crop's rays go in the image's ray blocks (``rows`` and ``cols`` aligned
-    to the block) and come back in image order."""
+def crop_on_cpu(models, data, cfg, rows, cols, keys=SLICE_TOL):
+    """Static layer for a crop of the render's pixels (render coordinates,
+    so every stride-th target pixel), rendered by the plain path on the CPU
+    from the same sampling maps the card built; outputs ``keys``. On patch
+    the crop's rays go in the image's ray blocks (``rows`` and ``cols``
+    aligned to the block) and come back in image order."""
     import copy
 
     import torch
@@ -954,13 +1012,12 @@ def crop_on_cpu(models, data, cfg, rows, cols):
     from pgdvs_tpu_torch.models.gnt.projector import PATCH_BLOCKS
     from pgdvs_tpu_torch.renderers.static_gnt import patch_ray_perm, render_rays_gnt
 
-    cfg, block, maps, rays_o, rays_d = _sampling_setup(models, data, cfg)
-    w = data["rgb_src_spatial"].shape[2]
+    cfg, block, maps, rays_o, rays_d, (_rh, rw) = _sampling_setup(models, data, cfg)
     tgt = data["flat_cam_tgt"]
     maps = (maps.cpu() if torch.is_tensor(maps)
             else type(maps)(*(t.cpu() if torch.is_tensor(t) else t for t in maps)))
     shape = (rows[1] - rows[0], cols[1] - cols[0])
-    idx = (torch.arange(*rows)[:, None] * w + torch.arange(*cols)[None]).reshape(-1)
+    idx = (torch.arange(*rows)[:, None] * rw + torch.arange(*cols)[None]).reshape(-1)
     inv = None
     if block is not None:
         by, bx = PATCH_BLOCKS[block][0]
@@ -976,30 +1033,40 @@ def crop_on_cpu(models, data, cfg, rows, cols):
             data["flat_cam_src_spatial"].cpu(), maps, cfg)
     if inv is not None:
         out = {k: v[inv] for k, v in out.items()}
-    return {k: out[k].reshape(shape + out[k].shape[1:]) for k in SLICE_TOL}
+    return {k: out[k].reshape(shape + out[k].shape[1:]) for k in keys}
 
 
-def clamp_fraction(models, data, cfg):
+def clamp_fraction(models, data, cfg, fine=False):
     """The share of in-reach taps of a whole render that its patch sampler
     clamps to their block's border (``patch_clamp_counts`` summed over the
-    ray tiles, rays in block order as the renderer sends them)."""
+    ray tiles, rays in block order as the renderer sends them): of the
+    coarse pass, or with ``fine`` of the second pass, whose samples come
+    from a coarse pass run here on the card again."""
     import torch
 
     from pgdvs_tpu_torch.core import cameras, sampling
+    from pgdvs_tpu_torch.kernels.gnt_fused import pack_mono4_weights
     from pgdvs_tpu_torch.models.gnt.projector import PATCH_BLOCKS, patch_clamp_counts
-    from pgdvs_tpu_torch.renderers.static_gnt import patch_ray_perm
+    from pgdvs_tpu_torch.renderers.static_gnt import gnt_pass, patch_ray_perm
 
-    cfg, block, maps, rays_o, rays_d = _sampling_setup(models, data, cfg)
-    _v, h, w = maps.vhw
-    perm, _inv = patch_ray_perm(h * w, h, w, *PATCH_BLOCKS[block][0], device=rays_o.device)
-    proj = cameras.flat_cam_projection(data["flat_cam_src_spatial"])
+    cfg, block, maps, rays_o, rays_d, (rh, rw) = _sampling_setup(models, data, cfg)
+    perm, _inv = patch_ray_perm(rh * rw, rh, rw, *PATCH_BLOCKS[block][0], device=rays_o.device)
+    src_cams = data["flat_cam_src_spatial"]
+    proj = cameras.flat_cam_projection(src_cams)
+    params = pack_mono4_weights(models[1], rays_o.device) if fine else None
     clamped = reach = 0
     with torch.no_grad():
-        for i in range(0, h * w, cfg.ray_tile):
+        for i in range(0, rh * rw, cfg.ray_tile):
             t = perm[i:i + cfg.ray_tile]
-            pts, _z = sampling.sample_along_rays(
+            pts, z = sampling.sample_along_rays(
                 rays_o[t], rays_d[t], data["depth_range"].expand(t.numel(), 2),
                 cfg.n_coarse_samples_per_ray, inv_uniform=cfg.sample_inv_uniform)
+            if fine:
+                w = gnt_pass(params, pts, z, rays_d[t], data["flat_cam_tgt"], src_cams, maps,
+                             cfg)["weights"]
+                z = sampling.sample_fine_z_vals(z, w, cfg.n_fine_samples_per_ray,
+                                                inv_uniform=cfg.sample_inv_uniform)
+                pts = rays_o[t][:, None, :] + z[..., None] * rays_d[t][:, None, :]
             c, n = patch_clamp_counts(pts, proj, maps)
             clamped, reach = clamped + int(c), reach + int(n)
     return clamped / max(reach, 1), clamped, reach
@@ -1072,30 +1139,37 @@ def read_launches():
     return counts
 
 
-def expected_launches(cfg, n_rays):
+def expected_launches(cfg, n_rays, plain=False):
     """{kernel name: launches} of one render of ``n_rays`` rays under
-    ``cfg`` (resolved: ``resolve_epipolar_cfg``): K1 or K2 once per ray
-    tile on quad, K1's patch_rows mode once per tile on patch, K2's
-    unfolded mode once per tile on exact, every other kernel none."""
-    tiles = -(-n_rays // cfg.ray_tile)
-    if cfg.epipolar_mode == "exact":
-        want = {"gnt_fused_apply_mono3[unfolded]": tiles}
-    elif cfg.epipolar_mode == "patch":
-        want = {"gnt_fused_mono4_patch": tiles}
+    ``cfg`` (resolved: ``resolve_epipolar_cfg``), once per ray tile and
+    pass (two with fine samples): K2's unfolded mode on exact, K1's
+    patch_rows mode on patch, K2 on fused, K2 with the dyn mask and K1
+    without it on quad and quad_i8; every other kernel none, and none at
+    all for a GNT made with ret_view_std (``plain``: the plain network)."""
+    launches = -(-n_rays // cfg.ray_tile) * (2 if cfg.n_fine_samples_per_ray > 0 else 1)
+    mode = cfg.epipolar_mode
+    if mode == "exact":
+        name = "gnt_fused_apply_mono3[unfolded]"
+    elif mode == "patch":
+        name = "gnt_fused_mono4_patch"
+    elif mode == "fused" or cfg.gnt_use_dyn_mask:
+        name = "gnt_fused_mono3"
     else:
-        want = {"gnt_fused_mono3" if cfg.gnt_use_dyn_mask else "gnt_fused_mono4": tiles}
-    return {name: want.get(name, 0) for name in KERNELS}
+        name = "gnt_fused_mono4"
+    return {k: 0 if plain or k != name else launches for k in KERNELS}
 
 
 def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
                     n_spatial=10, n_frames=12, n_samples=256, rows=(140, 144),
-                    cols=(200, 264), n_timed=2, preset="fast", tag=None):
+                    cols=(200, 264), n_timed=2, preset="fast", tag=None, tol=SLICE_TOL,
+                    **overrides):
     """Drive render_novel_view once for the unmasked config (bundle None:
     on the fast preset patch, K1's patch_rows mode; on "quad" K1) or a
-    named bundle (``default``: K2's path; on the exact preset K2 unfolded), with
-    the kernels' launch counts set to 0 just before and read just after;
-    check it, then time it. Returns ({kernel name: launches}, seconds per
-    view, the timed render's output)."""
+    named bundle (``default``: K2's path; on the exact preset K2 unfolded),
+    with ``overrides`` (``slice_config``), the kernels' launch counts set to
+    0 just before and read just after; check it (the crop of rows x cols of
+    the render, at ``tol``), then time it. Returns ({kernel name:
+    launches}, seconds per view, the timed render's output)."""
     import warnings
 
     import numpy as np
@@ -1105,10 +1179,12 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
     from pgdvs_tpu_torch.renderers.compose import render_novel_view
     from pgdvs_tpu_torch.renderers.static_gnt import resolve_epipolar_cfg
 
-    cfg = slice_config(bundle, n_samples, preset)
+    cfg = slice_config(bundle, n_samples, preset, **overrides)
+    stride = cfg.render_stride
+    rh, rw = -(-h // stride), -(-w // stride)
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # the full-size render takes no fallback
-        resolved = resolve_epipolar_cfg(cfg, models[1], h, w)[0]
+        resolved = resolve_epipolar_cfg(cfg, models[1], rh, rw)[0]
     tag = tag or f"[{bundle or 'main'}]"
     data_np = make_contract_data(h=h, w=w, n_spatial=n_spatial,
                                  n_frames=n_frames, tgt_time=0.5)
@@ -1130,36 +1206,57 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
     out = render()
     first = time.perf_counter() - t0
     launches = read_launches()
-    if device == "cuda" and launches != expected_launches(resolved, h * w):
-        raise AssertionError(f"{tag} launches {launches}, expected "
-                             f"{expected_launches(resolved, h * w)}")
+    want = expected_launches(resolved, rh * rw, plain=models[1].ret_view_std)
+    if device == "cuda" and launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
     rgb = out["combined_rgb"]
-    if tuple(rgb.shape) != (h, w, 3) or not bool(torch.isfinite(rgb).all()):
-        raise AssertionError(f"combined_rgb {tuple(rgb.shape)} not finite/[{h},{w},3]")
-    log(f"{tag} {h}x{w}, {n_spatial} sources, {n_samples} samples: first render "
-        f"{first:.3f} s (warm-up), launches {launches}")
+    if tuple(rgb.shape) != (rh, rw, 3) or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError(f"combined_rgb {tuple(rgb.shape)} not finite/[{rh},{rw},3]")
+    n_fine = cfg.n_fine_samples_per_ray
+    log(f"{tag} {h}x{w}, {n_spatial} sources, {n_samples} samples"
+        + (f" + {n_fine} fine" if n_fine else "")
+        + (f", stride {stride}: a {rh}x{rw} render" if stride > 1 else "")
+        + f", {resolved.epipolar_mode} sampling: first render {first:.3f} s (warm-up), "
+        f"launches {launches}")
+    if stride > 1:
+        shapes = {k: tuple(out[k].shape) for k in ("render_dyn_rgb", "render_dyn_mask")}
+        if shapes != {"render_dyn_rgb": (rh, rw, 3), "render_dyn_mask": (rh, rw, 1)}:
+            raise AssertionError(f"{tag} the dynamic layer was not resized: {shapes}")
+        log(f"{tag} dynamic layer resized from {h}x{w} to {shapes} (cubic rgb, nearest "
+            f"mask); mask covers {float(out['render_dyn_mask'].mean()):.4f} of the render")
 
-    crop = crop_on_cpu(models, data, cfg, rows, cols)
+    crop = crop_on_cpu(models, data, cfg, rows, cols, keys=tol)
     errs = {}
-    for key, tol in SLICE_TOL.items():
+    for key, bound in tol.items():
         if key == "dyn_cnt" and not cfg.gnt_use_dyn_mask:
             continue
         a = out[f"static_coarse_{key}"][rows[0]:rows[1], cols[0]:cols[1]].float().cpu()
         errs[key] = float((a - crop[key]).abs().max())
-        if not errs[key] <= tol:
-            raise AssertionError(f"{tag} crop {key}: max err {errs[key]} over {tol}")
+        if not errs[key] <= bound:
+            raise AssertionError(f"{tag} crop {key}: max err {errs[key]} over {bound}")
     log(f"{tag} crop rows {rows} cols {cols} vs plain path on CPU: "
         + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
     if resolved.epipolar_mode == "patch":
         frac, clamped, reach = clamp_fraction(models, data, cfg)
         log(f"{tag} patch_clamp_fraction {frac:.6e} ({clamped} of {reach} in-reach taps "
             "clamped to their block's border)")
+        if n_fine:
+            frac, clamped, reach = clamp_fraction(models, data, cfg, fine=True)
+            log(f"{tag} patch_clamp_fraction of the fine pass {frac:.6e} ({clamped} of "
+                f"{reach} in-reach taps clamped to their block's border)")
+    if models[1].ret_view_std:
+        for key in ("view_std", "view_std_normalized"):
+            m = out[f"static_coarse_{key}"]
+            if not (bool(torch.isfinite(m).all()) and float(m[..., 0].min()) > 0):
+                raise AssertionError(f"{tag} {key} not finite and non-zero")
+            log(f"{tag} {key} {tuple(m.shape)}: mean per entry "
+                + " ".join(f"{float(x):.4f}" for x in m.mean(dim=(0, 1))))
     if cfg.gnt_use_dyn_mask:
         dyn = out["static_coarse_dyn_cnt"][rows[0]:rows[1], cols[0]:cols[1]]
         if not bool((dyn > 0).any()):
             raise AssertionError(f"{tag} the crop saw no dynamic view")
         log(f"{tag} crop rays with a dynamic view: {int((dyn > 0).sum())} of {dyn.numel()}; "
-            f"image rays: {int((out['static_coarse_dyn_cnt'] > 0).sum())} of {h * w}")
+            f"image rays: {int((out['static_coarse_dyn_cnt'] > 0).sum())} of {rh * rw}")
     if cfg.dyn_pcl_remove_outlier:
         kept, cand = dyn_points_kept(data, cfg)
         if not 0 < kept < cand:
@@ -1207,6 +1304,34 @@ def exact_vs_quad(exact_rgb, quad_rgb, tag="[exact]", what="combined_rgb", label
     return psnr, ssim
 
 
+def phase_new_modes(models, quad_img):
+    """The renderer's modes of the JAX package that feed the ported kernels
+    at new shapes, each one render through ``render_novel_view`` checked as
+    ``phase_main_path`` checks: fine samples (64 on 256) on the fast preset
+    (K1 patch_rows twice per tile) and on `default` exact (K2 unfolded at
+    S = 320), `default` quad at render stride 2, the unmasked fused and
+    quad_i8 samplers (K2 and K1, PSNR / SSIM against [quad]'s image of the
+    same view), and the view-std diagnostics (a GNT made with ret_view_std:
+    the plain network on the card, no kernel launch) at 64x96."""
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    phase_main_path(models, n_fine_samples_per_ray=64, tag="[fine]")
+    phase_main_path(models, bundle="default", preset="exact", cols=(160, 224),
+                    n_fine_samples_per_ray=64, tag="[fine-exact]")
+    phase_main_path(models, bundle="default", rows=(70, 74), cols=(80, 144), render_stride=2,
+                    tag="[stride2]")
+    for mode in ("fused", "quad_i8"):
+        _, _, out = phase_main_path(models, epipolar_mode=mode, tag=f"[{mode}]")
+        for what in quad_img:
+            exact_vs_quad(out[what], quad_img[what], tag=f"[{mode}]", what=what, label=mode)
+        del out
+    std_models = init_gnt_models(seed=SEED, device="cuda", ret_view_std=True)
+    phase_main_path(std_models, h=64, w=96, rows=(16, 20), cols=(32, 64), n_timed=1,
+                    preset="quad", tag="[view_std]",
+                    tol={**SLICE_TOL, "view_std": VIEW_STD_TOL,
+                         "view_std_normalized": VIEW_STD_TOL})
+
+
 def main() -> int:
     import torch
 
@@ -1233,8 +1358,9 @@ def main() -> int:
     phase_view_kernel(models[1], k3_times["view"])
     pro = phase_prologue_kernel(models[1])
     k1_launches, _, quad1 = phase_main_path(models, preset="quad", tag="[quad]", n_timed=1)
-    for what in ("combined_rgb", "static_coarse_rgb"):
-        exact_vs_quad(patch[what], quad1[what], tag="[main]", what=what, label="patch")
+    quad_img = {what: quad1[what] for what in ("combined_rgb", "static_coarse_rgb")}
+    for what in quad_img:
+        exact_vs_quad(patch[what], quad_img[what], tag="[main]", what=what, label="patch")
     del patch, quad1
     k2_launches, _, quad = phase_main_path(models, bundle="default", cols=(160, 224))
     ke_launches, _, exact = phase_main_path(models, bundle="default", cols=(160, 224),
@@ -1245,6 +1371,8 @@ def main() -> int:
     # above the old cap of 368 samples per ray, at a reduced size
     phase_main_path(models, h=64, w=96, n_samples=384, rows=(16, 20), cols=(32, 64),
                     n_timed=1, tag="[s384]")
+    phase_fine_tiles(models[1])
+    phase_new_modes(models, quad_img)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     rows = []

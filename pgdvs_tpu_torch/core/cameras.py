@@ -89,15 +89,17 @@ def pixel_inbound(uv: torch.Tensor, h: float, w: float) -> torch.Tensor:
     )
 
 
-def get_rays(h: int, w: int, intrinsics: torch.Tensor, c2w: torch.Tensor):
-    """Per-pixel rays at integer pixel centres (no +0.5 offset).
+def get_rays(h: int, w: int, intrinsics: torch.Tensor, c2w: torch.Tensor,
+             stride: int = 1):
+    """Per-pixel rays at integer pixel centres (no +0.5 offset), on the
+    pixels ``[::stride, ::stride]`` of the h x w image.
 
     Returns rays_o [n, 3], rays_d [n, 3] (unnormalized, z-depth
-    parameterized), uv [n, 2] pixel (x, y), and (rh, rw).
+    parameterized), uv [n, 2] pixel (x, y), and (rh, rw), n = rh * rw.
     """
     dev = c2w.device
-    ys = torch.arange(0, h, dtype=torch.float32, device=dev)
-    xs = torch.arange(0, w, dtype=torch.float32, device=dev)
+    ys = torch.arange(0, h, stride, dtype=torch.float32, device=dev)
+    xs = torch.arange(0, w, stride, dtype=torch.float32, device=dev)
     rh, rw = ys.shape[0], xs.shape[0]
     grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
     u, v = grid_x.reshape(-1), grid_y.reshape(-1)

@@ -177,7 +177,7 @@ def gnt_fused_mono4_plain(gnt: GNT, rgb_feat, pts, view_code, centers, proj,
         view_code.float(),
     )
     cnt = torch.sum(out["weights"] * valid.sum(0) / v, dim=-1)
-    return {"rgb": out["rgb"], "weights": out["weights"], "inbound_cnt_raw": cnt}
+    return dict(out, inbound_cnt_raw=cnt)  # with the GNT's view-std maps, if it makes them
 
 
 def ray_scratch(lib, r, s, dev):

@@ -265,7 +265,7 @@ def _plain(gnt: GNT, o: Mono3Operands):
         pts_code=pts_code,
     )
     cnt = torch.sum(out["weights"] * valid.sum(0) / v, dim=-1)
-    return {"rgb": out["rgb"], "weights": out["weights"], "inbound_cnt_raw": cnt}
+    return dict(out, inbound_cnt_raw=cnt)  # with the GNT's view-std maps, if it makes them
 
 
 def gnt_fused_apply_mono3_plain(gnt: GNT, rgb_feat, ray_diff, mask, pts_code, view_code,

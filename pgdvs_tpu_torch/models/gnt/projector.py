@@ -1,7 +1,7 @@
 """Epipolar projection + feature sampling for GNT (torch).
 
-Counterpart of ``pgdvs_tpu.models.gnt.projector`` for the three samplers
-the static renderer calls, views outer:
+Counterpart of ``pgdvs_tpu.models.gnt.projector`` for the samplers the
+static renderer calls, views outer:
 
 ``epipolar_sample`` (the exact, reference-faithful sampler): rgb from the
 full-resolution sources and features from the quarter-resolution ResUNet
@@ -22,6 +22,12 @@ and the ray-difference code are left to the GNT kernel; with it
 the masked kernel reads. ``epipolar_sample_quad_raw`` leaves the lerp to
 K2's fold_lerp mode: the four taps' rows and the fractional offsets.
 
+The fused and quad_i8 samplers (``epipolar_sample_fused``) repeat the JAX
+package's arithmetic on its own maps: ``multiview_bilinear`` in bf16 on the
+fused maps (``fused``), ``quad_bilinear`` on int8 quad maps
+(``build_quad_maps``, ``quantize_quad_maps``, ``FlatQuadMaps``) dequantized
+to bf16 (``quad_i8``), with the validity masks.
+
 The patch sampler (``epipolar_sample_patch_raw``, the JAX package's fast
 preset): rays come in by x bx pixel blocks; per (view, block, sample) ONE
 row of the fy x fx-pixel patch maps is gathered at the block's anchor, and
@@ -29,6 +35,8 @@ every tap's 2x2 bilinear stencil becomes fy*fx coefficients over that row.
 A tap whose stencil cell lies outside the block's footprint is clamped to
 its border (``patch_clamp_fraction`` counts them). The combine of rows and
 coefficients is left to the GNT kernel (K1's ``patch_rows`` mode).
+``epipolar_sample_patch`` is JAX's combine outside the kernel (2x2 blocks
+only), which no renderer path takes.
 """
 
 from __future__ import annotations
@@ -50,15 +58,87 @@ from pgdvs_tpu_torch.core.interpolate import resize_bilinear
 def build_fused_maps(src_rgbs: torch.Tensor, src_feats: torch.Tensor,
                      src_invalid_masks=None, dtype=torch.bfloat16) -> torch.Tensor:
     """[V, H, W, 3] rgb + [V, Hf, Wf, F] features (+ [V, H, W, 1] dynamic
-    masks, 1 = invalid) -> [V, H, W, 3+F(+1)] maps, features upsampled to
-    full resolution (bilinear, align_corners), the mask as the trailing
-    channel."""
+    masks, 1 = invalid) -> [V, H, W, 3+F(+1)] maps in ``dtype``, the
+    features cast to ``dtype`` and upsampled to full resolution (bilinear,
+    align_corners, taps accumulated in float32), the mask as the trailing
+    channel: the JAX package's ``build_fused_maps(..., dtype=bf16)`` bit for
+    bit."""
     v, h, w, _ = src_rgbs.shape
-    feats_up = torch.stack([resize_bilinear(f, h, w) for f in src_feats.float()])
-    parts = [src_rgbs.float(), feats_up]
+    feats_up = torch.stack([resize_bilinear(f, h, w) for f in src_feats.to(dtype)])
+    parts = [src_rgbs.to(dtype), feats_up]
     if src_invalid_masks is not None:
-        parts.append(src_invalid_masks.float())
-    return torch.cat(parts, dim=-1).to(dtype).contiguous()
+        parts.append(src_invalid_masks.to(dtype))
+    return torch.cat(parts, dim=-1).contiguous()
+
+
+class FlatQuadMaps(NamedTuple):
+    """Quad maps as one row table (``pgdvs_tpu.models.gnt.projector.
+    FlatQuadMaps``): row (v, y, x) holds the fused-map pixels (y, x),
+    (y, x+1), (y+1, x), (y+1, x+1), edge-clamped, back to back; int8 with
+    per-channel dequantization ``scales`` [4C] (``quantize_quad_maps``) or
+    in the fused maps' dtype (scales None)."""
+
+    flat: torch.Tensor                     # [V*H*W, 4C]
+    vhw: Tuple[int, int, int]              # (V, H, W)
+    scales: Optional[torch.Tensor] = None  # [4C] float32
+
+
+def build_quad_maps(src_rgbs: torch.Tensor, src_feats: torch.Tensor,
+                    src_invalid_masks=None) -> torch.Tensor:
+    """The bf16 fused maps with the 2x2 bilinear stencil packed into
+    channels: [V, H, W, 4C], pixel (y, x) holding the fused rows (y, x),
+    (y, x+1), (y+1, x), (y+1, x+1), edge-clamped (the last column and row
+    repeat)."""
+    fused = build_fused_maps(src_rgbs, src_feats, src_invalid_masks)
+    right = torch.cat([fused[:, :, 1:], fused[:, :, -1:]], dim=2)
+    rowp = torch.cat([fused, right], dim=-1)                      # [V, H, W, 2C]
+    down = torch.cat([rowp[:, 1:], rowp[:, -1:]], dim=1)
+    return torch.cat([rowp, down], dim=-1)
+
+
+def flatten_quad_maps(qmaps: torch.Tensor, scales=None) -> FlatQuadMaps:
+    """[V, H, W, 4C] (``build_quad_maps`` / ``quantize_quad_maps``) ->
+    ``FlatQuadMaps``."""
+    v, h, w, c4 = qmaps.shape
+    return FlatQuadMaps(qmaps.reshape(v * h * w, c4), (v, h, w), scales)
+
+
+def quantize_quad_maps(qmaps: torch.Tensor):
+    """Per-channel symmetric int8 quantization of a quad map: (int8 maps
+    [V, H, W, 4C], scales [4C] float32), scale = max(|channel|, 1e-8) / 127,
+    values rounded half to even. The scales are those of the 4C quad
+    channels: the shifted copies lose column 0 / row 0 to the edge clamp,
+    so their maxima can differ from the fused channel's."""
+    f = qmaps.float()
+    scale = torch.clamp(f.abs().amax(dim=(0, 1, 2)), min=1e-8) / 127.0
+    return torch.clamp(torch.round(f / scale), -127, 127).to(torch.int8), scale
+
+
+def quad_bilinear(qmaps, x: torch.Tensor, y: torch.Tensor, scales=None) -> torch.Tensor:
+    """Zero-padded bilinear samples read from quad maps, one row per tap.
+
+    Args: qmaps [V, H, W, 4C] or ``FlatQuadMaps`` (its scales unless
+    ``scales`` is given); x, y [V, ...] pixel coordinates per view.
+    Returns [V, ..., C], zero outside [0, W-1] x [0, H-1]. With scales the
+    int8 row is dequantized as int8 -> bf16 times the bf16 scale; the four
+    products and sums run in the row's dtype, (top pair) + (bottom pair),
+    every step rounded, as the JAX package computes them.
+    """
+    if isinstance(qmaps, FlatQuadMaps):
+        scales = qmaps.scales if scales is None else scales
+        (v, h, w), flat = qmaps.vhw, qmaps.flat
+    else:
+        v, h, w, _ = qmaps.shape
+        flat = qmaps.reshape(v * h * w, -1)
+    c = flat.shape[-1] // 4
+    base, taps = _quad_taps(x, y, v, h, w)
+    row = flat[base]                                              # [N, 4C]
+    if scales is not None:
+        row = row.to(torch.bfloat16) * scales.to(torch.bfloat16)
+    wgt = [t[1].reshape(-1, 1).to(row.dtype) for t in taps]      # (0,0), (0,1), (1,0), (1,1)
+    top = row[:, :c] * wgt[0] + row[:, c:2 * c] * wgt[1]
+    bot = row[:, 2 * c:3 * c] * wgt[2] + row[:, 3 * c:] * wgt[3]
+    return (top + bot).reshape(x.shape + (c,))
 
 
 def project_all_views(pts: torch.Tensor, proj: torch.Tensor):
@@ -83,22 +163,23 @@ def _quad_taps(x: torch.Tensor, y: torch.Tensor, v: int, h: int, w: int):
 
 
 def multiview_bilinear(imgs: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                       out_dtype=None) -> torch.Tensor:
+                       out_dtype=None, lerp_dtype=torch.float32) -> torch.Tensor:
     """Zero-padded bilinear samples of V same-size maps.
 
     Args: imgs [V, H, W, C]; x, y [V, ...] pixel coordinates per view.
     Returns [V, ..., C] in ``out_dtype`` (default: the maps' dtype), zero
     outside [0, W-1] x [0, H-1], stencil corner clamped to (W-2, H-2), as
-    JAX's ``multiview_bilinear(zero_pad=True)``. Rows are gathered in the
-    maps' dtype and lerped in float32 (JAX lerps in the maps' dtype), taps
-    summed in JAX's order.
+    JAX's ``multiview_bilinear(zero_pad=True)``, taps summed in JAX's order.
+    Rows are gathered in the maps' dtype and lerped in ``lerp_dtype``: the
+    maps' own dtype repeats JAX's arithmetic (each tap weight, product and
+    partial sum rounded to it); float32 rounds once at the end.
     """
     v, h, w, c = imgs.shape
     base, taps = _quad_taps(x, y, v, h, w)
     flat = imgs.reshape(v * h * w, c)
     out = None
     for dd, wgt in taps:
-        tap = flat[base + dd].float() * wgt.reshape(-1, 1)
+        tap = flat[base + dd].to(lerp_dtype) * wgt.reshape(-1, 1).to(lerp_dtype)
         out = tap if out is None else out + tap
     return out.reshape(x.shape + (c,)).to(out_dtype or imgs.dtype)
 
@@ -193,6 +274,41 @@ def epipolar_sample_quad_raw(pts: torch.Tensor, proj: torch.Tensor,
         "mask_invalid": torch.zeros_like(inbound),
         "mask": inbound,
     }
+
+
+def epipolar_sample_fused(pts: torch.Tensor, proj: torch.Tensor, maps, with_mask: bool,
+                          quad: bool = False, scales=None):
+    """One bilinear tap set per (sample, view) on per-image fused maps: the
+    ``fused`` mode (``build_fused_maps``, features double-interpolated,
+    lerped in the maps' dtype through ``multiview_bilinear``) or, with
+    ``quad``, the quad maps (``FlatQuadMaps``, int8 with scales for
+    ``quad_i8``, through ``quad_bilinear``); the JAX package's
+    ``epipolar_sample_fused(views_outer=True, with_ray_diff=False)``.
+
+    Args: pts [R, S, 3]; proj [V, 4, 4]; maps [V, H, W, C(+1)] or
+    FlatQuadMaps; with_mask: the maps' trailing channel is the dynamic mask.
+    Returns a dict, every entry views outer:
+      rgb_feat [V, R, S, C] bf16 (the maps' dtype, or bf16 from int8);
+      mask_inbound [V, R, S] bool: in front and inside [0, W-1] x [0, H-1];
+      mask_invalid [V, R, S] bool: the lerped mask channel > 1e-3, compared
+        in its dtype (all False without the mask);
+      mask [V, R, S] bool: mask_inbound and not mask_invalid.
+    """
+    v, h, w = maps.vhw if isinstance(maps, FlatQuadMaps) else maps.shape[:3]
+    uv, _z, in_front = project_all_views(pts, proj)
+    x, y = uv[..., 0], uv[..., 1]
+    if quad:
+        sampled = quad_bilinear(maps, x, y, scales)
+    else:
+        sampled = multiview_bilinear(maps, x, y, lerp_dtype=maps.dtype)
+    inbound = pixel_inbound(uv, float(h), float(w)) & in_front
+    if with_mask:
+        invalid = sampled[..., -1] > torch.tensor(1e-3, dtype=sampled.dtype)
+        sampled = sampled[..., :-1]
+    else:
+        invalid = torch.zeros_like(inbound)
+    return {"rgb_feat": sampled, "mask_inbound": inbound, "mask_invalid": invalid,
+            "mask": inbound & ~invalid}
 
 
 class FlatPatchMaps(NamedTuple):
@@ -297,6 +413,47 @@ def epipolar_sample_patch_raw(pts: torch.Tensor, proj: torch.Tensor,
     cx = wx0[..., None] * (dx == pj) + wx1[..., None] * (dx == pj - 1.0)   # [V, R, S, fx]
     coef = (cy[..., :, None] * cx[..., None, :]).to(rows.dtype)
     return {"rows": rows, "coef": coef.reshape(v, r // 4, 4, s, fy * fx)}
+
+
+def epipolar_sample_patch(pts: torch.Tensor, proj: torch.Tensor,
+                          pmaps: FlatPatchMaps) -> torch.Tensor:
+    """The JAX package's XLA-combine patch sampler (2x2 ray blocks only),
+    which it reaches with mono3 + patch and no preset picks: the rows and
+    anchors of ``_patch_gather``, each tap's 2x2 stencil at its offset
+    (dy, dx) from the anchor, clipped to [0, 2]^2, combined outside the
+    kernel as 16 separable coefficients in the rows' dtype (rounded, then
+    accumulated position by position, as JAX does).
+
+    Args: pts [R, S, 3] with rays in 2x2 pixel blocks (``patch_ray_perm``);
+    proj [V, 4, 4]; pmaps from ``build_patch_maps(foot=(4, 4), block=(2, 2))``.
+    Returns rgb_feat [V, R, S, C] in the maps' dtype (K1's ``rgb_feat``
+    contract; validity, ray-diff and point code are the kernel's).
+    """
+    if pmaps.block != (2, 2):
+        raise ValueError("the XLA-combine patch sampler supports only 2x2 ray blocks "
+                         f"(got {pmaps.block}); larger blocks need K1's patch_rows mode")
+    rows, x, y, sx, sy, ax, ay = _patch_gather(pts, proj, pmaps)
+    v, b, s, c16 = rows.shape
+    c = c16 // 16
+    dt = rows.dtype
+
+    def per_tap(q):  # [V, R, S] -> [V, B, S, 4]
+        return q.reshape(v, b, 4, s).permute(0, 1, 3, 2)
+
+    wx0 = per_tap(torch.clamp(1.0 - torch.abs(x - sx), min=0.0))
+    wx1 = per_tap(torch.clamp(1.0 - torch.abs(x - (sx + 1.0)), min=0.0))
+    wy0 = per_tap(torch.clamp(1.0 - torch.abs(y - sy), min=0.0))
+    wy1 = per_tap(torch.clamp(1.0 - torch.abs(y - sy - 1.0), min=0.0))
+    dx = torch.clamp(per_tap(sx) - ax[..., None], 0.0, 2.0)
+    dy = torch.clamp(per_tap(sy) - ay[..., None], 0.0, 2.0)
+    cy = [(wy0 * (dy == i) + wy1 * (dy == i - 1)).to(dt) for i in range(4)]
+    cx = [(wx0 * (dx == j) + wx1 * (dx == j - 1)).to(dt) for j in range(4)]
+    out = torch.zeros((v, b, s, 4, c), dtype=dt, device=rows.device)
+    for i in range(4):
+        for j in range(4):
+            p = i * 4 + j
+            out = out + rows[:, :, :, None, p * c:(p + 1) * c] * (cy[i] * cx[j])[..., None]
+    return out.permute(0, 1, 3, 2, 4).reshape(v, pts.shape[0], s, c)
 
 
 def patch_clamp_counts(pts: torch.Tensor, proj: torch.Tensor, pmaps: FlatPatchMaps):

@@ -5,7 +5,11 @@ ported slices, with the same output keys: the static background from GNT
 (masked view attention reads ``dyn_mask_src_spatial``), the dynamic
 foreground from softmax splatting, composited as
 ``(1 - dyn_mask) * static + dyn_mask * dyn``; ``pure_gnt`` and
-``pure_gnt_with_dyn_mask`` return the static layer alone.
+``pure_gnt_with_dyn_mask`` return the static layer alone. With a
+``render_stride`` the static layer is rendered on every stride-th pixel and
+the full-resolution dynamic layer is brought to its size first, as the JAX
+package does: the rgb by ``jax.image.resize``'s cubic, the mask by its
+nearest, then > 0 (``core.interpolate.resize``).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from pgdvs_tpu_torch.core.interpolate import resize
 from pgdvs_tpu_torch.renderers.config import RenderConfig, check_slice
 from pgdvs_tpu_torch.renderers.dynamic import render_dynamic
 from pgdvs_tpu_torch.renderers.static_gnt import render_image_gnt
@@ -53,6 +58,10 @@ def render_novel_view(models, data, cfg: RenderConfig,
 
     dyn = render_dynamic(data, cfg, generator=generator, noise=noise)
     dyn_rgb, dyn_mask = dyn["rgb"], dyn["mask"]
+    if cfg.render_stride > 1:
+        rh, rw = static_rgb.shape[:2]
+        dyn_rgb = resize(dyn_rgb, rh, rw, "cubic")
+        dyn_mask = (resize(dyn_mask, rh, rw, "nearest") > 0).float()
     ret.update({
         "render_dyn_rgb": dyn_rgb,
         "render_dyn_mask": dyn_mask,

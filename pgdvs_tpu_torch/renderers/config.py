@@ -22,7 +22,18 @@ hand kernel; which one follows from the semantic flags alone:
                                 ``gnt_fused_apply_mono3``), fed the mask,
                                 the ray-diff code and the point code that
                                 the exact sampler materializes, as the JAX
-                                package's ``RenderConfig()`` runs mono3.
+                                package's ``RenderConfig()`` runs mono3;
+  fused sampling, either        K2, validity read from the sampler's mask
+                                (the preset's mono3: fold_mask needs quad
+                                or patch maps);
+  quad_i8 sampling, no dyn mask K1 on the dequantized int8 quad samples
+                                (the preset's mono4);
+  quad_i8 sampling, dyn mask    K2, as quad with the dyn mask.
+
+Under the JAX package's unforced flags, fused and quad_i8 run mono3 with
+every operand read (K2 unfolded); the values agree to bf16 either way. A
+GNT made with ``ret_view_std`` runs the plain network on every path, as
+JAX's view-std diagnostics run its flax network.
 
 K3 (``kernels/gnt_fused_split.py``, JAX's ``pallas_kernel="split"``) and
 K2's other operand modes (fold_lerp behind ``epipolar_sample_quad_raw``,
@@ -31,11 +42,13 @@ JAX package picks them.
 
 The port renders these slices of the configuration space so far: static
 GNT with or without masked view attention (``gnt_use_dyn_mask``,
-``pure_gnt_with_dyn_mask``), exact (the default, reference-faithful),
-quad or patch epipolar sampling, coarse samples only,
-softsplat dynamic layer with or without statistical outlier removal
-(``dyn_pcl_remove_outlier``), no tracker. ``check_slice`` raises ValueError
-for anything outside them; nothing falls back silently.
+``pure_gnt_with_dyn_mask``), every epipolar sampler of the JAX package
+(exact, the default and reference-faithful; fused, quad, quad_i8, patch),
+coarse and fine samples, any render stride, softsplat dynamic layer with
+or without statistical outlier removal (``dyn_pcl_remove_outlier``), no
+tracker. ``check_slice`` raises ValueError for anything outside them (the
+geo static mode, pcl / mesh dynamic rendering, the track branch); nothing
+falls back silently.
 """
 
 from __future__ import annotations
@@ -80,7 +93,8 @@ class RenderConfig:
 
     # --- execution ---------------------------------------------------------
     ray_tile: int = 2048        # rays per GNT call
-    epipolar_mode: str = "exact"  # 'exact' (reference-faithful) | 'quad' | 'patch'
+    epipolar_mode: str = "exact"  # 'exact' (reference-faithful) | 'fused' | 'quad'
+    #                               | 'quad_i8' | 'patch' (the JAX package's samplers)
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
@@ -100,10 +114,8 @@ def check_slice(cfg: RenderConfig, static_mode: str = "gnt") -> None:
     """Raise ValueError unless the port renders ``cfg``."""
     unsupported = {
         "static_mode != 'gnt'": static_mode != "gnt",
-        "n_fine_samples_per_ray > 0": cfg.n_fine_samples_per_ray > 0,
-        "epipolar_mode not in ('exact', 'quad', 'patch')":
-            cfg.epipolar_mode not in ("exact", "quad", "patch"),
-        "render_stride != 1": cfg.render_stride != 1,
+        "epipolar_mode not in ('exact', 'fused', 'quad', 'quad_i8', 'patch')":
+            cfg.epipolar_mode not in ("exact", "fused", "quad", "quad_i8", "patch"),
         "dyn_render_type != 'softsplat'": cfg.dyn_render_type != "softsplat",
         "dyn_render_track_temporal != 'none'": cfg.dyn_render_track_temporal != "none",
     }

@@ -26,7 +26,19 @@ on the CPU):
          (``epipolar_sample_patch_raw``), then K1's patch_rows mode
          (``gnt_fused_mono4_patch``, the combine in the kernel). The block
          is 4x2 where the geometry allows, else 2x2, else the render falls
-         back to quad, each with a warning (``resolve_epipolar_cfg``).
+         back to quad, each with a warning (``resolve_epipolar_cfg``);
+  fused  the fused maps lerped in bf16 (``epipolar_sample_fused``), then K2
+         with the sampler's validity mask, as the JAX package's preset
+         runs mono3 there (fold_mask needs quad or patch maps);
+  quad_i8  int8 quad maps with per-channel scales, dequantized to bf16 in
+         the sampler (``epipolar_sample_fused(quad=True)``), then K1 on the
+         samples without the dyn mask (the preset's mono4), K2 with it.
+
+With ``n_fine_samples_per_ray > 0`` every tile runs a second pass (the same
+sampler and kernel) on the merged coarse + fine samples; a ``render_stride``
+puts the rays on every stride-th pixel. A GNT made with ``ret_view_std``
+runs the plain versions of these kernels (the module itself) on any device,
+and the fast preset's patch falls back to quad for it, as in JAX.
 """
 
 from __future__ import annotations
@@ -37,9 +49,21 @@ from typing import Dict, Optional
 import torch
 
 from pgdvs_tpu_torch.core import cameras, sampling
-from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4, pack_mono4_weights
-from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_apply_mono3, gnt_fused_mono3
-from pgdvs_tpu_torch.kernels.gnt_fused_patch import gnt_fused_mono4_patch
+from pgdvs_tpu_torch.kernels.gnt_fused import (
+    gnt_fused_mono4,
+    gnt_fused_mono4_plain,
+    pack_mono4_weights,
+)
+from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import (
+    gnt_fused_apply_mono3,
+    gnt_fused_apply_mono3_plain,
+    gnt_fused_mono3,
+    gnt_fused_mono3_plain,
+)
+from pgdvs_tpu_torch.kernels.gnt_fused_patch import (
+    gnt_fused_mono4_patch,
+    gnt_fused_mono4_patch_plain,
+)
 from pgdvs_tpu_torch.models.gnt.feature_net import ResUNet
 from pgdvs_tpu_torch.models.gnt.network import GNT, sinusoidal_embed
 from pgdvs_tpu_torch.models.gnt.projector import (
@@ -47,17 +71,24 @@ from pgdvs_tpu_torch.models.gnt.projector import (
     ExactMaps,
     build_fused_maps,
     build_patch_maps,
+    build_quad_maps,
     epipolar_sample,
+    epipolar_sample_fused,
     epipolar_sample_patch_raw,
     epipolar_sample_quad,
     epipolar_sample_quad_masked,
+    flatten_quad_maps,
+    quantize_quad_maps,
 )
 from pgdvs_tpu_torch.renderers.config import RenderConfig, check_slice
 
 
-def make_gnt_models(netwidth: int = 64, depth: int = 8, feat_ch: int = 32):
-    """The (feature_net, gnt) pair, freshly initialised by torch."""
-    return ResUNet(out_channels=feat_ch), GNT(netwidth, depth, feat_ch)
+def make_gnt_models(netwidth: int = 64, depth: int = 8, feat_ch: int = 32,
+                    ret_view_std: bool = False):
+    """The (feature_net, gnt) pair, freshly initialised by torch; with
+    ``ret_view_std`` the GNT returns the view-std diagnostics and renders
+    on the plain network."""
+    return ResUNet(out_channels=feat_ch), GNT(netwidth, depth, feat_ch, ret_view_std)
 
 
 def init_gnt_models(seed: int = 0, device="cuda", **kw):
@@ -82,9 +113,10 @@ def resolve_epipolar_cfg(cfg: RenderConfig, gnt, rh: int, rw: int):
 
     Returns (cfg, block): for patch, the 4x2 block when rh % 4 == 0 and
     rw % 2 == 0, else "2x2"; and patch only when there is no dyn mask, the
-    network is width 64 / depth 8, the block divides the render and the
-    tile quantum min(ray_tile, rh * rw) is a multiple of the block and of 8,
-    else cfg falls back to quad. block is None off the patch path.
+    network is width 64 / depth 8 without the view-std diagnostics, the
+    block divides the render and the tile quantum min(ray_tile, rh * rw) is
+    a multiple of the block and of 8, else cfg falls back to quad. block is
+    None off the patch path.
     """
     if cfg.epipolar_mode != "patch":
         return cfg, None
@@ -97,6 +129,7 @@ def resolve_epipolar_cfg(cfg: RenderConfig, gnt, rh: int, rw: int):
     quantum = min(cfg.ray_tile, rh * rw)
     patch_ok = (
         not cfg.gnt_use_dyn_mask
+        and not gnt.ret_view_std
         and gnt.netwidth == 64
         and gnt.depth == 8
         and rh % by == 0
@@ -106,8 +139,8 @@ def resolve_epipolar_cfg(cfg: RenderConfig, gnt, rh: int, rw: int):
     )
     if not patch_ok:
         warnings.warn("epipolar_mode='patch' requires no dyn mask, GNT width 64 / "
-                      "depth 8, even render dims and a tile that is a multiple of "
-                      "the block and of 8; falling back to 'quad'", stacklevel=2)
+                      "depth 8, no view-std, even render dims and a tile that is a "
+                      "multiple of the block and of 8; falling back to 'quad'", stacklevel=2)
         return cfg.replace(epipolar_mode="quad"), None
     return cfg, block
 
@@ -125,8 +158,10 @@ def build_sampling_maps(cfg: RenderConfig, src_rgbs, feats, src_invalid_masks=No
     """The per-image maps the sampler of ``cfg.epipolar_mode`` reads:
     ``ExactMaps`` (rgb and features in bf16, JAX's sample dtype; the dyn
     masks in float32) for exact, the fused [V, H, W, 3+F(+1)] bf16 maps for
-    quad, ``FlatPatchMaps`` of ``block`` (``resolve_epipolar_cfg``) for
-    patch. The dyn masks are read only with ``cfg.gnt_use_dyn_mask``."""
+    quad and fused, the int8 quad maps with their scales
+    (``FlatQuadMaps``) for quad_i8, ``FlatPatchMaps`` of ``block``
+    (``resolve_epipolar_cfg``) for patch. The dyn masks are read only with
+    ``cfg.gnt_use_dyn_mask``."""
     masks = src_invalid_masks if cfg.gnt_use_dyn_mask else None
     if cfg.epipolar_mode == "patch":
         blk, foot = PATCH_BLOCKS[block]
@@ -134,7 +169,93 @@ def build_sampling_maps(cfg: RenderConfig, src_rgbs, feats, src_invalid_masks=No
     if cfg.epipolar_mode == "exact":
         return ExactMaps(src_rgbs.to(torch.bfloat16), feats.to(torch.bfloat16),
                          None if masks is None else masks.float())
+    if cfg.epipolar_mode == "quad_i8":
+        return flatten_quad_maps(*quantize_quad_maps(build_quad_maps(src_rgbs, feats, masks)))
     return build_fused_maps(src_rgbs, feats, masks)
+
+
+def _forwards(gnt_params):
+    """(params, K1, K1 patch_rows, K2 masked, K2 in any mode) for one pass:
+    the hand kernels' wrappers, or, for a GNT made with ``ret_view_std``,
+    their plain versions on the GNT module itself, on the rays' device (no
+    hand kernel computes the view-std diagnostics; the JAX package likewise
+    turns its kernels off for them)."""
+    gnt = gnt_params if isinstance(gnt_params, GNT) else gnt_params.gnt
+    if gnt.ret_view_std:
+        return (gnt, gnt_fused_mono4_plain, gnt_fused_mono4_patch_plain,
+                gnt_fused_mono3_plain, gnt_fused_apply_mono3_plain)
+    return (gnt_params, gnt_fused_mono4, gnt_fused_mono4_patch, gnt_fused_mono3,
+            gnt_fused_apply_mono3)
+
+
+def gnt_pass(gnt_params, pts, z_vals, rays_d, tgt_cam, src_cams, maps,
+             cfg: RenderConfig) -> Dict[str, torch.Tensor]:
+    """One GNT pass over sample points pts [R, S, 3] at depths z_vals
+    [R, S]: the sampler of ``cfg.epipolar_mode``, the transformer
+    (``_forwards``) and the per-ray outputs of ``render_rays_gnt``."""
+    params, k1, k1_patch, k2, k2_apply = _forwards(gnt_params)
+    mode = cfg.epipolar_mode
+    view_code = sinusoidal_embed(rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True))
+    smp = None
+    if mode == "exact":
+        smp = epipolar_sample(pts, tgt_cam, src_cams, *maps)
+        out = k2_apply(params, smp["rgb_feat"], smp["ray_diff"], smp["mask"],
+                       sinusoidal_embed(pts), view_code)
+    else:
+        proj = cameras.flat_cam_projection(src_cams)
+        centers = torch.cat([
+            cameras.flat_cam_c2w(tgt_cam)[None, :3, 3],
+            cameras.flat_cam_c2w(src_cams)[:, :3, 3],
+        ])
+        if mode == "patch":
+            raw = epipolar_sample_patch_raw(pts, proj, maps)
+            _, map_h, map_w = maps.vhw
+            out = k1_patch(params, raw["rows"], raw["coef"], pts, view_code, centers, proj,
+                           (map_h, map_w))
+        elif mode in ("fused", "quad_i8"):
+            smp = epipolar_sample_fused(pts, proj, maps, cfg.gnt_use_dyn_mask,
+                                        quad=mode == "quad_i8")
+            if mode == "quad_i8" and not cfg.gnt_use_dyn_mask:
+                out = k1(params, smp["rgb_feat"], pts, view_code, centers, proj,
+                         maps.vhw[1:])
+            else:
+                out = k2(params, smp["rgb_feat"], smp["mask"], pts, view_code, centers)
+        elif cfg.gnt_use_dyn_mask:
+            smp = epipolar_sample_quad_masked(pts, proj, maps)
+            out = k2(params, smp["rgb_feat"], smp["mask"], pts, view_code, centers)
+        else:
+            rgb_feat = epipolar_sample_quad(pts, proj, maps)
+            _, map_h, map_w, _ = maps.shape
+            out = k1(params, rgb_feat, pts, view_code, centers, proj, (map_h, map_w))
+    weights = out["weights"]
+    if not cfg.gnt_use_dyn_mask:
+        # validity is the in-bounds mask, so the kernel's count is the
+        # renderer's inbound count (static_gnt.py:359-364 in JAX)
+        inbound_cnt = out["inbound_cnt_raw"]
+        dyn_cnt = torch.zeros_like(inbound_cnt)
+    else:
+        # the kernel counts mask views; the renderer's counts are of
+        # in-bounds and of dynamic views (static_gnt.py:365-377 in JAX)
+        n_src = src_cams.shape[0]
+        inbound_cnt = torch.sum(weights * smp["mask_inbound"].sum(0) / n_src, dim=-1)
+        dyn_cnt = torch.sum(weights * smp["mask_invalid"].sum(0) / n_src, dim=-1)
+    if "view_std" in out:
+        # per-block diagnostics composited along the ray by the same weights
+        std = torch.sum(weights[..., None] * out["view_std"], dim=-2)
+        norm_std = torch.sum(weights[..., None] * out["view_std_normalized"], dim=-2)
+    else:
+        gnt = gnt_params if isinstance(gnt_params, GNT) else gnt_params.gnt
+        std = norm_std = torch.zeros(weights.shape[:-1] + (gnt.depth + 1,),
+                                     dtype=torch.float32, device=weights.device)
+    return {
+        "rgb": out["rgb"],
+        "depth": torch.sum(weights * z_vals, dim=-1),
+        "weights": weights,
+        "inbound_cnt": inbound_cnt,
+        "dyn_cnt": dyn_cnt,
+        "view_std": std,
+        "view_std_normalized": norm_std,
+    }
 
 
 def render_rays_gnt(gnt_params, rays_o, rays_d, depth_range, tgt_cam, src_cams,
@@ -149,65 +270,29 @@ def render_rays_gnt(gnt_params, rays_o, rays_d, depth_range, tgt_cam, src_cams,
       the rays come in the maps' pixel blocks (``patch_ray_perm``) and R is
       a multiple of the block (else ValueError).
 
+    The coarse pass places ``cfg.n_coarse_samples_per_ray`` samples; with
+    ``cfg.n_fine_samples_per_ray > 0`` a second pass, with the same sampler
+    and transformer, runs on the coarse z values merged with the ones
+    importance-resampled from the coarse weights (``sample_fine_z_vals``),
+    and its outputs are returned, as the JAX package does.
+
     Returns rgb [R, 3], depth [R], weights [R, S], inbound_cnt [R],
     dyn_cnt [R] (zero without the dyn mask), view_std /
-    view_std_normalized [R, depth+1] (zero: the diagnostics are not
-    computed).
+    view_std_normalized [R, depth+1] (zero unless the GNT was made with
+    ``ret_view_std``).
     """
     pts, z_vals = sampling.sample_along_rays(
         rays_o, rays_d, depth_range, cfg.n_coarse_samples_per_ray,
         inv_uniform=cfg.sample_inv_uniform,
     )
-    view_code = sinusoidal_embed(rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True))
-    smp = None
-    if cfg.epipolar_mode == "exact":
-        smp = epipolar_sample(pts, tgt_cam, src_cams, *maps)
-        out = gnt_fused_apply_mono3(gnt_params, smp["rgb_feat"], smp["ray_diff"],
-                                    smp["mask"], sinusoidal_embed(pts), view_code)
-    else:
-        proj = cameras.flat_cam_projection(src_cams)
-        centers = torch.cat([
-            cameras.flat_cam_c2w(tgt_cam)[None, :3, 3],
-            cameras.flat_cam_c2w(src_cams)[:, :3, 3],
-        ])
-        if cfg.epipolar_mode == "patch":
-            raw = epipolar_sample_patch_raw(pts, proj, maps)
-            _, map_h, map_w = maps.vhw
-            out = gnt_fused_mono4_patch(gnt_params, raw["rows"], raw["coef"], pts,
-                                        view_code, centers, proj, (map_h, map_w))
-        elif cfg.gnt_use_dyn_mask:
-            smp = epipolar_sample_quad_masked(pts, proj, maps)
-            out = gnt_fused_mono3(gnt_params, smp["rgb_feat"], smp["mask"], pts,
-                                  view_code, centers)
-        else:
-            rgb_feat = epipolar_sample_quad(pts, proj, maps)
-            _, map_h, map_w, _ = maps.shape
-            out = gnt_fused_mono4(gnt_params, rgb_feat, pts, view_code, centers, proj,
-                                  (map_h, map_w))
-    weights = out["weights"]
-    if not cfg.gnt_use_dyn_mask:
-        # validity is the in-bounds mask, so the kernel's count is the
-        # renderer's inbound count (static_gnt.py:359-364 in JAX)
-        inbound_cnt = out["inbound_cnt_raw"]
-        dyn_cnt = torch.zeros_like(inbound_cnt)
-    else:
-        # the kernel counts mask views; the renderer's counts are of
-        # in-bounds and of dynamic views (static_gnt.py:365-377 in JAX)
-        n_src = src_cams.shape[0]
-        inbound_cnt = torch.sum(weights * smp["mask_inbound"].sum(0) / n_src, dim=-1)
-        dyn_cnt = torch.sum(weights * smp["mask_invalid"].sum(0) / n_src, dim=-1)
-    gnt = gnt_params if isinstance(gnt_params, GNT) else gnt_params.gnt
-    std = torch.zeros(weights.shape[:-1] + (gnt.depth + 1,),
-                      dtype=torch.float32, device=weights.device)
-    return {
-        "rgb": out["rgb"],
-        "depth": torch.sum(weights * z_vals, dim=-1),
-        "weights": weights,
-        "inbound_cnt": inbound_cnt,
-        "dyn_cnt": dyn_cnt,
-        "view_std": std,
-        "view_std_normalized": std,
-    }
+    out = gnt_pass(gnt_params, pts, z_vals, rays_d, tgt_cam, src_cams, maps, cfg)
+    if cfg.n_fine_samples_per_ray > 0:
+        z_vals = sampling.sample_fine_z_vals(z_vals, out["weights"],
+                                             cfg.n_fine_samples_per_ray,
+                                             inv_uniform=cfg.sample_inv_uniform)
+        pts = rays_o[:, None, :] + z_vals[..., None] * rays_d[:, None, :]
+        out = gnt_pass(gnt_params, pts, z_vals, rays_d, tgt_cam, src_cams, maps, cfg)
+    return out
 
 
 def render_rays_tiled(gnt_params, rays_o, rays_d, dr, tgt_cam, src_cams,
@@ -235,7 +320,8 @@ def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
       depth_range [2] or [H, W, 2]; src_invalid_masks [V, H, W, 1]
       (1 = dynamic), read when ``cfg.gnt_use_dyn_mask``.
 
-    Returns [H, W, C] maps: rgb, depth, weights, inbound_cnt, dyn_cnt,
+    Rays go through the pixels ``[::render_stride, ::render_stride]``.
+    Returns [rh, rw, C] maps: rgb, depth, weights, inbound_cnt, dyn_cnt,
     view_std(+normalized), oob_mask and, with the dyn mask,
     dyn_mask_any / dyn_mask_all / dyn_mask_thres.
     """
@@ -246,6 +332,7 @@ def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
     h, w = image_hw
     rays_o, rays_d, _uv, (rh, rw) = cameras.get_rays(
         h, w, cameras.flat_cam_intrinsics(tgt_cam), cameras.flat_cam_c2w(tgt_cam),
+        stride=cfg.render_stride,
     )
     n_rays = rh * rw
     cfg, block = resolve_epipolar_cfg(cfg, gnt, rh, rw)
@@ -254,7 +341,7 @@ def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
     if depth_range.ndim == 1:
         dr = depth_range.expand(n_rays, 2)
     else:
-        dr = depth_range.reshape(-1, 2)
+        dr = depth_range[::cfg.render_stride, ::cfg.render_stride].reshape(-1, 2)
     inv_perm = None
     if block is not None:
         # consecutive groups of by*bx rays share one patch row per (sample,
@@ -263,7 +350,7 @@ def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
                                         device=rays_o.device)
         rays_o, rays_d, dr = rays_o[perm], rays_d[perm], dr[perm]
     params = gnt
-    if rays_o.device.type == "cuda":
+    if rays_o.device.type == "cuda" and not gnt.ret_view_std:
         params = pack_mono4_weights(gnt, rays_o.device)
     flat = render_rays_tiled(params, rays_o, rays_d, dr, tgt_cam, src_cams, maps, cfg)
     if inv_perm is not None:

@@ -6,6 +6,7 @@
     python3 scripts/profile_port_render.py --preset exact   # unmasked exact (K2 unfolded)
     python3 scripts/profile_port_render.py --bundle default # masked bundle (K2)
     python3 scripts/profile_port_render.py --bundle default --preset exact  # (K2 unfolded)
+    python3 scripts/profile_port_render.py --fine 64        # + 64 fine samples (two passes)
 
 Renders the 288x550, 10-source, 256-sample synthetic scene of
 ``chip_smoke.py`` once as a warm-up, times a second render with the host
@@ -52,6 +53,8 @@ def main() -> int:
                     help="fast (the JAX package's preset: patch sampler, or quad with "
                     "the dyn mask), quad (the fast preset on the quad sampler) or "
                     "exact (the reference-faithful sampler)")
+    ap.add_argument("--fine", type=int, default=0,
+                    help="fine samples per ray (a second pass on the merged samples)")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
 
@@ -74,7 +77,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     models = init_gnt_models(seed=chip_smoke.SEED)
-    cfg = chip_smoke.slice_config(args.bundle, preset=args.preset)
+    cfg = chip_smoke.slice_config(args.bundle, preset=args.preset,
+                                  n_fine_samples_per_ray=args.fine)
     data_np = make_contract_data(h=288, w=550, n_spatial=10, n_frames=12, tgt_time=0.5)
     data = {k: torch.as_tensor(v).cuda() for k, v in data_np.items()
             if isinstance(v, np.ndarray)}
@@ -104,7 +108,8 @@ def main() -> int:
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     total = sum(us for us, _n in by_name.values()) / 1e6
-    label = f"{args.bundle or 'unmasked'}, {args.preset} preset ({cfg.epipolar_mode} sampler)"
+    label = (f"{args.bundle or 'unmasked'}, {args.preset} preset ({cfg.epipolar_mode} sampler, "
+             f"{cfg.n_coarse_samples_per_ray} + {args.fine} fine samples)")
     print(f"[profile] {label}: unprofiled render {wall:.4f} s; profiled render "
           f"{prof_wall:.4f} s; kernel time {total:.4f} s; device busy {busy:.4f} s "
           f"= {busy / prof_wall:.2%} of the profiled render's wall clock (idle "

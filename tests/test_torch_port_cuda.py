@@ -561,3 +561,152 @@ def test_prologue_reads_rows_at_any_offset(card):
     h0, q0 = kpro.gnt_prologue(gnt, feats)
     torch.cuda.synchronize()
     assert torch.equal(h, h0) and torch.equal(q, q0)
+
+
+# ------------------------------------------------- the renderer's other modes
+
+def _render_card_and_cpu(card, cfg, models_kw=None, hw=(24, 32)):
+    """The tiny scene rendered on the CPU (plain versions) and on the card
+    with the launch counts set to 0 just before; (card out, cpu out,
+    {kernel: launches} of the card's render)."""
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.kernels import gnt_prologue as kpro
+    from pgdvs_tpu_torch.renderers.compose import render_novel_view
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    h, w = hw
+    data = make_contract_data(h=h, w=w, n_spatial=3, n_frames=6)
+    noise = torch.from_numpy(np.random.default_rng(0).normal(size=(h, w, 3)).astype(np.float32))
+    outs, counted = {}, (k1.gnt_fused_mono4, kp.gnt_fused_mono4_patch, k2.gnt_fused_mono3,
+                         k3.gnt_split_view, k3.gnt_split_ray)
+    for dev in ("cpu", card):
+        tdata = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in data.items()
+                 if isinstance(v, np.ndarray)}
+        for fn in counted:
+            fn.launches = 0
+        k2.gnt_fused_apply_mono3.launches = collections.Counter()
+        kpro.gnt_prologue.launches = collections.Counter()
+        outs[str(dev)] = render_novel_view(init_gnt_models(seed=0, device=dev, **(models_kw or {})),
+                                           tdata, cfg, noise=noise.to(dev))
+    launches = {fn.__name__: fn.launches for fn in counted if fn.launches}
+    launches.update({f"gnt_fused_apply_mono3[{m}]": n
+                     for m, n in k2.gnt_fused_apply_mono3.launches.items()})
+    return outs["cuda"], outs["cpu"], launches
+
+
+def _assert_slice_close(got, ref, keys=("combined_rgb", "static_coarse_rgb",
+                                        "static_coarse_depth", "static_coarse_inbound_cnt")):
+    for key in keys:
+        tol = {"rgb": 0.04, "depth": 0.1, "cnt": 0.02, "std": 0.01,
+               "normalized": 0.01}[key.rsplit("_", 1)[-1]]
+        assert got[key].shape == ref[key].shape
+        torch.testing.assert_close(got[key].cpu(), ref[key], atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("preset", ["fast", "exact"])
+def test_fine_render_on_card_matches_cpu(card, preset):
+    """Fine samples (7 + 5, the merged count odd) on the fast preset (K1
+    patch_rows) and on `default` exact (K2 unfolded): two launches per ray
+    tile, one per pass."""
+    from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
+    from pgdvs_tpu_torch.renderers.config import RenderConfig, apply_perf_preset
+
+    small = dict(n_coarse_samples_per_ray=7, n_fine_samples_per_ray=5, ray_tile=256)
+    if preset == "fast":
+        cfg, want = apply_perf_preset(RenderConfig(**small)), {"gnt_fused_mono4_patch": 6}
+    else:
+        cfg = resolve_benchmark("default", preset="exact")[0].replace(**small)
+        want = {"gnt_fused_apply_mono3[unfolded]": 6}
+    got, ref, launches = _render_card_and_cpu(card, cfg)
+    assert launches == want  # 24 * 32 rays in tiles of 256, two passes
+    assert got["static_coarse_weights"].shape == (24, 32, 12)
+    _assert_slice_close(got, ref)
+
+
+def test_strided_render_on_card_matches_cpu(card):
+    """`default` quad at render stride 2: a 12x16 render on K2, the dynamic
+    layer resized to it."""
+    from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
+
+    cfg = resolve_benchmark("default")[0].replace(n_coarse_samples_per_ray=16, ray_tile=128,
+                                                  render_stride=2)
+    got, ref, launches = _render_card_and_cpu(card, cfg)
+    assert launches == {"gnt_fused_mono3": 2}
+    assert got["render_dyn_rgb"].shape == (12, 16, 3)
+    assert got["render_dyn_mask"].shape == (12, 16, 1)
+    _assert_slice_close(got, ref, ("combined_rgb", "static_coarse_rgb", "static_coarse_depth",
+                                   "static_coarse_inbound_cnt", "static_coarse_dyn_cnt"))
+
+
+@pytest.mark.parametrize("mode,dyn,want", [
+    ("fused", False, {"gnt_fused_mono3": 3}), ("fused", True, {"gnt_fused_mono3": 3}),
+    ("quad_i8", False, {"gnt_fused_mono4": 3}), ("quad_i8", True, {"gnt_fused_mono3": 3})])
+def test_fused_and_quad_i8_renders_on_card_match_cpu(card, mode, dyn, want):
+    from pgdvs_tpu_torch.renderers.config import RenderConfig, apply_perf_preset
+
+    cfg = apply_perf_preset(RenderConfig(gnt_use_dyn_mask=dyn, n_coarse_samples_per_ray=16,
+                                         ray_tile=256)).replace(epipolar_mode=mode)
+    got, ref, launches = _render_card_and_cpu(card, cfg)
+    assert launches == want
+    _assert_slice_close(got, ref)
+
+
+def test_view_std_render_on_card_launches_no_kernel(card):
+    """A GNT made with ret_view_std renders on the plain network on the card:
+    no kernel launch, view-std maps finite, non-zero and as on the CPU."""
+    from pgdvs_tpu_torch.renderers.config import RenderConfig
+
+    cfg = RenderConfig(n_coarse_samples_per_ray=16, ray_tile=256, epipolar_mode="quad")
+    got, ref, launches = _render_card_and_cpu(card, cfg, {"ret_view_std": True})
+    assert launches == {}
+    assert bool(torch.isfinite(got["static_coarse_view_std"]).all())
+    assert float(got["static_coarse_view_std"][..., 0].min()) > 0
+    _assert_slice_close(got, ref, ("combined_rgb", "static_coarse_depth",
+                                   "static_coarse_view_std", "static_coarse_view_std_normalized"))
+
+
+def test_new_samplers_on_card_match_cpu(card):
+    """The quad maps, their int8 quantization, both forms of
+    epipolar_sample_fused, the 2x2 XLA-combine patch sampler and the fine
+    samples, on the card against the same functions on the CPU: the same
+    bf16 / float32 steps, so equal up to one bf16 ulp (float32 ulps for the
+    fine samples)."""
+    from pgdvs_tpu_torch.core import sampling
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.models.gnt import projector as proj
+    from pgdvs_tpu_torch.renderers.static_gnt import patch_ray_perm
+
+    rng = np.random.default_rng(2)
+    data = make_contract_data(h=24, w=32, n_spatial=3, n_frames=4)
+    rgbs = torch.from_numpy(rng.uniform(0, 1, (3, 24, 32, 3)).astype(np.float32))
+    feats = torch.from_numpy(rng.uniform(-1, 1, (3, 6, 8, 32)).astype(np.float32))
+    masks = torch.from_numpy((rng.uniform(size=(3, 24, 32, 1)) > 0.6).astype(np.float32))
+    tgt = torch.from_numpy(data["flat_cam_tgt"])
+    cams = torch.from_numpy(data["flat_cam_src_spatial"])
+    rays_o, rays_d, _uv, _ = cam.get_rays(24, 32, cam.flat_cam_intrinsics(tgt),
+                                          cam.flat_cam_c2w(tgt))
+    perm, _ = patch_ray_perm(24 * 32, 24, 32, 2, 2)
+    pts = rays_o[perm, None] + rays_d[perm, None] * torch.linspace(1.5, 8.0, 9)[:, None]
+
+    def run(dev):
+        p = cam.flat_cam_projection(cams.to(dev))
+        q = proj.build_quad_maps(rgbs.to(dev), feats.to(dev), masks.to(dev))
+        i8 = proj.flatten_quad_maps(*proj.quantize_quad_maps(q))
+        fused = proj.build_fused_maps(rgbs.to(dev), feats.to(dev), masks.to(dev))
+        pm = proj.build_patch_maps(rgbs.to(dev), feats.to(dev))
+        z = sampling.sample_z_vals(torch.full((50,), 1.5, device=dev),
+                                   torch.full((50,), 8.0, device=dev), 9, True)
+        w = torch.softmax(0.3 * torch.arange(9.0, device=dev).expand(50, 9), -1)
+        return {"quad": q, "scales": i8.scales, "int8": i8.flat,
+                "fused": proj.epipolar_sample_fused(pts.to(dev), p, fused, True)["rgb_feat"],
+                "quad_i8": proj.epipolar_sample_fused(pts.to(dev), p, i8, True,
+                                                      quad=True)["rgb_feat"],
+                "patch": proj.epipolar_sample_patch(pts.to(dev), p, pm),
+                "fine_z": sampling.sample_fine_z_vals(z, w, 16, True)}
+
+    got, ref = run(card), run("cpu")
+    assert torch.equal(got["int8"].cpu(), ref["int8"])
+    for key, val in ref.items():
+        g = got[key].cpu().float()
+        ulp = (2.0 ** -7 if val.dtype == torch.bfloat16 else 2.0 ** -23) * val.float().abs()
+        assert bool(((g - val.float()).abs() <= ulp + 1e-30).all()), key

@@ -150,8 +150,8 @@ def test_masked_bundles_refuse_what_stays_outside():
         cfg = resolve_benchmark(name)[0].replace(n_coarse_samples_per_ray=4)
         with pytest.raises(ValueError, match="outside the ported slice"):
             render_novel_view(models, _tdata(data), cfg)
-    with pytest.raises(ValueError, match="n_fine_samples_per_ray"):
-        render_novel_view(models, _tdata(data), base.replace(n_fine_samples_per_ray=4))
+    with pytest.raises(ValueError, match="static_mode"):
+        render_novel_view(models, _tdata(data), base, static_mode="geo")
     no_masks = {k: v for k, v in _tdata(data).items() if k != "dyn_mask_src_spatial"}
     with pytest.raises(ValueError, match="dynamic masks"):
         render_novel_view(models, no_masks, base)

@@ -139,15 +139,15 @@ def test_bundle_resolves_like_jax_on_the_exact_preset(name):
 
 
 def test_check_slice_accepts_exact_and_quad_only():
-    """Exact, quad and (since the fast preset's own sampler is ported)
-    patch; the JAX package's other samplers are refused."""
+    """Exact (the default), quad, patch and, since the JAX package's other
+    samplers are ported, fused and quad_i8; a mode JAX does not know is
+    refused."""
     check_slice(RenderConfig())
     assert RenderConfig().epipolar_mode == "exact"
-    check_slice(RenderConfig(epipolar_mode="quad"))
-    check_slice(RenderConfig(epipolar_mode="patch"))
-    for mode in ("fused", "quad_i8"):
-        with pytest.raises(ValueError, match="epipolar_mode"):
-            check_slice(RenderConfig(epipolar_mode=mode))
+    for mode in ("quad", "patch", "fused", "quad_i8"):
+        check_slice(RenderConfig(epipolar_mode=mode))
+    with pytest.raises(ValueError, match="epipolar_mode"):
+        check_slice(RenderConfig(epipolar_mode="quad_u4"))
 
 
 # --------------------------------------------------------------- metrics

@@ -112,10 +112,9 @@ def test_slice_refuses_configs_outside_it(both):
     models = init_gnt_models(device="cpu")
     base = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=4))
     for cfg, mode in ((base.replace(dyn_render_type="pcl"), "gnt"),
-                      (base.replace(n_fine_samples_per_ray=4), "gnt"),
                       (base, "geo"),
                       (base.replace(dyn_render_type="mesh"), "gnt"),
                       (base.replace(dyn_render_track_temporal="no_tgt"), "gnt"),
-                      (base.replace(epipolar_mode="fused"), "gnt")):
+                      (base.replace(epipolar_mode="quad_u4"), "gnt")):
         with pytest.raises(ValueError):
             render_novel_view(models, tdata, cfg, static_mode=mode)
