@@ -15,8 +15,10 @@ into every source view and the fused full-resolution [V, H, W, 3+F(+1)]
 map (rgb + align-corners-upsampled features + optionally the dynamic mask)
 is sampled with a zero-padded bilinear tap, stencil corner clamped to
 (W-2, H-2). The JAX package packs the 2x2 stencil into channels to cut TPU
-gather rows; here the four taps are gathered from the fused map directly —
-the same values. Without the dyn mask (``epipolar_sample_quad``) validity
+gather rows; here the four taps are gathered from the fused map directly and
+lerped with ``quad_bilinear``'s bf16 arithmetic (each tap weight, product
+and partial sum rounded to bf16, (top pair) + (bottom pair)), so the samples
+are JAX's bit for bit. Without the dyn mask (``epipolar_sample_quad``) validity
 and the ray-difference code are left to the GNT kernel; with it
 (``epipolar_sample_quad_masked``) the sampler returns the validity masks
 the masked kernel reads. ``epipolar_sample_quad_raw`` leaves the lerp to
@@ -135,10 +137,20 @@ def quad_bilinear(qmaps, x: torch.Tensor, y: torch.Tensor, scales=None) -> torch
     row = flat[base]                                              # [N, 4C]
     if scales is not None:
         row = row.to(torch.bfloat16) * scales.to(torch.bfloat16)
-    wgt = [t[1].reshape(-1, 1).to(row.dtype) for t in taps]      # (0,0), (0,1), (1,0), (1,1)
-    top = row[:, :c] * wgt[0] + row[:, c:2 * c] * wgt[1]
-    bot = row[:, 2 * c:3 * c] * wgt[2] + row[:, 3 * c:] * wgt[3]
-    return (top + bot).reshape(x.shape + (c,))
+    corners = [row[:, k * c:(k + 1) * c] for k in range(4)]
+    return _quad_lerp(corners, taps).reshape(x.shape + (c,))
+
+
+def _quad_lerp(corners, taps) -> torch.Tensor:
+    """The bilinear combine of the four tap rows [N, C] (corners (0,0),
+    (0,1), (1,0), (1,1)) in the rows' dtype, as the JAX package's
+    ``quad_bilinear`` computes it: each weight computed in float32 and cast
+    to that dtype, each product and partial sum rounded to it, (top pair) +
+    (bottom pair)."""
+    wgt = [t[1].reshape(-1, 1).to(corners[0].dtype) for t in taps]
+    top = corners[0] * wgt[0] + corners[1] * wgt[1]
+    bot = corners[2] * wgt[2] + corners[3] * wgt[3]
+    return top + bot
 
 
 def project_all_views(pts: torch.Tensor, proj: torch.Tensor):
@@ -184,16 +196,26 @@ def multiview_bilinear(imgs: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return out.reshape(x.shape + (c,)).to(out_dtype or imgs.dtype)
 
 
+def _sample_fused_quad(pts: torch.Tensor, proj: torch.Tensor, fused_maps: torch.Tensor):
+    """Project into every view and lerp the fused maps' four taps with
+    ``_quad_lerp``: (samples [V, R, S, C] in the maps' dtype, uv, in_front)."""
+    v, h, w, c = fused_maps.shape
+    uv, _z, in_front = project_all_views(pts, proj)
+    base, taps = _quad_taps(uv[..., 0], uv[..., 1], v, h, w)
+    flat = fused_maps.reshape(v * h * w, c)
+    out = _quad_lerp([flat[base + dd] for dd, _ in taps], taps)
+    return out.reshape(uv.shape[:-1] + (c,)), uv, in_front
+
+
 def epipolar_sample_quad(pts: torch.Tensor, proj: torch.Tensor,
                          fused_maps: torch.Tensor) -> torch.Tensor:
     """Bilinear samples of the fused maps at every projection.
 
-    Args: pts [R, S, 3]; proj [V, 4, 4]; fused_maps [V, H, W, C].
+    Args: pts [R, S, 3]; proj [V, 4, 4]; fused_maps [V, H, W, C] bf16.
     Returns rgb_feat [V, R, S, C] in the maps' dtype (zero outside
-    [0, W-1] x [0, H-1]).
+    [0, W-1] x [0, H-1]): the JAX package's quad sampler bit for bit.
     """
-    uv, _z, _front = project_all_views(pts, proj)
-    return multiview_bilinear(fused_maps, uv[..., 0], uv[..., 1])
+    return _sample_fused_quad(pts, proj, fused_maps)[0]
 
 
 def epipolar_sample_quad_masked(pts: torch.Tensor, proj: torch.Tensor,
@@ -201,39 +223,23 @@ def epipolar_sample_quad_masked(pts: torch.Tensor, proj: torch.Tensor,
     """``epipolar_sample_quad`` on maps whose trailing channel is the
     dynamic mask (``build_fused_maps(..., src_invalid_masks)``).
 
-    Args: pts [R, S, 3]; proj [V, 4, 4]; fused_maps [V, H, W, C+1].
+    Args: pts [R, S, 3]; proj [V, 4, 4]; fused_maps [V, H, W, C+1] bf16.
     Returns a dict, every entry views outer:
       rgb_feat [V, R, S, C] in the maps' dtype;
       mask_inbound [V, R, S] bool: in front and inside [0, W-1] x [0, H-1];
       mask_invalid [V, R, S] bool: the lerped mask channel > 1e-3;
       mask [V, R, S] bool: mask_inbound and not mask_invalid.
 
-    The mask channel is lerped with the JAX package's bf16 arithmetic on its
-    quad rows (``projector.quad_bilinear``: every product and partial sum
-    rounded to bf16, (top pair) + (bottom pair)), so a tap whose value lies
-    near the threshold falls on the same side.
+    Features and mask channel are lerped together with the JAX package's
+    bf16 arithmetic (``_quad_lerp``), so a tap whose mask value lies near
+    the threshold falls on the same side.
     """
-    v, h, w, c1 = fused_maps.shape
-    c = c1 - 1
-    uv, _z, in_front = project_all_views(pts, proj)
-    base, taps = _quad_taps(uv[..., 0], uv[..., 1], v, h, w)
-    flat = fused_maps.reshape(v * h * w, c1)
-
-    def bf(x):
-        return x.to(torch.bfloat16).float()
-
-    feat, dyn = None, []
-    for dd, wgt in taps:
-        rows = flat[base + dd]
-        f = rows[:, :c].float() * wgt.reshape(-1, 1)
-        feat = f if feat is None else feat + f
-        dyn.append(bf(rows[:, c].float() * bf(wgt.reshape(-1))))
-    shape = uv.shape[:-1]
+    _v, h, w, _c1 = fused_maps.shape
+    sampled, uv, in_front = _sample_fused_quad(pts, proj, fused_maps)
     inbound = pixel_inbound(uv, float(h), float(w)) & in_front
-    lerped = bf(bf(dyn[0] + dyn[1]) + bf(dyn[2] + dyn[3]))
-    invalid = lerped.reshape(shape) > 1e-3
+    invalid = sampled[..., -1].float() > 1e-3
     return {
-        "rgb_feat": feat.reshape(shape + (c,)).to(fused_maps.dtype),
+        "rgb_feat": sampled[..., :-1],
         "mask_inbound": inbound,
         "mask_invalid": invalid,
         "mask": inbound & ~invalid,

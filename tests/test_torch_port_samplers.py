@@ -306,3 +306,33 @@ def test_route_names_the_kernel(monkeypatch, mode, dyn, kernel):
     out = render_novel_view(init_gnt_models(device="cpu"), tdata, cfg, noise=torch.zeros(RH, RW, 3))
     assert calls == [kernel] * 3  # 768 rays in tiles of 256
     assert torch.isfinite(out["combined_rgb"]).all()
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_quad_sampler_bit_equal(rig, with_mask):
+    """The quad samplers the renderer calls (``epipolar_sample_quad`` and
+    ``epipolar_sample_quad_masked``, four taps of the bf16 fused map) against
+    JAX's ``epipolar_sample_fused(quad=True)`` on its quad maps: features
+    and masks bit for bit."""
+    masks = rig["masks"] if with_mask else None
+    qmaps = jproj.flatten_quad_maps(
+        jproj.build_quad_maps(rig["rgbs"], rig["feats"], masks, dtype=jnp.bfloat16))
+    ref = jproj.epipolar_sample_fused(rig["pts"], rig["tgt"], rig["cams"], qmaps,
+                                      with_mask=with_mask, quad=True, views_outer=True,
+                                      with_ray_diff=False)
+    fused = tproj.build_fused_maps(_t(rig["rgbs"]), _t(rig["feats"]),
+                                   None if masks is None else _t(masks))
+    proj = tcam.flat_cam_projection(_t(rig["cams"]))
+    if with_mask:
+        got = tproj.epipolar_sample_quad_masked(_t(rig["pts"]), proj, fused)
+        for key in ("mask", "mask_inbound", "mask_invalid"):
+            np.testing.assert_array_equal(got[key].numpy(), _f32(ref[key])[..., 0] > 0,
+                                          err_msg=key)
+        assert 0.0 < got["mask_invalid"].float().mean() < 1.0
+        feat = got["rgb_feat"]
+    else:
+        feat = tproj.epipolar_sample_quad(_t(rig["pts"]), proj, fused)
+    assert feat.dtype == torch.bfloat16
+    ref_feat = _f32(ref["rgb_feat"])
+    np.testing.assert_array_equal(feat.float().numpy(), ref_feat)
+    assert np.count_nonzero(ref_feat) > 0.5 * ref_feat.size
