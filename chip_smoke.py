@@ -74,7 +74,17 @@ exits non-zero without printing a result:
      sampler's mask, K1 on the dequantized int8 samples), PSNR / SSIM
      against [quad]'s image; ``[view_std]``, a GNT made with ret_view_std at
      64x96 (the plain network on the card: no kernel launch), its view-std
-     maps finite, non-zero and held against the CPU too.
+     maps finite, non-zero and held against the CPU too;
+  9. ``[reader]``: a 24-frame NVIDIA-layout scene of the synthetic scene
+     written to a temporary directory with the port's ``write_png`` (raw
+     576x1100 frames, 1-bit and 8-bit masks, disparity, flows, LLFF poses),
+     three items read from disk by ``NvidiaEvalDataset`` (two in the mono
+     video, one held-out camera) and their contract keys checked, the C
+     PNG un-filter held against its numpy version, the items moved by
+     ``to_device_prefetch`` and held against the host bit for bit, each
+     rendered with ``default`` on K2 and checked as the main path is;
+     host ms per reader stage, transfer ms, s/view, and the s/view of the
+     same loop through ``PrefetchLoader(n_workers=2)``.
 
 The second-to-last line is a JSON object describing each kernel (its times,
 its launches on its path and its bound on the card); the last line is
@@ -1162,23 +1172,30 @@ def expected_launches(cfg, n_rays, plain=False):
 def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
                     n_spatial=10, n_frames=12, n_samples=256, rows=(140, 144),
                     cols=(200, 264), n_timed=2, preset="fast", tag=None, tol=SLICE_TOL,
-                    **overrides):
+                    data=None, require_outliers=True, **overrides):
     """Drive render_novel_view once for the unmasked config (bundle None:
     on the fast preset patch, K1's patch_rows mode; on "quad" K1) or a
     named bundle (``default``: K2's path; on the exact preset K2 unfolded),
     with ``overrides`` (``slice_config``), the kernels' launch counts set to
     0 just before and read just after; check it (the crop of rows x cols of
-    the render, at ``tol``), then time it. Returns ({kernel name:
-    launches}, seconds per view, the timed render's output)."""
+    the render, at ``tol``), then time it. The view is the synthetic scene
+    at h x w, or ``data``, a contract already on ``device`` (a reader's
+    item), whose dynamic cloud need not hold an outlier for the removal to
+    drop (``require_outliers=False``). Returns ({kernel name: launches},
+    seconds per view, the timed render's output)."""
     import warnings
 
-    import numpy as np
     import torch
 
+    from pgdvs_tpu_torch.data.loader import contract_to_device
     from pgdvs_tpu_torch.data.synthetic import make_contract_data
     from pgdvs_tpu_torch.renderers.compose import render_novel_view
     from pgdvs_tpu_torch.renderers.static_gnt import resolve_epipolar_cfg
 
+    if data is None:
+        data = contract_to_device(make_contract_data(h=h, w=w, n_spatial=n_spatial,
+                                                     n_frames=n_frames, tgt_time=0.5), device)
+    n_spatial, h, w = data["rgb_src_spatial"].shape[:3]
     cfg = slice_config(bundle, n_samples, preset, **overrides)
     stride = cfg.render_stride
     rh, rw = -(-h // stride), -(-w // stride)
@@ -1186,10 +1203,6 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
         warnings.simplefilter("error")  # the full-size render takes no fallback
         resolved = resolve_epipolar_cfg(cfg, models[1], rh, rw)[0]
     tag = tag or f"[{bundle or 'main'}]"
-    data_np = make_contract_data(h=h, w=w, n_spatial=n_spatial,
-                                 n_frames=n_frames, tgt_time=0.5)
-    data = {k: torch.as_tensor(v).to(device) for k, v in data_np.items()
-            if isinstance(v, np.ndarray)}
 
     def sync():
         if device == "cuda":
@@ -1259,7 +1272,7 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
             f"image rays: {int((out['static_coarse_dyn_cnt'] > 0).sum())} of {rh * rw}")
     if cfg.dyn_pcl_remove_outlier:
         kept, cand = dyn_points_kept(data, cfg)
-        if not 0 < kept < cand:
+        if not (0 < kept < cand or (0 < kept == cand and not require_outliers)):
             raise AssertionError(f"{tag} outlier removal kept {kept} of {cand}")
         log(f"{tag} dynamic points kept by outlier removal: {kept} of {cand}")
 
@@ -1332,6 +1345,286 @@ def phase_new_modes(models, quad_img):
                          "view_std_normalized": VIEW_STD_TOL})
 
 
+# the [reader] phase's scene: the NVIDIA layout, 24 frames on the 12-camera
+# round robin, raw images at twice the eval size (576x1100 -> 288x550)
+READER_SCENE = "Balloon1"
+READER_FRAMES = 24
+READER_RAW_HW = (576, 1100)
+READER_EVAL_HW = (288, 550)
+# (frame, camera) of the items read: two targets in the mono video with both
+# temporal neighbours, then a held-out camera
+READER_ITEMS = ((11, 11), (12, 0), (12, 5))
+# frames between which flows are written (intervals 1 and 2): those the
+# items' temporal pairs read
+READER_FLOW_FRAMES = (10, 14)
+READER_STAGES = ("png_decode", "lanczos", "inter_area", "nearest", "npz_npy", "depth_range")
+
+
+def write_reader_scene(root, raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
+                       n_frames=READER_FRAMES, items=READER_ITEMS,
+                       flow_frames=READER_FLOW_FRAMES, seed=SEED):
+    """Write the synthetic scene (``data/synthetic.py``) under ``root`` in
+    the NVIDIA layout that ``NvidiaEvalDataset`` reads with its default
+    directory names, through the port's ``write_png`` only: per frame the
+    mono camera's image (frame % 12) and those of ``items``, each with its
+    8-bit eval mask, at ``raw_hw``, the rgb with the filter types cycled row
+    by row; the mono frame's 1-bit dynamic mask and its disparity (.npy,
+    float32) at ``raw_hw``; the ``images_<w>x<h>`` marker of the eval size;
+    flows at ``eval_hw``, intervals 1 and 2, between the frames of
+    ``flow_frames``, with a coord_diff from ``seed`` that marks ~6 % of the
+    pixels occluded; and ``poses_bounds_cvd.npy`` in LLFF's convention.
+    Cameras are the synthetic arc's, 12 of them; frame f is seen from
+    camera f % 12 at time f / (n_frames - 1)."""
+    import numpy as np
+
+    from pgdvs_tpu_torch.data import synthetic
+    from pgdvs_tpu_torch.data.image_io import write_png
+
+    (rh, rw), (eh, ew) = raw_hw, eval_hw
+    dense = root / "nvidia_long" / READER_SCENE / "dense"
+    disp_dir = root / "nvidia_long_depths" / READER_SCENE / "disp"
+    flow_root = root / "nvidia_long_flow_mask" / READER_SCENE / "dense"
+    for d in (dense / "mv_images", dense / "mv_masks", disp_dir, flow_root / "masks/final",
+              dense / f"images_{ew}x{eh}"):
+        d.mkdir(parents=True, exist_ok=True)
+    times = np.linspace(0.0, 1.0, n_frames)
+    cams = [synthetic.camera_pose(c, 13) for c in range(12)]  # an open arc: no two alike
+    focal = synthetic.intrinsics(rh, rw)[0, 0]
+    rows = []
+    for f in range(n_frames):
+        c2w = cams[f % 12].copy()
+        c2w[..., 1:3] *= -1  # OpenCV -> [right, up, back]
+        m = c2w[:3, :4]
+        llff = np.concatenate([-m[:, 1:2], m[:, 0:1], m[:, 2:4]], axis=1)  # [down, right, back]
+        hwf = np.array([[rh], [rw], [focal]])
+        rows.append(np.concatenate([llff, hwf], axis=1).ravel().tolist() + [0.1, 10.0])
+    np.save(dense / "poses_bounds_cvd.npy", np.asarray(rows))
+    for f in range(n_frames):
+        frame_dir, eval_dir = dense / f"mv_images/{f:05d}", dense / f"mv_masks/{f:05d}"
+        frame_dir.mkdir()
+        eval_dir.mkdir()
+        for c in sorted({f % 12} | {c for ff, c in items if ff == f}):
+            fr = synthetic.render_frame(rh, rw, cams[c], times[f])
+            write_png(frame_dir / f"cam{c + 1:02d}.png", (fr["rgb"] * 255).astype(np.uint8),
+                      "cycle")
+            write_png(eval_dir / f"cam{c + 1:02d}.png",
+                      (fr["dyn_mask"][..., 0] * 255).astype(np.uint8))
+            if c == f % 12:
+                write_png(flow_root / f"masks/final/{f:05d}_final.png", fr["dyn_mask"][..., 0] > 0)
+                np.save(disp_dir / f"{f:05d}.npy", (1.0 / fr["depth"][..., 0]).astype(np.float32))
+    rng = np.random.default_rng(seed)
+    frames = {f: synthetic.render_frame(eh, ew, cams[f % 12], times[f])
+              for f in range(*flow_frames)}
+    for interval in (1, 2):
+        (flow_root / f"flows/interval_{interval}").mkdir(parents=True)
+        for a in range(flow_frames[0], flow_frames[1] - interval):
+            for i, j in ((a, a + interval), (a + interval, a)):
+                flow = synthetic.flow_between(eh, ew, frames[i], cams[i % 12], times[i],
+                                              cams[j % 12], times[j])
+                np.savez(flow_root / f"flows/interval_{interval}/{i:05d}_{j:05d}.npz",
+                         flow=flow, coord_diff=rng.uniform(0, 0.6, (eh, ew, 2)).astype(np.float32))
+
+
+class ReaderStageTimes:
+    """Host seconds of one reader's stages while the context is open, by
+    wrapping the functions ``pgdvs_tpu_torch.data.nvidia_eval`` calls (its
+    decode, resizes and array loads, and the dataset's depth range); the
+    PNG files it decoded. For one thread (a loader with 0 workers)."""
+
+    WRAPPED = {"read_png": "png_decode", "resize_lanczos_pil": "lanczos",
+               "resize_area": "inter_area", "resize_nearest_cv": "nearest",
+               "resize_nearest_pil": "nearest", "load_arrays": "npz_npy"}
+
+    def __init__(self):
+        import collections
+
+        self.seconds = collections.defaultdict(float)
+        self.pngs = []
+
+    def _timed(self, fn, stage):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.seconds[stage] += time.perf_counter() - t0
+            if stage == "png_decode":
+                self.pngs.append(args[0])
+            return out
+
+        return wrapped
+
+    def __enter__(self):
+        from pgdvs_tpu_torch.data import nvidia_eval
+
+        self._saved = {name: getattr(nvidia_eval, name) for name in self.WRAPPED}
+        for name, stage in self.WRAPPED.items():
+            setattr(nvidia_eval, name, self._timed(self._saved[name], stage))
+        cls = nvidia_eval.NvidiaEvalDataset
+        self._depth_range = cls.depth_range
+        cls.depth_range = self._timed(cls.depth_range, "depth_range")
+        return self
+
+    def __exit__(self, *exc):
+        from pgdvs_tpu_torch.data import nvidia_eval
+
+        for name, fn in self._saved.items():
+            setattr(nvidia_eval, name, fn)
+        nvidia_eval.NvidiaEvalDataset.depth_range = self._depth_range
+        return False
+
+
+def check_reader_item(item, n_spatial, hw):
+    """Every contract key of the reader's non-geo, non-track branch at the
+    shape ``data/contract.py`` gives (S sources, T = 2), finite, and a
+    depth range that is positive and increasing."""
+    import numpy as np
+
+    from pgdvs_tpu_torch.data.contract import RENDER_CONTRACT_KEYS
+
+    dims = {"H": hw[0], "W": hw[1], "S": n_spatial, "T": 2}
+    for key, shape in RENDER_CONTRACT_KEYS.items():
+        if key.startswith("st_pcl") or "track" in key:
+            continue
+        want = (1 + n_spatial + 2,) if key == "seq_ids" else tuple(dims.get(d, d) for d in shape)
+        if key not in item or item[key].shape != want:
+            raise AssertionError(f"[reader] {key}: {getattr(item.get(key), 'shape', None)}, "
+                                 f"expected {want}")
+        if not np.isfinite(item[key]).all():
+            raise AssertionError(f"[reader] {key} is not finite")
+    lo, hi = item["depth_range"]
+    if not 0 < lo < hi:
+        raise AssertionError(f"[reader] depth range {item['depth_range']}")
+
+
+def phase_reader(models, device="cuda", raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
+                 n_samples=256, rows=(140, 144), cols=(240, 304)):
+    """[reader]: the NVIDIA reader from disk into the `default` render.
+
+    Writes ``write_reader_scene`` into a temporary directory, then reads
+    the READER_ITEMS through ``NvidiaEvalDataset`` with 0 workers, host time
+    per stage (``ReaderStageTimes``), and checks their contract keys; holds
+    the C un-filter against its numpy plain version on every PNG of the
+    first item (both timed); moves the items with ``to_device_prefetch`` and
+    holds each device tensor against its host array bit for bit after a
+    synchronize (ms per item, twice: pinned buffers allocated, then
+    reused); renders each with ``default`` on the fast
+    preset through ``phase_main_path`` (78 K2 launches per view at 288x550,
+    finite output, a crop against the plain path on the CPU under
+    SLICE_TOL); then times the 3-item loop through ``PrefetchLoader(
+    n_workers=2)`` and ``to_device_prefetch``: s/view and the share of its
+    wall time outside the renders."""
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pgdvs_tpu_torch.data.image_io import read_png
+    from pgdvs_tpu_torch.data.loader import PrefetchLoader, to_device_prefetch
+    from pgdvs_tpu_torch.data.nvidia_eval import NvidiaEvalDataset
+    from pgdvs_tpu_torch.renderers.compose import render_novel_view
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory(prefix="pgdvs_reader_") as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        write_reader_scene(root, raw_hw, eval_hw)
+        t_write = time.perf_counter() - t0
+        ds = NvidiaEvalDataset(root, scene_ids=[READER_SCENE], tgt_height=eval_hw[0])
+        index = {(f, c): i for i, (_s, f, c, _p) in enumerate(ds.items)}
+        idx = [index[fc] for fc in READER_ITEMS]
+        items, stages, pngs = [], [], []
+        for i in idx:
+            with ReaderStageTimes() as timer:
+                t0 = time.perf_counter()
+                item = ds[i]
+                timer.seconds["total"] = time.perf_counter() - t0
+            check_reader_item(item, ds.n_spatial, eval_hw)
+            items.append(item)
+            stages.append(dict(timer.seconds))
+            pngs.append(timer.pngs)
+        n_px = sum(read_png(f).size for f in pngs[0])
+        t_native = t_plain = 0.0
+        for f in pngs[0]:
+            t0 = time.perf_counter()
+            a = read_png(f)
+            t_native += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b = read_png(f, native=False)
+            t_plain += time.perf_counter() - t0
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"[reader] native and plain un-filter differ on {f}")
+        log(f"[reader] scene {raw_hw[0]}x{raw_hw[1]} raw -> {eval_hw[0]}x{eval_hw[1]}, "
+            f"{READER_FRAMES} frames, written in {t_write:.3f} s; items (frame, camera) "
+            f"{list(READER_ITEMS)} read, contract keys and shapes checked")
+        log(f"[reader] native un-filter == numpy plain on all {len(pngs[0])} PNGs of the first "
+            f"item ({n_px} values): decode {1e3 * t_native:.2f} ms native, "
+            f"{1e3 * t_plain:.2f} ms plain")
+        for (f, c), st in zip(READER_ITEMS, stages):
+            other = st["total"] - sum(st.get(k, 0.0) for k in READER_STAGES)
+            log(f"[reader] host ms, frame {f} cam {c}, 0 workers: total {1e3 * st['total']:.2f}; "
+                + " ".join(f"{k} {1e3 * st.get(k, 0.0):.2f}" for k in READER_STAGES)
+                + f" other {1e3 * other:.2f}")
+
+        # twice: the first pass allocates the pinned buffers, the second
+        # reuses those the caching host allocator got back
+        t_copy = []
+        for _ in range(2):
+            dev_items = []
+            t0 = time.perf_counter()
+            for dev in to_device_prefetch(items, device=device):
+                sync()
+                dev_items.append(dev)
+            t_copy.append((time.perf_counter() - t0) / len(items))
+        n_bytes = 0
+        for host, dev in zip(items, dev_items):
+            for key, v in host.items():
+                if isinstance(v, np.ndarray):
+                    n_bytes += v.nbytes
+                    if dev[key].dtype != torch.from_numpy(v).dtype or not torch.equal(
+                            dev[key].cpu(), torch.from_numpy(v)):
+                        raise AssertionError(f"[reader] device copy of {key} differs")
+        log(f"[reader] to_device_prefetch: device tensors == host arrays bit for bit; "
+            f"ms per item {1e3 * t_copy[0]:.2f} first pass, {1e3 * t_copy[1]:.2f} second "
+            f"({n_bytes / len(items) / 1e6:.1f} MB each)")
+
+        render_s = []
+        for (f, c), dev in zip(READER_ITEMS, dev_items):
+            _launches, secs, _out = phase_main_path(
+                models, bundle="default", device=device, data=dev, n_samples=n_samples,
+                rows=rows, cols=cols, n_timed=1, tag=f"[reader] frame {f} cam {c}",
+                require_outliers=False)
+            render_s.append(secs[0])
+        del dev_items, _out
+
+        cfg = slice_config("default", n_samples)
+        t0 = time.perf_counter()
+        in_render = 0.0
+        for dev in to_device_prefetch(PrefetchLoader(ds, n_workers=2, indices=idx),
+                                      device=device):
+            t1 = time.perf_counter()
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            out = render_novel_view(models, dev, cfg, generator=gen)
+            sync()
+            in_render += time.perf_counter() - t1
+            if not bool(torch.isfinite(out["combined_rgb"]).all()):
+                raise AssertionError("[reader] loop render not finite")
+        wall = time.perf_counter() - t0
+        mean = {k: statistics.mean(st.get(k, 0.0) for st in stages) * 1e3
+                for k in ("total", *READER_STAGES)}
+        log(f"[reader] summary: host ms per item (mean of {len(items)}, 0 workers) "
+            + " ".join(f"{k} {v:.2f}" for k, v in mean.items())
+            + f"; plain png_decode of item 1 {1e3 * t_plain:.2f} vs native {1e3 * t_native:.2f}"
+            f"; transfer ms per item {1e3 * t_copy[0]:.2f} / {1e3 * t_copy[1]:.2f} (first / "
+            f"second pass); render s/view "
+            + " ".join(f"{x:.4f}" for x in render_s)
+            + f"; loop (PrefetchLoader n_workers=2 + to_device_prefetch) "
+            f"{wall / len(idx):.4f} s/view, {100 * (wall - in_render) / wall:.2f} % of its "
+            f"{wall:.3f} s outside the renders")
+
+
 def main() -> int:
     import torch
 
@@ -1373,6 +1666,7 @@ def main() -> int:
                     n_timed=1, tag="[s384]")
     phase_fine_tiles(models[1])
     phase_new_modes(models, quad_img)
+    phase_reader(models)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     rows = []

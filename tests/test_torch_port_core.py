@@ -149,14 +149,15 @@ def test_make_contract_data_matches():
 
 
 def test_port_imports_no_jax():
-    """The port package and every submodule import without JAX."""
+    """The port package and every submodule import without JAX, the JAX
+    package, PIL or OpenCV."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import pgdvs_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'pgdvs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'pgdvs_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'pgdvs_tpu', 'PIL', 'cv2'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

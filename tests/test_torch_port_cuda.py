@@ -710,3 +710,30 @@ def test_new_samplers_on_card_match_cpu(card):
         g = got[key].cpu().float()
         ulp = (2.0 ** -7 if val.dtype == torch.bfloat16 else 2.0 ** -23) * val.float().abs()
         assert bool(((g - val.float()).abs() <= ulp + 1e-30).all()), key
+
+
+def test_to_device_prefetch_pinned_items(card):
+    """Reader-like items staged through to_device_prefetch (pinned host
+    copies, non_blocking copies on a side stream): after synchronize every
+    device tensor equals its host array bit for bit, in the loader's order,
+    while the consumer's stream is kept busy between items."""
+    from pgdvs_tpu_torch.data.loader import PrefetchLoader, to_device_prefetch
+
+    rng = np.random.default_rng(6)
+    items = [{"rgb": rng.uniform(size=(10, 288, 550, 3)).astype(np.float32),
+              "seq_ids": np.arange(13, dtype=np.int64) + i,
+              "depth_range": np.array([1.0 + i, 9.0], np.float32),
+              "misc": {"tgt_frame_id": i}} for i in range(4)]
+    got = []
+    for item in to_device_prefetch(PrefetchLoader(items, n_workers=2), device="cuda"):
+        assert item["rgb"].is_cuda and item["misc"] == {"tgt_frame_id": len(got)}
+        busy = torch.randn(2048, 2048, device=card)
+        for _ in range(8):
+            busy = busy @ busy.T / 2048  # consumer work queued behind the copy
+        got.append({k: v.clone() for k, v in item.items() if torch.is_tensor(v)})
+    torch.cuda.synchronize()
+    assert len(got) == len(items)
+    for g, want in zip(got, items):
+        for key in ("rgb", "seq_ids", "depth_range"):
+            assert g[key].dtype == torch.from_numpy(want[key]).dtype
+            assert torch.equal(g[key].cpu(), torch.from_numpy(want[key])), key
