@@ -84,7 +84,20 @@ exits non-zero without printing a result:
      ``to_device_prefetch`` and held against the host bit for bit, each
      rendered with ``default`` on K2 and checked as the main path is;
      host ms per reader stage, transfer ms, s/view, and the s/view of the
-     same loop through ``PrefetchLoader(n_workers=2)``.
+     same loop through ``PrefetchLoader(n_workers=2)``;
+  10. ``[eval]``, on the same scene: (d) the main models written as the
+     reference GNT checkpoint and loaded back onto the card by
+     ``load_gnt_checkpoint`` (equal state dicts, a render crop equal bit
+     for bit); (c) LPIPS with a random AlexNet and the bundled heads on the
+     card against the CPU at 288x550 over the three regions, cuDNN's TF32
+     switched on globally; (a) ``python -m pgdvs_tpu_torch.run eval``
+     in-process over three items with that checkpoint and backbone found
+     through ``$PGDVS_CKPT_DIR``: 78 K1 patch_rows launches per item, each
+     pickle equal to ``compute_nvidia_metrics`` recomputed on the CPU from
+     its render, ``summary.json``, each PNG the truncated render; (b)
+     ``benchmark --benchmark-type default`` over the same items: 78 K2
+     launches per item; (e) host ms per item by scoring stage, render and
+     loop s/view, and whether scoring stays under the render.
 
 The second-to-last line is a JSON object describing each kernel (its times,
 its launches on its path and its bound on the card); the last line is
@@ -95,9 +108,11 @@ non-zero before doing anything. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # tolerances of the kernel against its plain version: bf16 operands with f32
@@ -1354,9 +1369,10 @@ READER_EVAL_HW = (288, 550)
 # (frame, camera) of the items read: two targets in the mono video with both
 # temporal neighbours, then a held-out camera
 READER_ITEMS = ((11, 11), (12, 0), (12, 5))
-# frames between which flows are written (intervals 1 and 2): those the
-# items' temporal pairs read
-READER_FLOW_FRAMES = (10, 14)
+# ranges of frames between which flows are written (intervals 1 and 2):
+# those the items' temporal pairs read, and those of the first three items
+# of the scene, which [eval] scores
+READER_FLOW_FRAMES = ((0, 4), (10, 14))
 READER_STAGES = ("png_decode", "lanczos", "inter_area", "nearest", "npz_npy", "depth_range")
 
 
@@ -1370,9 +1386,9 @@ def write_reader_scene(root, raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
     8-bit eval mask, at ``raw_hw``, the rgb with the filter types cycled row
     by row; the mono frame's 1-bit dynamic mask and its disparity (.npy,
     float32) at ``raw_hw``; the ``images_<w>x<h>`` marker of the eval size;
-    flows at ``eval_hw``, intervals 1 and 2, between the frames of
-    ``flow_frames``, with a coord_diff from ``seed`` that marks ~6 % of the
-    pixels occluded; and ``poses_bounds_cvd.npy`` in LLFF's convention.
+    flows at ``eval_hw``, intervals 1 and 2, between the frames of each
+    (start, stop) range of ``flow_frames``, with a coord_diff from ``seed``
+    that marks ~6 % of the pixels occluded; and ``poses_bounds_cvd.npy`` in LLFF's convention.
     Cameras are the synthetic arc's, 12 of them; frame f is seen from
     camera f % 12 at time f / (n_frames - 1)."""
     import numpy as np
@@ -1414,10 +1430,10 @@ def write_reader_scene(root, raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
                 np.save(disp_dir / f"{f:05d}.npy", (1.0 / fr["depth"][..., 0]).astype(np.float32))
     rng = np.random.default_rng(seed)
     frames = {f: synthetic.render_frame(eh, ew, cams[f % 12], times[f])
-              for f in range(*flow_frames)}
+              for start, stop in flow_frames for f in range(start, stop)}
     for interval in (1, 2):
         (flow_root / f"flows/interval_{interval}").mkdir(parents=True)
-        for a in range(flow_frames[0], flow_frames[1] - interval):
+        for a in (a for start, stop in flow_frames for a in range(start, stop - interval)):
             for i, j in ((a, a + interval), (a + interval, a)):
                 flow = synthetic.flow_between(eh, ew, frames[i], cams[i % 12], times[i],
                                               cams[j % 12], times[j])
@@ -1425,7 +1441,39 @@ def write_reader_scene(root, raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
                          flow=flow, coord_diff=rng.uniform(0, 0.6, (eh, ew, 2)).astype(np.float32))
 
 
-class ReaderStageTimes:
+class StageTimer:
+    """Host seconds spent in named functions while the context is open:
+    each (object, attribute, stage) of ``targets`` is wrapped and its time
+    added to its stage; the originals are put back on exit."""
+
+    def __init__(self, targets):
+        import collections
+
+        self.targets = targets
+        self.seconds = collections.defaultdict(float)
+
+    def _timed(self, fn, stage):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.seconds[stage] += time.perf_counter() - t0
+            return out
+
+        return wrapped
+
+    def __enter__(self):
+        self._saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _stage in self.targets]
+        for (obj, attr, fn), (_o, _a, stage) in zip(self._saved, self.targets):
+            setattr(obj, attr, self._timed(fn, stage))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in reversed(self._saved):
+            setattr(obj, attr, fn)
+        return False
+
+
+class ReaderStageTimes(StageTimer):
     """Host seconds of one reader's stages while the context is open, by
     wrapping the functions ``pgdvs_tpu_torch.data.nvidia_eval`` calls (its
     decode, resizes and array loads, and the dataset's depth range); the
@@ -1436,40 +1484,22 @@ class ReaderStageTimes:
                "resize_nearest_pil": "nearest", "load_arrays": "npz_npy"}
 
     def __init__(self):
-        import collections
+        from pgdvs_tpu_torch.data import nvidia_eval
 
-        self.seconds = collections.defaultdict(float)
+        super().__init__([(nvidia_eval, name, stage) for name, stage in self.WRAPPED.items()]
+                         + [(nvidia_eval.NvidiaEvalDataset, "depth_range", "depth_range")])
         self.pngs = []
 
     def _timed(self, fn, stage):
-        def wrapped(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            self.seconds[stage] += time.perf_counter() - t0
-            if stage == "png_decode":
-                self.pngs.append(args[0])
-            return out
+        timed = super()._timed(fn, stage)
+        if stage != "png_decode":
+            return timed
 
-        return wrapped
+        def decode(*args, **kwargs):
+            self.pngs.append(args[0])
+            return timed(*args, **kwargs)
 
-    def __enter__(self):
-        from pgdvs_tpu_torch.data import nvidia_eval
-
-        self._saved = {name: getattr(nvidia_eval, name) for name in self.WRAPPED}
-        for name, stage in self.WRAPPED.items():
-            setattr(nvidia_eval, name, self._timed(self._saved[name], stage))
-        cls = nvidia_eval.NvidiaEvalDataset
-        self._depth_range = cls.depth_range
-        cls.depth_range = self._timed(cls.depth_range, "depth_range")
-        return self
-
-    def __exit__(self, *exc):
-        from pgdvs_tpu_torch.data import nvidia_eval
-
-        for name, fn in self._saved.items():
-            setattr(nvidia_eval, name, fn)
-        nvidia_eval.NvidiaEvalDataset.depth_range = self._depth_range
-        return False
+        return decode
 
 
 def check_reader_item(item, n_spatial, hw):
@@ -1495,11 +1525,11 @@ def check_reader_item(item, n_spatial, hw):
         raise AssertionError(f"[reader] depth range {item['depth_range']}")
 
 
-def phase_reader(models, device="cuda", raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
+def phase_reader(models, root, device="cuda", raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
                  n_samples=256, rows=(140, 144), cols=(240, 304)):
     """[reader]: the NVIDIA reader from disk into the `default` render.
 
-    Writes ``write_reader_scene`` into a temporary directory, then reads
+    Writes ``write_reader_scene`` into the directory ``root``, then reads
     the READER_ITEMS through ``NvidiaEvalDataset`` with 0 workers, host time
     per stage (``ReaderStageTimes``), and checks their contract keys; holds
     the C un-filter against its numpy plain version on every PNG of the
@@ -1512,9 +1542,6 @@ def phase_reader(models, device="cuda", raw_hw=READER_RAW_HW, eval_hw=READER_EVA
     SLICE_TOL); then times the 3-item loop through ``PrefetchLoader(
     n_workers=2)`` and ``to_device_prefetch``: s/view and the share of its
     wall time outside the renders."""
-    import pathlib
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -1527,102 +1554,392 @@ def phase_reader(models, device="cuda", raw_hw=READER_RAW_HW, eval_hw=READER_EVA
         if device == "cuda":
             torch.cuda.synchronize()
 
-    with tempfile.TemporaryDirectory(prefix="pgdvs_reader_") as tmp:
-        root = pathlib.Path(tmp)
+    t0 = time.perf_counter()
+    write_reader_scene(root, raw_hw, eval_hw)
+    t_write = time.perf_counter() - t0
+    ds = NvidiaEvalDataset(root, scene_ids=[READER_SCENE], tgt_height=eval_hw[0])
+    index = {(f, c): i for i, (_s, f, c, _p) in enumerate(ds.items)}
+    idx = [index[fc] for fc in READER_ITEMS]
+    items, stages, pngs = [], [], []
+    for i in idx:
+        with ReaderStageTimes() as timer:
+            t0 = time.perf_counter()
+            item = ds[i]
+            timer.seconds["total"] = time.perf_counter() - t0
+        check_reader_item(item, ds.n_spatial, eval_hw)
+        items.append(item)
+        stages.append(dict(timer.seconds))
+        pngs.append(timer.pngs)
+    n_px = sum(read_png(f).size for f in pngs[0])
+    t_native = t_plain = 0.0
+    for f in pngs[0]:
         t0 = time.perf_counter()
-        write_reader_scene(root, raw_hw, eval_hw)
-        t_write = time.perf_counter() - t0
-        ds = NvidiaEvalDataset(root, scene_ids=[READER_SCENE], tgt_height=eval_hw[0])
-        index = {(f, c): i for i, (_s, f, c, _p) in enumerate(ds.items)}
-        idx = [index[fc] for fc in READER_ITEMS]
-        items, stages, pngs = [], [], []
-        for i in idx:
-            with ReaderStageTimes() as timer:
-                t0 = time.perf_counter()
-                item = ds[i]
-                timer.seconds["total"] = time.perf_counter() - t0
-            check_reader_item(item, ds.n_spatial, eval_hw)
-            items.append(item)
-            stages.append(dict(timer.seconds))
-            pngs.append(timer.pngs)
-        n_px = sum(read_png(f).size for f in pngs[0])
-        t_native = t_plain = 0.0
-        for f in pngs[0]:
-            t0 = time.perf_counter()
-            a = read_png(f)
-            t_native += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            b = read_png(f, native=False)
-            t_plain += time.perf_counter() - t0
-            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
-                raise AssertionError(f"[reader] native and plain un-filter differ on {f}")
-        log(f"[reader] scene {raw_hw[0]}x{raw_hw[1]} raw -> {eval_hw[0]}x{eval_hw[1]}, "
-            f"{READER_FRAMES} frames, written in {t_write:.3f} s; items (frame, camera) "
-            f"{list(READER_ITEMS)} read, contract keys and shapes checked")
-        log(f"[reader] native un-filter == numpy plain on all {len(pngs[0])} PNGs of the first "
-            f"item ({n_px} values): decode {1e3 * t_native:.2f} ms native, "
-            f"{1e3 * t_plain:.2f} ms plain")
-        for (f, c), st in zip(READER_ITEMS, stages):
-            other = st["total"] - sum(st.get(k, 0.0) for k in READER_STAGES)
-            log(f"[reader] host ms, frame {f} cam {c}, 0 workers: total {1e3 * st['total']:.2f}; "
-                + " ".join(f"{k} {1e3 * st.get(k, 0.0):.2f}" for k in READER_STAGES)
-                + f" other {1e3 * other:.2f}")
-
-        # twice: the first pass allocates the pinned buffers, the second
-        # reuses those the caching host allocator got back
-        t_copy = []
-        for _ in range(2):
-            dev_items = []
-            t0 = time.perf_counter()
-            for dev in to_device_prefetch(items, device=device):
-                sync()
-                dev_items.append(dev)
-            t_copy.append((time.perf_counter() - t0) / len(items))
-        n_bytes = 0
-        for host, dev in zip(items, dev_items):
-            for key, v in host.items():
-                if isinstance(v, np.ndarray):
-                    n_bytes += v.nbytes
-                    if dev[key].dtype != torch.from_numpy(v).dtype or not torch.equal(
-                            dev[key].cpu(), torch.from_numpy(v)):
-                        raise AssertionError(f"[reader] device copy of {key} differs")
-        log(f"[reader] to_device_prefetch: device tensors == host arrays bit for bit; "
-            f"ms per item {1e3 * t_copy[0]:.2f} first pass, {1e3 * t_copy[1]:.2f} second "
-            f"({n_bytes / len(items) / 1e6:.1f} MB each)")
-
-        render_s = []
-        for (f, c), dev in zip(READER_ITEMS, dev_items):
-            _launches, secs, _out = phase_main_path(
-                models, bundle="default", device=device, data=dev, n_samples=n_samples,
-                rows=rows, cols=cols, n_timed=1, tag=f"[reader] frame {f} cam {c}",
-                require_outliers=False)
-            render_s.append(secs[0])
-        del dev_items, _out
-
-        cfg = slice_config("default", n_samples)
+        a = read_png(f)
+        t_native += time.perf_counter() - t0
         t0 = time.perf_counter()
-        in_render = 0.0
-        for dev in to_device_prefetch(PrefetchLoader(ds, n_workers=2, indices=idx),
-                                      device=device):
-            t1 = time.perf_counter()
-            gen = torch.Generator(device=device).manual_seed(SEED)
-            out = render_novel_view(models, dev, cfg, generator=gen)
+        b = read_png(f, native=False)
+        t_plain += time.perf_counter() - t0
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"[reader] native and plain un-filter differ on {f}")
+    log(f"[reader] scene {raw_hw[0]}x{raw_hw[1]} raw -> {eval_hw[0]}x{eval_hw[1]}, "
+        f"{READER_FRAMES} frames, written in {t_write:.3f} s; items (frame, camera) "
+        f"{list(READER_ITEMS)} read, contract keys and shapes checked")
+    log(f"[reader] native un-filter == numpy plain on all {len(pngs[0])} PNGs of the first "
+        f"item ({n_px} values): decode {1e3 * t_native:.2f} ms native, "
+        f"{1e3 * t_plain:.2f} ms plain")
+    for (f, c), st in zip(READER_ITEMS, stages):
+        other = st["total"] - sum(st.get(k, 0.0) for k in READER_STAGES)
+        log(f"[reader] host ms, frame {f} cam {c}, 0 workers: total {1e3 * st['total']:.2f}; "
+            + " ".join(f"{k} {1e3 * st.get(k, 0.0):.2f}" for k in READER_STAGES)
+            + f" other {1e3 * other:.2f}")
+
+    # twice: the first pass allocates the pinned buffers, the second
+    # reuses those the caching host allocator got back
+    t_copy = []
+    for _ in range(2):
+        dev_items = []
+        t0 = time.perf_counter()
+        for dev in to_device_prefetch(items, device=device):
             sync()
-            in_render += time.perf_counter() - t1
-            if not bool(torch.isfinite(out["combined_rgb"]).all()):
-                raise AssertionError("[reader] loop render not finite")
-        wall = time.perf_counter() - t0
-        mean = {k: statistics.mean(st.get(k, 0.0) for st in stages) * 1e3
-                for k in ("total", *READER_STAGES)}
-        log(f"[reader] summary: host ms per item (mean of {len(items)}, 0 workers) "
-            + " ".join(f"{k} {v:.2f}" for k, v in mean.items())
-            + f"; plain png_decode of item 1 {1e3 * t_plain:.2f} vs native {1e3 * t_native:.2f}"
-            f"; transfer ms per item {1e3 * t_copy[0]:.2f} / {1e3 * t_copy[1]:.2f} (first / "
-            f"second pass); render s/view "
-            + " ".join(f"{x:.4f}" for x in render_s)
-            + f"; loop (PrefetchLoader n_workers=2 + to_device_prefetch) "
-            f"{wall / len(idx):.4f} s/view, {100 * (wall - in_render) / wall:.2f} % of its "
-            f"{wall:.3f} s outside the renders")
+            dev_items.append(dev)
+        t_copy.append((time.perf_counter() - t0) / len(items))
+    n_bytes = 0
+    for host, dev in zip(items, dev_items):
+        for key, v in host.items():
+            if isinstance(v, np.ndarray):
+                n_bytes += v.nbytes
+                if dev[key].dtype != torch.from_numpy(v).dtype or not torch.equal(
+                        dev[key].cpu(), torch.from_numpy(v)):
+                    raise AssertionError(f"[reader] device copy of {key} differs")
+    log(f"[reader] to_device_prefetch: device tensors == host arrays bit for bit; "
+        f"ms per item {1e3 * t_copy[0]:.2f} first pass, {1e3 * t_copy[1]:.2f} second "
+        f"({n_bytes / len(items) / 1e6:.1f} MB each)")
+
+    render_s = []
+    for (f, c), dev in zip(READER_ITEMS, dev_items):
+        _launches, secs, _out = phase_main_path(
+            models, bundle="default", device=device, data=dev, n_samples=n_samples,
+            rows=rows, cols=cols, n_timed=1, tag=f"[reader] frame {f} cam {c}",
+            require_outliers=False)
+        render_s.append(secs[0])
+    del dev_items, _out
+
+    cfg = slice_config("default", n_samples)
+    t0 = time.perf_counter()
+    in_render = 0.0
+    for dev in to_device_prefetch(PrefetchLoader(ds, n_workers=2, indices=idx),
+                                  device=device):
+        t1 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        out = render_novel_view(models, dev, cfg, generator=gen)
+        sync()
+        in_render += time.perf_counter() - t1
+        if not bool(torch.isfinite(out["combined_rgb"]).all()):
+            raise AssertionError("[reader] loop render not finite")
+    wall = time.perf_counter() - t0
+    mean = {k: statistics.mean(st.get(k, 0.0) for st in stages) * 1e3
+            for k in ("total", *READER_STAGES)}
+    log(f"[reader] summary: host ms per item (mean of {len(items)}, 0 workers) "
+        + " ".join(f"{k} {v:.2f}" for k, v in mean.items())
+        + f"; plain png_decode of item 1 {1e3 * t_plain:.2f} vs native {1e3 * t_native:.2f}"
+        f"; transfer ms per item {1e3 * t_copy[0]:.2f} / {1e3 * t_copy[1]:.2f} (first / "
+        f"second pass); render s/view "
+        + " ".join(f"{x:.4f}" for x in render_s)
+        + f"; loop (PrefetchLoader n_workers=2 + to_device_prefetch) "
+        f"{wall / len(idx):.4f} s/view, {100 * (wall - in_render) / wall:.2f} % of its "
+        f"{wall:.3f} s outside the renders")
+
+
+EVAL_ITEMS = 3
+# LPIPS on the card against the CPU, relative: float32 convolutions on both
+# (TF32 off on the card inside lpips_distance)
+LPIPS_RTOL = 1e-5
+EVAL_STAGES = ("psnr", "ssim", "lpips", "writes")
+
+
+def random_lpips(seed=SEED):
+    """LPIPS on the CPU with a random AlexNet from ``seed`` (torch's
+    initialisers) and the bundled heads."""
+    import torch
+
+    from pgdvs_tpu_torch.metrics import lpips as lp
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = lp.LPIPS()
+    heads = torch.load(lp.BUNDLED_HEADS, map_location="cpu", weights_only=True)
+    with torch.no_grad():
+        for k in range(5):
+            net.lins[k].copy_(heads[f"lin{k}.model.1.weight"].reshape(-1))
+    return net.eval()
+
+
+def save_torchvision_alexnet(net, path):
+    """``net``'s backbone as torchvision's ``alexnet`` state dict, to
+    ``path`` (where ``load_lpips_weights`` looks for it)."""
+    import torch
+
+    from pgdvs_tpu_torch.metrics.lpips import TORCHVISION_IDX
+
+    sd = {}
+    for i, ti in enumerate(TORCHVISION_IDX):
+        sd[f"features.{ti}.weight"] = net.convs[i].weight.detach().cpu()
+        sd[f"features.{ti}.bias"] = net.convs[i].bias.detach().cpu()
+    torch.save(sd, path)
+
+
+def save_reference_checkpoint(models, path):
+    """(feature_net, gnt) written as the reference's released checkpoint:
+    ``{"feature_net", "net_coarse", "net_fine"}`` state dicts under the
+    reference's key names (``weight_port.reference_key``)."""
+    import torch
+
+    from pgdvs_tpu_torch.models.gnt.weight_port import reference_key
+
+    fnet, gnt = models
+    coarse = {reference_key(k): v.detach().cpu() for k, v in gnt.state_dict().items()}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"feature_net": {k: v.detach().cpu() for k, v in fnet.state_dict().items()},
+                "net_coarse": coarse, "net_fine": dict(coarse)}, path)
+
+
+def _nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def _run_cli(argv, tag, n_items, want, device="cuda"):
+    """``python -m pgdvs_tpu_torch.run`` in-process with ``argv``: the
+    kernels' launch counts set to 0 just before each render of the
+    evaluator and read just after (each must equal ``want``), each render's
+    seconds and image kept, host seconds per scoring stage
+    (``EVAL_STAGES``) and of ``Evaluator.run``. Returns (result, [(render
+    s, image)], {stage: seconds})."""
+    import torch
+
+    from pgdvs_tpu_torch import run as cli
+    from pgdvs_tpu_torch.engines import evaluator as ev
+
+    renders = []
+    real = ev.render_novel_view
+
+    def render(*args, **kwargs):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        if launches != want:
+            raise AssertionError(f"{tag} item {len(renders)}: launches {launches}, "
+                                 f"expected {want}")
+        renders.append((secs, out["combined_rgb"].float().cpu().numpy()))
+        return out
+
+    targets = [(ev, "masked_psnr", "psnr"), (ev, "ssim_map", "ssim"),
+               (ev, "masked_map_mean", "ssim"), (ev, "lpips_on_host_arrays", "lpips"),
+               (ev.Evaluator, "_write_outputs", "writes"), (ev.Evaluator, "run", "loop")]
+    ev.render_novel_view = render
+    try:
+        with StageTimer(targets) as timer:
+            result = cli.main(argv)
+    finally:
+        ev.render_novel_view = real
+    if len(renders) != n_items or result.get("count") != n_items:
+        raise AssertionError(f"{tag} {len(renders)} renders, count {result.get('count')}, "
+                             f"expected {n_items}")
+    return result, renders, dict(timer.seconds)
+
+
+def _check_eval_outputs(out, result, renders, items, lpips_cpu, tag):
+    """Each item's pickle equals compute_nvidia_metrics recomputed on the
+    CPU from its render (PSNR / SSIM bit for bit, LPIPS at LPIPS_RTOL, the
+    join ids the item's); summary.json is the result, its mean the pickles'
+    mean; each PNG decodes to the render truncated to uint8. Returns the
+    largest LPIPS relative error."""
+    import pickle
+
+    import numpy as np
+
+    from pgdvs_tpu_torch.data.image_io import read_png
+    from pgdvs_tpu_torch.engines import evaluator as ev
+
+    summary = json.loads((out / "summary.json").read_text())
+    if summary != json.loads(json.dumps(result)):
+        raise AssertionError(f"{tag} summary.json is not the run's result")
+    recs, worst = [], 0.0
+    for i, ((_secs, pred), item) in enumerate(zip(renders, items)):
+        rec = pickle.loads((out / f"{i:06d}.pkl").read_bytes())
+        recs.append(rec)
+        misc = item["misc"]
+        if (rec["scene_id"], rec["tgt_frame_id"], rec["tgt_cam_id"]) != (
+                misc["scene_id"], misc["tgt_frame_id"], misc["tgt_cam_id"]):
+            raise AssertionError(f"{tag} item {i}: join ids {rec}")
+        ref = ev.compute_nvidia_metrics(
+            pred, item["rgb_tgt"], misc["tgt_dyn_mask"],
+            lpips_fn=lambda a, b, m: ev.lpips_on_host_arrays(lpips_cpu, a, b, m))
+        if sorted(ref) != sorted(k for k in rec if k not in (
+                "scene_id", "tgt_frame_id", "tgt_cam_id", "render_wall_s")):
+            raise AssertionError(f"{tag} item {i}: keys {sorted(rec)} vs {sorted(ref)}")
+        for k, v in ref.items():
+            if k.startswith("lpips"):
+                err = abs(rec[k] - v) / abs(v)
+                worst = max(worst, err)
+                if not err <= LPIPS_RTOL:
+                    raise AssertionError(f"{tag} item {i} {k}: card {rec[k]} vs CPU {v}")
+            elif rec[k] != v:
+                raise AssertionError(f"{tag} item {i} {k}: {rec[k]} vs {v} recomputed on the CPU")
+        png = read_png(out / f"{i:06d}_combined.png")
+        if not np.array_equal(png, (np.clip(pred, 0.0, 1.0) * 255).astype(np.uint8)):
+            raise AssertionError(f"{tag} item {i}: the PNG is not the truncated render")
+    for k, v in summary["mean"].items():
+        mean = float(np.mean([r[k] for r in recs]))
+        if not abs(v - mean) <= 1e-12 * max(1.0, abs(mean)):
+            raise AssertionError(f"{tag} summary mean {k} {v} vs the pickles' {mean}")
+    return worst
+
+
+def phase_eval(models, root, device="cuda", n_items=EVAL_ITEMS, eval_hw=READER_EVAL_HW,
+               n_samples=256):
+    """[eval]: the evaluation slice on [reader]'s scene (``root / "scene"``).
+
+    (d) ``models`` written as the reference checkpoint (``root / "ckpts" /
+    "gnt/model_720000.pth"``), loaded by ``load_gnt_checkpoint`` onto the
+    card: equal state dicts, and a crop of a 64x96 fast-preset render from
+    its sampling maps equal to the source models' bit for bit. (c) A random
+    AlexNet (seed) with the bundled heads: LPIPS of two of the scene's views
+    at 288x550 over the three regions on the card, cuDNN's TF32 switched on
+    globally, against the CPU at LPIPS_RTOL; ms per call on the card; the
+    backbone saved where ``load_lpips_weights`` finds it. (a) ``run eval``
+    in-process over the first ``n_items`` items with ``--save-vis``, that
+    directory as ``$PGDVS_CKPT_DIR`` (so the checkpoint and the backbone are
+    found): 78 K1 patch_rows launches per item, each pickle against
+    ``compute_nvidia_metrics`` on the CPU, summary.json, the PNGs
+    (``_check_eval_outputs``). (b) ``run benchmark --benchmark-type
+    default`` over the same items: 78 K2 masked launches per item. (e) Host
+    ms per item and stage, render s/view, the loop's s/view and its share
+    of wall time outside the renders, and whether scoring stays under the
+    render."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pgdvs_tpu_torch.data.loader import contract_to_device
+    from pgdvs_tpu_torch.data.nvidia_eval import NvidiaEvalDataset
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.metrics.lpips import lpips_distance
+    from pgdvs_tpu_torch.models.gnt.weight_port import load_gnt_checkpoint
+    from pgdvs_tpu_torch.renderers.static_gnt import resolve_epipolar_cfg
+
+    scene, ckpts = root / "scene", root / "ckpts"
+
+    # (d) the reference checkpoint loader
+    path = ckpts / "gnt" / "model_720000.pth"
+    save_reference_checkpoint(models, path)
+    t0 = time.perf_counter()
+    loaded = load_gnt_checkpoint(str(path), device=device)
+    t_load = time.perf_counter() - t0
+    for src, dst in zip(models, loaded):
+        a, b = src.state_dict(), dst.state_dict()
+        if sorted(a) != sorted(b) or not all(
+                b[k].device == a[k].device and torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError("[eval] the loaded checkpoint differs from its source")
+    data = contract_to_device(make_contract_data(h=64, w=96, n_spatial=10, n_frames=12,
+                                                 tgt_time=0.5), device)
+    cfg = slice_config(None, 64)
+    rows, cols = (16, 24), (32, 64)
+    crops = [crop_on_cpu(m, data, cfg, rows, cols) for m in (models, loaded)]
+    for k in crops[0]:
+        if not torch.equal(crops[0][k], crops[1][k]):
+            raise AssertionError(f"[eval] crop {k} of the loaded checkpoint differs")
+    log(f"[eval] (d) reference checkpoint ({path.stat().st_size / 1e6:.1f} MB, feature_net / "
+        f"net_coarse / net_fine) loaded onto {device} in {1e3 * t_load:.1f} ms: state dicts "
+        f"equal, crop rows {rows} cols {cols} of a 64x96 fast-preset render equal bit for bit "
+        f"({', '.join(crops[0])})")
+    del loaded, data, crops
+
+    # (c) LPIPS on the card against the CPU
+    ds = NvidiaEvalDataset(scene, scene_ids=[READER_SCENE], tgt_height=eval_hw[0])
+    items = [ds[i] for i in range(n_items)]
+    lpips_cpu = random_lpips()
+    lpips_card = random_lpips().to(device)
+    save_torchvision_alexnet(lpips_cpu, ckpts / "alexnet.pth")
+    a, b = (torch.from_numpy(items[i]["rgb_tgt"]) for i in (0, 1))
+    dyn = torch.from_numpy(np.asarray(items[0]["misc"]["tgt_dyn_mask"], np.float32))
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    errs, ms = {}, []
+    try:
+        for region, m in (("full", torch.ones_like(dyn)), ("dyn", dyn), ("static", 1.0 - dyn)):
+            ref = float(lpips_distance(lpips_cpu, a, b, mask=m))
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = float(lpips_distance(lpips_card, a.to(device), b.to(device),
+                                           mask=m.to(device)))
+                ms.append(1e3 * (time.perf_counter() - t0))
+            errs[region] = (got, ref, abs(got - ref) / abs(ref))
+            if not errs[region][2] <= LPIPS_RTOL:
+                raise AssertionError(f"[eval] LPIPS {region}: card {got} vs CPU {ref}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    log(f"[eval] (c) LPIPS (random AlexNet, seed {SEED}, bundled heads) at "
+        f"{tuple(a.shape[:2])}, cuDNN TF32 on globally, card vs CPU: "
+        + "; ".join(f"{r} {g:.6f} / {c:.6f} (rel {e:.2e})" for r, (g, c, e) in errs.items())
+        + f"; ms per call on the card (host, with the copy in) median "
+        f"{statistics.median(ms):.2f} min {min(ms):.2f}")
+
+    h, w = items[0]["rgb_tgt"].shape[:2]
+    common = ["--data-root", str(scene), "--scene-ids", READER_SCENE, "--max-items",
+              str(n_items), "--device", device, "--dataset-arg", f"tgt_height={eval_hw[0]}",
+              "--render-cfg", f"n_coarse_samples_per_ray={n_samples}"]
+    plain = device != "cuda"  # the CPU launches no kernel
+    old = os.environ.get("PGDVS_CKPT_DIR")
+    os.environ["PGDVS_CKPT_DIR"] = str(ckpts)
+    try:
+        # (a) eval: the fast preset, K1 patch_rows
+        cfg = resolve_epipolar_cfg(slice_config(None, n_samples), models[1], h, w)[0]
+        want = expected_launches(cfg, h * w, plain)
+        out = root / "eval"
+        result, renders, stages = _run_cli(["eval", *common, "--out-dir", str(out),
+                                            "--save-vis"], "[eval] (a)", n_items, want, device)
+        worst = _check_eval_outputs(out, result, renders, items, lpips_cpu, "[eval] (a)")
+        log(f"[eval] (a) run eval: {n_items} items, {cfg.epipolar_mode} sampling, "
+            f"launches per item {_nonzero(want)}; pickles == "
+            f"compute_nvidia_metrics on the CPU (PSNR / SSIM bit for bit, LPIPS rel "
+            f"{worst:.2e}), summary count {result['count']}, mean == the pickles' mean, PNGs "
+            f"== truncated renders; mean " + json.dumps(result["mean"]))
+        # (b) benchmark default: quad sampling, K2 masked
+        cfg_b = resolve_epipolar_cfg(slice_config("default", n_samples), models[1], h, w)[0]
+        want_b = expected_launches(cfg_b, h * w, plain)
+        out_b = root / "benchmark"
+        result_b, renders_b, stages_b = _run_cli(
+            ["benchmark", "--benchmark-type", "default", *common, "--out-dir", str(out_b)],
+            "[eval] (b)", n_items, want_b, device)
+        if not all(np.isfinite(v) for v in result_b["mean"].values()):
+            raise AssertionError(f"[eval] (b) metrics not finite: {result_b['mean']}")
+        log(f"[eval] (b) run benchmark --benchmark-type default: {n_items} items, "
+            f"{cfg_b.epipolar_mode} sampling, launches per item {_nonzero(want_b)}; mean "
+            + json.dumps(result_b["mean"]))
+    finally:
+        if old is None:
+            os.environ.pop("PGDVS_CKPT_DIR", None)
+        else:
+            os.environ["PGDVS_CKPT_DIR"] = old
+
+    # (e) numbers
+    for tag, st, rs in (("eval", stages, renders), ("benchmark default", stages_b, renders_b)):
+        per_item = {k: 1e3 * st.get(k, 0.0) / n_items for k in EVAL_STAGES}
+        scoring = sum(per_item.values())
+        render_s = [secs for secs, _ in rs]
+        loop = st["loop"]
+        log(f"[eval] (e) {tag}: host ms per item " + " ".join(
+            f"{k} {v:.2f}" for k, v in per_item.items())
+            + f" (scoring {scoring:.2f}); render s/view " + " ".join(f"{x:.4f}" for x in render_s)
+            + f"; loop {loop / n_items:.4f} s/view, {100 * (loop - sum(render_s)) / loop:.2f} % "
+            f"of its {loop:.3f} s outside the renders; scoring "
+            + ("stays under" if scoring / 1e3 < min(render_s) else "does not stay under")
+            + " the render")
 
 
 def main() -> int:
@@ -1666,7 +1983,10 @@ def main() -> int:
                     n_timed=1, tag="[s384]")
     phase_fine_tiles(models[1])
     phase_new_modes(models, quad_img)
-    phase_reader(models)
+    with tempfile.TemporaryDirectory(prefix="pgdvs_eval_") as tmp:
+        root = pathlib.Path(tmp)
+        phase_reader(models, root / "scene")
+        phase_eval(models, root)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     rows = []

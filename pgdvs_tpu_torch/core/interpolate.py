@@ -4,7 +4,7 @@ Counterpart of ``pgdvs_tpu.core.interpolate``: ``bilinear_sample`` is torch
 ``grid_sample(align_corners=True, padding_mode='zeros')`` once coordinates
 are in pixels (or edge-clamped with ``zero_pad=False``); callers that need
 the ``align_corners=False`` convention subtract half a pixel themselves.
-``resize`` is ``jax.image.resize`` for the cubic and nearest methods.
+``resize`` is ``jax.image.resize`` for the cubic, linear and nearest methods.
 """
 
 from __future__ import annotations
@@ -112,12 +112,17 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """[n_in, n_out] weights of one axis of ``jax.image.resize(..., "cubic")``
-    (``jax.image.scale_and_translate``'s ``compute_weight_mat``): half-pixel
-    centres, the kernel widened by the downsampling factor (antialiasing),
-    each column renormalized to sum 1, columns whose sample lies outside
-    the input zeroed."""
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    """The linear kernel max(0, 1 - |x|) at offsets x >= 0."""
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+def _resize_weights(n_in: int, n_out: int, kernel, device) -> torch.Tensor:
+    """[n_in, n_out] weights of one axis of ``jax.image.resize`` with
+    ``kernel`` (``jax.image.scale_and_translate``'s ``compute_weight_mat``):
+    half-pixel centres, the kernel widened by the downsampling factor
+    (antialiasing), each column renormalized to sum 1, columns whose sample
+    lies outside the input zeroed."""
     f32 = torch.float32
     inv_scale = 1.0 / (n_out / n_in)
     # JAX rounds both factors to float32 before it uses them
@@ -125,7 +130,7 @@ def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
                 * float(np.float32(inv_scale)) - 0.5)
     kernel_scale = float(np.float32(max(inv_scale, 1.0)))
     x = torch.abs(sample_f[None, :] - torch.arange(n_in, dtype=f32, device=device)[:, None])
-    weights = _keys_cubic(x / kernel_scale)
+    weights = kernel(x / kernel_scale)
     total = torch.sum(weights, dim=0, keepdim=True)
     weights = torch.where(torch.abs(total) > 1000.0 * float(torch.finfo(f32).eps),
                           weights / torch.where(total != 0, total, torch.ones_like(total)),
@@ -136,12 +141,12 @@ def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
 
 def resize(img: torch.Tensor, out_h: int, out_w: int, method: str) -> torch.Tensor:
     """``jax.image.resize(img, (out_h, out_w, C), method)`` for [H, W, C]
-    float32 images, ``method`` "cubic" or "nearest".
+    float32 images, ``method`` "cubic", "linear" or "nearest".
 
     cubic: separable Keys cubic (a = -0.5) weight matrices on half-pixel
     centres, antialiased when downsampling, renormalized at the border
     (``torch.nn.functional.interpolate``'s bicubic uses a = -0.75 and none
-    of the rest). nearest: source index floor((i + 0.5) * in / out) in
+    of the rest). linear: the same with the triangle kernel. nearest: source index floor((i + 0.5) * in / out) in
     float32, half-pixel centres (torch's "nearest" floors i * in / out).
     An axis whose size does not change is left as it is.
     """
@@ -156,11 +161,13 @@ def resize(img: torch.Tensor, out_h: int, out_w: int, method: str) -> torch.Tens
         if out_w != w:
             img = img[:, index(w, out_w)]
         return img
-    if method != "cubic":
-        raise ValueError(f"unknown resize method {method!r}; valid: cubic | nearest")
+    kernels = {"cubic": _keys_cubic, "linear": _triangle}
+    if method not in kernels:
+        raise ValueError(f"unknown resize method {method!r}; valid: cubic | linear | nearest")
+    kernel = kernels[method]
     img = img.float()
     if out_h != h:
-        img = torch.einsum("hwc,ho->owc", img, _cubic_weights(h, out_h, img.device))
+        img = torch.einsum("hwc,ho->owc", img, _resize_weights(h, out_h, kernel, img.device))
     if out_w != w:
-        img = torch.einsum("hwc,wp->hpc", img, _cubic_weights(w, out_w, img.device))
+        img = torch.einsum("hwc,wp->hpc", img, _resize_weights(w, out_w, kernel, img.device))
     return img

@@ -77,28 +77,35 @@ def _ssim_map(img1, img2, data_range=2.0):
     return (a1 * a2) / (b1 * b2)
 
 
-def masked_ssim(img1, img2, mask, data_range: float = 2.0) -> float:
-    """Masked mean of the full SSIM map (DynIBaR protocol).
-
-    Uses skimage when available (bit parity); falls back to the local
-    replica otherwise.
-    """
+def ssim_map(img1, img2, data_range: float = 2.0) -> np.ndarray:
+    """The full SSIM map of two [H, W, C] images: skimage's when it is
+    installed, else the local replica per channel. It does not depend on a
+    mask, so one map serves every region of an image."""
     img1 = np.asarray(img1, np.float64)
     img2 = np.asarray(img2, np.float64)
-    mask = np.asarray(mask, np.float64)
     try:
         import skimage.metrics
 
-        _, ssim_map = skimage.metrics.structural_similarity(
+        return skimage.metrics.structural_similarity(
             img1, img2, full=True, channel_axis=2, data_range=data_range
-        )
+        )[1]
     except ImportError:  # pragma: no cover
-        ssim_map = np.stack(
+        return np.stack(
             [
                 _ssim_map(img1[..., c], img2[..., c], data_range)
                 for c in range(img1.shape[-1])
             ],
             axis=-1,
         )
+
+
+def masked_map_mean(smap, mask) -> float:
+    """Masked mean of an SSIM map (DynIBaR protocol)."""
+    mask = np.asarray(mask, np.float64)
     num_valid = np.sum(mask) + 1e-8
-    return float(np.sum(ssim_map * mask) / num_valid)
+    return float(np.sum(smap * mask) / num_valid)
+
+
+def masked_ssim(img1, img2, mask, data_range: float = 2.0) -> float:
+    """Masked mean of the full SSIM map (DynIBaR protocol)."""
+    return masked_map_mean(ssim_map(img1, img2, data_range), mask)

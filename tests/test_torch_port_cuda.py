@@ -737,3 +737,94 @@ def test_to_device_prefetch_pinned_items(card):
         for key in ("rgb", "seq_ids", "depth_range"):
             assert g[key].dtype == torch.from_numpy(want[key]).dtype
             assert torch.equal(g[key].cpu(), torch.from_numpy(want[key])), key
+
+
+# ------------------------------------------------------------- evaluation
+
+def _random_lpips(seed=0):
+    """LPIPS with a random AlexNet from ``seed`` (torch's initialisers) and
+    the bundled heads, on the CPU."""
+    from pgdvs_tpu_torch.metrics import lpips as lp
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = lp.LPIPS()
+    heads = torch.load(lp.BUNDLED_HEADS, map_location="cpu", weights_only=True)
+    with torch.no_grad():
+        for k in range(5):
+            net.lins[k].copy_(heads[f"lin{k}.model.1.weight"].reshape(-1))
+    return net.eval()
+
+
+def test_lpips_on_card_matches_cpu(card):
+    """The three regions' masked LPIPS and the spatial map on the card
+    equal the CPU's at 1e-5 relative, with cuDNN's TF32 switched on
+    globally: lpips_distance turns it off for its own convolutions."""
+    from pgdvs_tpu_torch.metrics.lpips import lpips_distance
+
+    rng = np.random.default_rng(8)
+    h, w = 96, 136
+    a = rng.uniform(size=(h, w, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    dyn = np.zeros((h, w, 1), np.float32)
+    dyn[20:60, 30:90] = 1.0
+    net = _random_lpips()
+    net_card = _random_lpips().to(card)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for m in (np.ones_like(dyn), dyn, 1.0 - dyn):
+            args = [torch.from_numpy(x) for x in (a, b, m)]
+            ref = lpips_distance(net, *args[:2], mask=args[2])
+            got = lpips_distance(net_card, *(x.to(card) for x in args[:2]), mask=args[2].to(card))
+            torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=0)
+        ref = lpips_distance(net, torch.from_numpy(a), torch.from_numpy(b), spatial=True)
+        got = lpips_distance(net_card, torch.from_numpy(a).to(card), torch.from_numpy(b).to(card),
+                             spatial=True)
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_evaluator_item_on_card(card, tmp_path, monkeypatch):
+    """One Evaluator item on the card (the fast preset, K1 patch_rows, LPIPS
+    on the card): its metrics are those compute_nvidia_metrics gives on the
+    CPU from the same render (PSNR / SSIM bit for bit, LPIPS at 1e-5
+    relative), its pickle carries them, its PNG is the truncated render."""
+    from pgdvs_tpu_torch.data.image_io import read_png
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.engines import evaluator as ev
+    from pgdvs_tpu_torch.renderers.config import RenderConfig, apply_perf_preset
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    data = make_contract_data(h=48, w=64, n_spatial=3, n_frames=6)
+    cfg = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=16, ray_tile=1024))
+    renders = []
+    real = ev.render_novel_view
+
+    def keep(*a, **kw):
+        out = real(*a, **kw)
+        renders.append(out["combined_rgb"].float().cpu().numpy())
+        return out
+
+    monkeypatch.setattr(ev, "render_novel_view", keep)
+    kp.gnt_fused_mono4_patch.launches = 0
+    evaluator = ev.Evaluator(init_gnt_models(seed=0, device=card), cfg, out_dir=tmp_path,
+                             lpips_net=_random_lpips().to(card), save_vis=True)
+    rec = evaluator.eval_item(data, item_id="x", seed=3)
+    assert kp.gnt_fused_mono4_patch.launches == 3
+    (pred,) = renders
+    net = _random_lpips()
+    ref = ev.compute_nvidia_metrics(
+        pred, data["rgb_tgt"], data["misc"]["tgt_dyn_mask"],
+        lpips_fn=lambda x, y, m: ev.lpips_on_host_arrays(net, x, y, m))
+    for k, v in ref.items():
+        if k.startswith("lpips"):
+            np.testing.assert_allclose(rec.metrics[k], v, rtol=1e-5)
+        else:
+            assert rec.metrics[k] == v, k
+    import pickle
+
+    assert pickle.loads((tmp_path / "x.pkl").read_bytes()) == rec.metrics
+    png = read_png(tmp_path / "x_combined.png")
+    assert np.array_equal(png, (np.clip(pred, 0, 1) * 255).astype(np.uint8))

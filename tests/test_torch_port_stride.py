@@ -52,7 +52,7 @@ def test_get_rays_with_stride(stride, hw):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("method", ["cubic", "nearest"])
+@pytest.mark.parametrize("method", ["cubic", "nearest", "linear"])
 @pytest.mark.parametrize("src,dst", [((24, 32), (12, 16)), ((24, 32), (8, 11)),
                                      ((13, 19), (7, 10)), ((7, 10), (13, 19)),
                                      ((9, 9), (9, 20)), ((288, 550), (144, 275))])
@@ -84,7 +84,7 @@ def test_resize_is_not_torch_interpolate():
         other = torch.nn.functional.interpolate(x, size=(12, 16), mode=mode, **kw)
         assert np.abs(other[0].permute(1, 2, 0).numpy() - ref).max() > 1e-2
     with pytest.raises(ValueError, match="resize method"):
-        tint.resize(torch.from_numpy(img), 12, 16, "linear")
+        tint.resize(torch.from_numpy(img), 12, 16, "lanczos3")
 
 
 # ---------------------------------------------------------------- renders
