@@ -97,7 +97,25 @@ exits non-zero without printing a result:
      its render, ``summary.json``, each PNG the truncated render; (b)
      ``benchmark --benchmark-type default`` over the same items: 78 K2
      launches per item; (e) host ms per item by scoring stage, render and
-     loop s/view, and whether scoring stays under the render.
+     loop s/view, and whether scoring stays under the render;
+  11. ``[jpeg]``: the C JPEG decoder built, the committed fixtures of
+     tests/data/jpeg decoded to the sha256 and shape recorded from Pillow
+     when they were made (the card's machine has no Pillow), the
+     progressive fixture refused naming the file, host ms per megapixel on
+     a 576x1100 frame written by ``encode_jpeg`` (a numpy baseline encoder:
+     YCbCr 4:2:0, the Annex K tables scaled to quality 95);
+  12. ``[geo]``: [reader]'s scene written anew with its frames as JPEG (each
+     decode at least GEO_MIN_PSNR_DB above its source), the pure-geometry
+     reader's static cloud (point count, host ms), the device ms of the KNN
+     outlier removal over the whole cloud and of the point raster's taps,
+     z-buffer and composite passes, each ``st_cvd_*`` bundle rendered (s/view
+     after a warm-up) and held against the port on the CPU on a capped
+     cloud, then ``run benchmark --benchmark-type`` of each bundle
+     in-process over the first items (no kernel launches);
+  13. ``[pcl]`` / ``[mesh]``: the ``..._render_point`` / ``..._render_mesh``
+     bundles at 288x550 on the synthetic scene as phase 5 (78 K2 launches,
+     the static crop against the CPU, s/view), their dynamic layer held
+     against the CPU and the rasterizer's device ms.
 
 The second-to-last line is a JSON object describing each kernel (its times,
 its launches on its path and its bound on the card); the last line is
@@ -114,6 +132,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 # tolerances of the kernel against its plain version: bf16 operands with f32
 # accumulation against the float32 plain network (rgb and count: the bounds
@@ -1360,6 +1380,174 @@ def phase_new_modes(models, quad_img):
                          "view_std_normalized": VIEW_STD_TOL})
 
 
+# ----------------------------------------------------------------- JPEG writer
+# zig-zag position k -> natural (row-major) index of the 8x8 block
+JPEG_NATURAL_ORDER = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27,
+    20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+# ITU-T T.81 Annex K.1 quantisation tables (natural order)
+JPEG_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69,
+    56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81,
+    104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+JPEG_CHROMA_Q = np.full(64, 99)
+JPEG_CHROMA_Q[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [
+    17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+# Annex K.3 Huffman tables: (code counts per length 1-16, symbols)
+JPEG_DC_LUMA = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
+JPEG_DC_CHROMA = ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12)))
+JPEG_AC_LUMA = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f024336272820"
+    "90a161718191a25262728292a3435363738393a434445464748494a535455565758595a6364"
+    "65666768696a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8"
+    "a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9"
+    "eaf1f2f3f4f5f6f7f8f9fa"))
+JPEG_AC_CHROMA = ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a16"
+    "2434e125f11718191a262728292a35363738393a434445464748494a535455565758595a6364"
+    "65666768696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7"
+    "a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9"
+    "eaf2f3f4f5f6f7f8f9fa"))
+
+
+def _jpeg_quant(base, quality):
+    """libjpeg's jpeg_quality_scaling of an Annex K table, baseline-clamped."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _huff_codes(table):
+    """symbol -> (code, length) arrays of the canonical code of ``table``."""
+    counts, symbols = table
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, n in enumerate(counts, start=1):
+        for _ in range(n):
+            code_of[symbols[k]], len_of[symbols[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _dct_matrix():
+    n = np.arange(8)
+    c = np.sqrt(2.0 / 8) * np.cos((2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
+    c[0] /= np.sqrt(2.0)
+    return c
+
+
+def encode_jpeg(rgb, quality=95):
+    """Baseline JFIF bytes of a uint8 [H, W, 3] image: YCbCr, 4:2:0 (chroma
+    the mean of each 2x2), the float DCT, the Annex K tables scaled to
+    ``quality`` and the Annex K Huffman tables. numpy only."""
+    rgb = np.asarray(rgb)
+    h, w = rgb.shape[:2]
+    ph, pw = -(-h // 16) * 16, -(-w // 16) * 16
+    x = np.pad(rgb.astype(np.float64), ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    sub = [c.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3)) for c in (cb, cr)]
+    qt = [_jpeg_quant(JPEG_LUMA_Q, quality), _jpeg_quant(JPEG_CHROMA_Q, quality)]
+    dct = _dct_matrix()
+
+    def blocks(plane, q):
+        """[rows, cols, 64] quantised coefficients in zig-zag order."""
+        bh, bw = plane.shape[0] // 8, plane.shape[1] // 8
+        blk = (plane - 128.0).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        coef = dct @ blk @ dct.T
+        return np.rint(coef.reshape(bh, bw, 64) / q)[..., JPEG_NATURAL_ORDER].astype(np.int64)
+
+    yq, cbq, crq = blocks(y, qt[0]), blocks(sub[0], qt[1]), blocks(sub[1], qt[1])
+    my, mx = ph // 16, pw // 16
+    # MCU order: Y00 Y01 Y10 Y11 Cb Cr
+    yq = yq.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my, mx, 4, 64)
+    seq = np.concatenate([yq, cbq[:, :, None], crq[:, :, None]], axis=2).reshape(-1, 64)
+    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
+    nblk = seq.shape[0]
+
+    dc = seq[:, 0].copy()
+    diff = np.empty_like(dc)
+    for c in range(3):
+        sel = comp == c
+        diff[sel] = np.diff(dc[sel], prepend=0)
+    codes = [_huff_codes(t) for t in (JPEG_DC_LUMA, JPEG_AC_LUMA, JPEG_DC_CHROMA, JPEG_AC_CHROMA)]
+    is_chroma = comp > 0
+
+    def category(v):
+        a = np.abs(v)
+        return np.where(a == 0, 0, np.floor(np.log2(np.maximum(a, 1))).astype(np.int64) + 1)
+
+    def extra(v, s):
+        return np.where(v < 0, v + (1 << s) - 1, v) & ((1 << s) - 1)
+
+    # events: (block, key, value, length)
+    ev_blk, ev_key, ev_val, ev_len = [], [], [], []
+    s = category(diff)
+    dcode = np.where(is_chroma, codes[2][0][s], codes[0][0][s])
+    dlen = np.where(is_chroma, codes[2][1][s], codes[0][1][s])
+    ev_blk.append(np.arange(nblk))
+    ev_key.append(np.zeros(nblk, np.int64))
+    ev_val.append((dcode << s) | extra(diff, s))
+    ev_len.append(dlen + s)
+    bi, k = np.nonzero(seq[:, 1:])
+    k = k + 1
+    prev = np.where(np.r_[True, bi[1:] != bi[:-1]], 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    n_zrl = run // 16
+    run = run % 16
+    v = seq[bi, k]
+    s = category(v)
+    ch = is_chroma[bi]
+    sym = run * 16 + s
+    ev_blk.append(bi)
+    ev_key.append(k * 8 + 7)
+    ev_val.append((np.where(ch, codes[3][0][sym], codes[1][0][sym]) << s) | extra(v, s))
+    ev_len.append(np.where(ch, codes[3][1][sym], codes[1][1][sym]) + s)
+    zi = np.repeat(np.arange(bi.size), n_zrl)
+    zj = np.arange(zi.size) - np.repeat(np.cumsum(n_zrl) - n_zrl, n_zrl)
+    zch = ch[zi]
+    ev_blk.append(bi[zi])
+    ev_key.append(k[zi] * 8 + zj)
+    ev_val.append(np.where(zch, codes[3][0][0xF0], codes[1][0][0xF0]))
+    ev_len.append(np.where(zch, codes[3][1][0xF0], codes[1][1][0xF0]))
+    last = np.zeros(nblk, np.int64)
+    np.maximum.at(last, bi, k)
+    eob = np.nonzero(last < 63)[0]
+    ev_blk.append(eob)
+    ev_key.append(np.full(eob.size, 64 * 8))
+    ev_val.append(np.where(is_chroma[eob], codes[3][0][0], codes[1][0][0]))
+    ev_len.append(np.where(is_chroma[eob], codes[3][1][0], codes[1][1][0]))
+    blk, key = np.concatenate(ev_blk), np.concatenate(ev_key)
+    order = np.lexsort((key, blk))
+    val, length = np.concatenate(ev_val)[order], np.concatenate(ev_len)[order]
+    starts = np.cumsum(length) - length
+    total = int(length.sum())
+    idx = np.repeat(np.arange(val.size), length)
+    j = np.arange(total) - starts[idx]
+    bits = ((val[idx] >> (length[idx] - 1 - j)) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones((-total) % 8, np.uint8)])  # pad with 1s
+    data = np.packbits(bits)
+    data = np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0).astype(np.uint8).tobytes()
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+    out = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for t, q in enumerate(qt):
+        out += seg(0xDB, bytes([t]) + bytes(q[JPEG_NATURAL_ORDER].astype(np.uint8)))
+    out += seg(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+               + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for tc_th, (counts, symbols) in ((0x00, JPEG_DC_LUMA), (0x10, JPEG_AC_LUMA),
+                                      (0x01, JPEG_DC_CHROMA), (0x11, JPEG_AC_CHROMA)):
+        out += seg(0xC4, bytes([tc_th]) + bytes(counts) + bytes(symbols))
+    out += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return out + data + b"\xff\xd9"
+
+
 # the [reader] phase's scene: the NVIDIA layout, 24 frames on the 12-camera
 # round robin, raw images at twice the eval size (576x1100 -> 288x550)
 READER_SCENE = "Balloon1"
@@ -1373,28 +1561,31 @@ READER_ITEMS = ((11, 11), (12, 0), (12, 5))
 # those the items' temporal pairs read, and those of the first three items
 # of the scene, which [eval] scores
 READER_FLOW_FRAMES = ((0, 4), (10, 14))
-READER_STAGES = ("png_decode", "lanczos", "inter_area", "nearest", "npz_npy", "depth_range")
+READER_STAGES = ("decode", "lanczos", "inter_area", "nearest", "npz_npy", "depth_range")
 
 
 def write_reader_scene(root, raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
                        n_frames=READER_FRAMES, items=READER_ITEMS,
-                       flow_frames=READER_FLOW_FRAMES, seed=SEED):
+                       flow_frames=READER_FLOW_FRAMES, seed=SEED, jpeg_quality=None):
     """Write the synthetic scene (``data/synthetic.py``) under ``root`` in
     the NVIDIA layout that ``NvidiaEvalDataset`` reads with its default
-    directory names, through the port's ``write_png`` only: per frame the
-    mono camera's image (frame % 12) and those of ``items``, each with its
-    8-bit eval mask, at ``raw_hw``, the rgb with the filter types cycled row
-    by row; the mono frame's 1-bit dynamic mask and its disparity (.npy,
+    directory names, through the port's ``write_png`` (and ``encode_jpeg``)
+    only: per frame the mono camera's image (frame % 12) and those of
+    ``items``, each with its 8-bit eval mask, at ``raw_hw``, the rgb with the
+    filter types cycled row by row, or, with ``jpeg_quality``, as baseline
+    JPEG (``encode_jpeg``, 4:2:0) as the real DynIBaR frames are; the mono
+    frame's 1-bit dynamic mask and its disparity (.npy,
     float32) at ``raw_hw``; the ``images_<w>x<h>`` marker of the eval size;
     flows at ``eval_hw``, intervals 1 and 2, between the frames of each
     (start, stop) range of ``flow_frames``, with a coord_diff from ``seed``
     that marks ~6 % of the pixels occluded; and ``poses_bounds_cvd.npy`` in LLFF's convention.
     Cameras are the synthetic arc's, 12 of them; frame f is seen from
-    camera f % 12 at time f / (n_frames - 1)."""
+    camera f % 12 at time f / (n_frames - 1). Returns the PSNR (dB) of each
+    JPEG frame's decode (``read_jpeg``) against its source (empty for PNG)."""
     import numpy as np
 
     from pgdvs_tpu_torch.data import synthetic
-    from pgdvs_tpu_torch.data.image_io import write_png
+    from pgdvs_tpu_torch.data.image_io import read_jpeg, write_png
 
     (rh, rw), (eh, ew) = raw_hw, eval_hw
     dense = root / "nvidia_long" / READER_SCENE / "dense"
@@ -1415,14 +1606,21 @@ def write_reader_scene(root, raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
         hwf = np.array([[rh], [rw], [focal]])
         rows.append(np.concatenate([llff, hwf], axis=1).ravel().tolist() + [0.1, 10.0])
     np.save(dense / "poses_bounds_cvd.npy", np.asarray(rows))
+    psnrs = []
     for f in range(n_frames):
         frame_dir, eval_dir = dense / f"mv_images/{f:05d}", dense / f"mv_masks/{f:05d}"
         frame_dir.mkdir()
         eval_dir.mkdir()
         for c in sorted({f % 12} | {c for ff, c in items if ff == f}):
             fr = synthetic.render_frame(rh, rw, cams[c], times[f])
-            write_png(frame_dir / f"cam{c + 1:02d}.png", (fr["rgb"] * 255).astype(np.uint8),
-                      "cycle")
+            rgb = (fr["rgb"] * 255).astype(np.uint8)
+            if jpeg_quality is None:
+                write_png(frame_dir / f"cam{c + 1:02d}.png", rgb, "cycle")
+            else:
+                data = encode_jpeg(rgb, jpeg_quality)
+                (frame_dir / f"cam{c + 1:02d}.jpg").write_bytes(data)
+                err = np.mean((read_jpeg(data).astype(np.float64) - rgb) ** 2)
+                psnrs.append(10.0 * np.log10(255.0 ** 2 / err))
             write_png(eval_dir / f"cam{c + 1:02d}.png",
                       (fr["dyn_mask"][..., 0] * 255).astype(np.uint8))
             if c == f % 12:
@@ -1439,6 +1637,7 @@ def write_reader_scene(root, raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
                                               cams[j % 12], times[j])
                 np.savez(flow_root / f"flows/interval_{interval}/{i:05d}_{j:05d}.npz",
                          flow=flow, coord_diff=rng.uniform(0, 0.6, (eh, ew, 2)).astype(np.float32))
+    return psnrs
 
 
 class StageTimer:
@@ -1477,9 +1676,9 @@ class ReaderStageTimes(StageTimer):
     """Host seconds of one reader's stages while the context is open, by
     wrapping the functions ``pgdvs_tpu_torch.data.nvidia_eval`` calls (its
     decode, resizes and array loads, and the dataset's depth range); the
-    PNG files it decoded. For one thread (a loader with 0 workers)."""
+    image files it decoded. For one thread (a loader with 0 workers)."""
 
-    WRAPPED = {"read_png": "png_decode", "resize_lanczos_pil": "lanczos",
+    WRAPPED = {"read_image": "decode", "resize_lanczos_pil": "lanczos",
                "resize_area": "inter_area", "resize_nearest_cv": "nearest",
                "resize_nearest_pil": "nearest", "load_arrays": "npz_npy"}
 
@@ -1492,7 +1691,7 @@ class ReaderStageTimes(StageTimer):
 
     def _timed(self, fn, stage):
         timed = super()._timed(fn, stage)
-        if stage != "png_decode":
+        if stage != "decode":
             return timed
 
         def decode(*args, **kwargs):
@@ -1641,7 +1840,7 @@ def phase_reader(models, root, device="cuda", raw_hw=READER_RAW_HW, eval_hw=READ
             for k in ("total", *READER_STAGES)}
     log(f"[reader] summary: host ms per item (mean of {len(items)}, 0 workers) "
         + " ".join(f"{k} {v:.2f}" for k, v in mean.items())
-        + f"; plain png_decode of item 1 {1e3 * t_plain:.2f} vs native {1e3 * t_native:.2f}"
+        + f"; plain PNG decode of item 1 {1e3 * t_plain:.2f} vs native {1e3 * t_native:.2f}"
         f"; transfer ms per item {1e3 * t_copy[0]:.2f} / {1e3 * t_copy[1]:.2f} (first / "
         f"second pass); render s/view "
         + " ".join(f"{x:.4f}" for x in render_s)
@@ -1942,6 +2141,294 @@ def phase_eval(models, root, device="cuda", n_items=EVAL_ITEMS, eval_hw=READER_E
             + " the render")
 
 
+# ------------------------------------------------- JPEG frames and geometry
+
+JPEG_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+# the [geo] scene's frames: baseline JPEG at quality 95, 4:2:0, each decode
+# at least this far above its source (the 25 frames at 576x1100 decode at
+# 38.6-46.0 dB; Pillow's own encoder at quality 95 lands within 0.1 dB of
+# this one on such a frame)
+GEO_JPEG_QUALITY = 95
+GEO_MIN_PSNR_DB = 35.0
+GEO_BUNDLES = ("st_cvd_dy_cvd", "st_cvd_dy_cvd_pcl_clean", "st_cvd_pcl_clean_dy_cvd_pcl_clean")
+GEO_ITEMS = 2
+# the capped cloud of the render held against the CPU (the KNN of the full
+# cloud is too slow there)
+GEO_CPU_CAPACITY = 20000
+# card against CPU, the same inputs and noise: float32 projection (another
+# summation order on the card) and index_add_'s atomics (F3) move rgb by
+# float32 rounding; a coverage or mask pixel may flip where a point sits on
+# a footprint's edge to the ulp, or a KNN tie flips an outlier: at most
+# GEO_MASK_FLIPS of the pixels, rgb compared where both masks agree
+GEO_RGB_TOL = 1e-4
+GEO_MASK_FLIPS = 1e-4
+# a KNN over the whole static cloud slower than this runs its bundle on one
+# item (it runs every view, as in the JAX package)
+GEO_KNN_SLOW_S = 10.0
+
+
+def _cuda_ms(fn, iters=3):
+    """Per-call device ms of ``fn`` (CUDA events, after one warm-up call),
+    each call timed alone: (median, all)."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(iters):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop))
+    return statistics.median(out), out
+
+
+def phase_jpeg(smi):
+    """[jpeg]: the C decoder built, the committed fixtures decoded to the
+    sha256 and shape recorded from Pillow when they were made
+    (tests/data/jpeg/decodes.json: 4:4:4 / 4:2:2 / 4:2:0, grey, restarts,
+    16-bit tables, Adobe RGB, EXIF), the progressive fixture refused naming
+    the file, and host ms per megapixel on a 576x1100 synthetic frame
+    written by ``encode_jpeg`` at GEO_JPEG_QUALITY."""
+    import hashlib
+
+    from pgdvs_tpu_torch.data import image_io, synthetic
+
+    t0 = time.perf_counter()
+    image_io.load_jpeg_library()
+    t_build = time.perf_counter() - t0
+    record = json.loads((JPEG_FIXTURES / "decodes.json").read_text())
+    for name, want in record["decodes"].items():
+        got = image_io.read_image(JPEG_FIXTURES / name)
+        digest = hashlib.sha256(got.tobytes()).hexdigest()
+        if list(got.shape) != want["shape"] or digest != want["sha256"]:
+            raise AssertionError(f"[jpeg] {name}: {got.shape} {digest} is not Pillow's "
+                                 f"{want['shape']} {want['sha256']}")
+    for name, what in record["refused"].items():
+        try:
+            image_io.read_image(JPEG_FIXTURES / name)
+        except NotImplementedError as e:
+            if name not in str(e) or what not in str(e):
+                raise AssertionError(f"[jpeg] {name} refused without naming it: {e}") from e
+        else:
+            raise AssertionError(f"[jpeg] {name} ({what}) decoded; it must raise")
+    fr = synthetic.render_frame(*READER_RAW_HW, synthetic.camera_pose(3, 13), 0.5)
+    data = encode_jpeg((fr["rgb"] * 255).astype(np.uint8), GEO_JPEG_QUALITY)
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        image_io.read_jpeg(data)
+        secs.append(time.perf_counter() - t0)
+    mpix = READER_RAW_HW[0] * READER_RAW_HW[1] / 1e6
+    log(f"[jpeg] decoder built in {t_build:.2f} s; {len(record['decodes'])} fixtures == Pillow "
+        f"{record['pillow']} (libjpeg-turbo {record['libjpeg_turbo']}) by sha256 and shape; "
+        f"{', '.join(record['refused'])} refused naming the file; host decode of a "
+        f"{READER_RAW_HW[0]}x{READER_RAW_HW[1]} q{GEO_JPEG_QUALITY} 4:2:0 frame "
+        f"({len(data)} bytes): median {1e3 * statistics.median(secs):.2f} ms, "
+        f"{1e3 * statistics.median(secs) / mpix:.2f} ms per megapixel; on {smi}")
+
+
+def _geo_render(data, cfg, noise):
+    from pgdvs_tpu_torch.renderers.compose import render_novel_view
+
+    return render_novel_view(None, data, cfg, static_mode="geo", noise=noise)
+
+
+def _hold_against_cpu(tag, got, ref, rgb_keys, mask_keys, mask_for):
+    """Masks equal but for at most GEO_MASK_FLIPS of the pixels; each rgb
+    within GEO_RGB_TOL where the masks ``mask_for[key]`` all agree. Returns
+    (flips, worst rgb)."""
+    flips, worst = {}, {}
+    for key in mask_keys:
+        a, b = got[key].float().cpu(), ref[key].float()
+        flips[key] = int((a != b).sum())
+        if flips[key] > GEO_MASK_FLIPS * a.numel():
+            raise AssertionError(f"{tag} {key}: {flips[key]} of {a.numel()} pixels differ "
+                                 "from the CPU")
+    for key in rgb_keys:
+        agree = 1.0
+        for m in mask_for[key]:
+            agree = agree * (got[m].cpu() == ref[m]).all(dim=-1, keepdim=True)
+        err = ((got[key].float().cpu() - ref[key]).abs() * agree).max()
+        worst[key] = float(err)
+        if not worst[key] <= GEO_RGB_TOL:
+            raise AssertionError(f"{tag} {key}: max err {worst[key]} against the CPU")
+    return flips, worst
+
+
+def phase_geo(root, smi, device="cuda", n_items=GEO_ITEMS, raw_hw=READER_RAW_HW,
+              eval_hw=READER_EVAL_HW, cpu_capacity=GEO_CPU_CAPACITY,
+              min_psnr_db=GEO_MIN_PSNR_DB):
+    """[geo]: the pure-geometry bundles on [reader]'s scene with JPEG frames.
+
+    Writes ``write_reader_scene`` under ``root`` with its frames as JPEG
+    (``encode_jpeg``), each decode at least GEO_MIN_PSNR_DB above its source;
+    aggregates the static cloud (``NvidiaPureGeoEvalDataset``, host ms) and
+    times on the card, over the first item, the KNN outlier removal of the
+    whole cloud (``statistical_outlier_mask``, k 50, std 0.2) and the point
+    raster's taps, z-buffer and composite passes (CUDA events); renders each
+    ``st_cvd_*`` bundle on the first item twice and times it (s/view after
+    the warm-up), and holds it, on a cloud capped at GEO_CPU_CAPACITY,
+    against the port on the CPU with the same noise; then runs ``python -m
+    pgdvs_tpu_torch.run benchmark --benchmark-type`` for each bundle
+    in-process over the first ``n_items`` items (one where the whole-cloud
+    KNN takes more than GEO_KNN_SLOW_S): no kernel launches, finite
+    metrics. Device times use CUDA events, so the phase needs a card;
+    sizes are parameters for a rehearsal."""
+    import torch
+
+    from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
+    from pgdvs_tpu_torch.data.loader import contract_to_device
+    from pgdvs_tpu_torch.data.nvidia_pure_geo import NvidiaPureGeoEvalDataset
+    from pgdvs_tpu_torch.kernels.knn import statistical_outlier_mask
+    from pgdvs_tpu_torch.kernels.point_raster import (
+        composite_pass,
+        footprint_px,
+        point_taps,
+        zbuffer_pass,
+    )
+
+    t0 = time.perf_counter()
+    psnrs = write_reader_scene(root, raw_hw, eval_hw, jpeg_quality=GEO_JPEG_QUALITY)
+    t_write = time.perf_counter() - t0
+    if not min(psnrs) >= min_psnr_db:
+        raise AssertionError(f"[geo] a JPEG frame decodes at {min(psnrs):.2f} dB of its source")
+    kw = dict(scene_ids=[READER_SCENE], tgt_height=eval_hw[0])
+    ds = NvidiaPureGeoEvalDataset(root, **kw)
+    t0 = time.perf_counter()
+    pcl = ds._scene_pcl(READER_SCENE)
+    t_agg = time.perf_counter() - t0
+    log(f"[geo] scene {raw_hw[0]}x{raw_hw[1]} raw -> {eval_hw[0]}x"
+        f"{eval_hw[1]}, {READER_FRAMES} frames, {len(psnrs)} JPEG frames (q"
+        f"{GEO_JPEG_QUALITY}, 4:2:0) written in {t_write:.3f} s, decode PSNR min "
+        f"{min(psnrs):.2f} mean {statistics.mean(psnrs):.2f} dB (bound {min_psnr_db}); "
+        f"static cloud {pcl.shape[0]} points aggregated in {1e3 * t_agg:.1f} host ms")
+
+    item = ds[0]
+    data = contract_to_device(item, device)
+    hw = item["rgb_tgt"].shape[:2]
+    points = data["st_pcl_rgb"][:, :3]
+    valid = data["st_pcl_valid"]
+    clean = resolve_benchmark(GEO_BUNDLES[2])[0]
+    kept = []
+    knn_ms, knn_all = _cuda_ms(lambda: kept.append(int(statistical_outlier_mask(
+        points, valid, k=clean.st_pcl_outlier_knn,
+        std_thres=clean.st_pcl_outlier_std_thres)[0].sum())), iters=1)
+    r_px, fp = footprint_px(clean.st_render_pcl_pt_radius, hw)
+    cam = data["flat_cam_tgt"]
+    taps_ms, _ = _cuda_ms(lambda: point_taps(points, cam, hw, valid, r_px, fp), iters=5)
+    z, taps = point_taps(points, cam, hw, valid, r_px, fp)
+    zbuf_ms, _ = _cuda_ms(lambda: zbuffer_pass(z, taps, hw[0] * hw[1]), iters=5)
+    zbuf = zbuffer_pass(z, taps, hw[0] * hw[1])
+    comp_ms, _ = _cuda_ms(lambda: composite_pass(z, taps, zbuf, data["st_pcl_rgb"][:, 3:6], hw,
+                                                 r_px, 0.01), iters=5)
+    log(f"[geo] device ms over the {points.shape[0]}-point cloud: KNN outlier removal (k "
+        f"{clean.st_pcl_outlier_knn}) median {knn_ms:.1f} ({', '.join(f'{x:.1f}' for x in knn_all)}"
+        f"), keeps {kept[-1]}; point raster at radius {clean.st_render_pcl_pt_radius} ({r_px:.2f} px, "
+        f"{(2 * fp + 1) ** 2} taps): taps {taps_ms:.3f}, z-buffer pass {zbuf_ms:.3f}, composite "
+        f"pass {comp_ms:.3f}; on {smi}")
+
+    cap = NvidiaPureGeoEvalDataset(root, st_pcl_capacity=cpu_capacity, **kw)[0]
+    cap_cpu = contract_to_device(cap, "cpu")
+    cap_dev = contract_to_device(cap, device)
+    noise = torch.randn(item["rgb_tgt"].shape, generator=torch.Generator().manual_seed(SEED))
+    for bundle in GEO_BUNDLES:
+        cfg = resolve_benchmark(bundle)[0]
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = _geo_render(data, cfg, noise.to(device))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        rgb = out["combined_rgb"]
+        if tuple(rgb.shape) != (*hw, 3) or not bool(torch.isfinite(rgb).all()):
+            raise AssertionError(f"[geo] {bundle}: combined_rgb {tuple(rgb.shape)} not finite")
+        got = _geo_render(cap_dev, cfg, noise.to(device))
+        ref = _geo_render(cap_cpu, cfg, noise)
+        flips, worst = _hold_against_cpu(
+            f"[geo] {bundle}", got, ref, ("geo_static_rgb", "render_dyn_rgb", "combined_rgb"),
+            ("geo_static_mask", "render_dyn_mask"),
+            {"geo_static_rgb": ("geo_static_mask",), "render_dyn_rgb": ("render_dyn_mask",),
+             "combined_rgb": ("geo_static_mask", "render_dyn_mask")})
+        log(f"[geo] {bundle}: s/view {secs[1]:.4f} after a {secs[0]:.4f} s warm-up; static "
+            f"coverage {float(out['geo_static_mask'].mean()):.4f}, dynamic "
+            f"{float(out['render_dyn_mask'].mean()):.4f}; vs CPU on the cloud capped at "
+            f"{cpu_capacity}: mask pixels differing {flips}, rgb max err "
+            + " ".join(f"{k}={v:.2e}" for k, v in worst.items()) + f"; on {smi}")
+
+    no_launch = {k: 0 for k in KERNELS}
+    for bundle in GEO_BUNDLES:
+        n = 1 if (bundle == GEO_BUNDLES[2] and knn_ms / 1e3 > GEO_KNN_SLOW_S) else n_items
+        argv = ["benchmark", "--benchmark-type", bundle, "--data-root", str(root),
+                "--scene-ids", READER_SCENE, "--max-items", str(n), "--device", device,
+                "--dataset-arg", f"tgt_height={eval_hw[0]}",
+                "--out-dir", str(root / f"out_{bundle}")]
+        result, renders, stages = _run_cli(argv, f"[geo] {bundle}", n, no_launch, device)
+        if not all(np.isfinite(v) for v in result["mean"].values()):
+            raise AssertionError(f"[geo] {bundle}: metrics not finite: {result['mean']}")
+        log(f"[geo] run benchmark --benchmark-type {bundle}: {n} items, no kernel launches; "
+            f"render s/view " + " ".join(f"{x:.4f}" for x, _img in renders)
+            + f"; loop {stages['loop'] / n:.4f} s/view (cloud aggregation included); mean "
+            + json.dumps(result["mean"]) + f"; on {smi}")
+
+
+def phase_point_mesh(models, smi, device="cuda", h=288, w=550, n_samples=256,
+                     rows=(140, 144), cols=(160, 224)):
+    """[pcl] / [mesh]: the two masked bundles whose dynamic layer is
+    rasterized, ``..._render_point`` and ``..._render_mesh``, at 288x550 on
+    the synthetic contract scene through ``phase_main_path`` (78 K2 launches,
+    the static crop against the CPU, s/view); then the dynamic layer held
+    against ``render_dynamic`` on the CPU from the same inputs (masks equal
+    but for GEO_MASK_FLIPS, rgb within GEO_RGB_TOL), and the device ms of
+    the rasterizer alone on the card's cloud (CUDA events)."""
+    import torch
+
+    from pgdvs_tpu_torch.data.loader import contract_to_device
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.kernels.mesh_raster import rasterize_grid_mesh
+    from pgdvs_tpu_torch.kernels.point_raster import rasterize_points
+    from pgdvs_tpu_torch.renderers.dynamic import compute_dyn_pointcloud, render_dynamic
+
+    host = make_contract_data(h=h, w=w, n_spatial=10, n_frames=12, tgt_time=0.5)
+    data = contract_to_device(host, device)
+    cpu = contract_to_device(host, "cpu")
+    for tag, bundle in (("[pcl]", "st_gnt_masked_attn_dy_cvd_pcl_clean_render_point"),
+                        ("[mesh]", "st_gnt_masked_attn_dy_cvd_pcl_clean_render_mesh")):
+        _launches, secs, out = phase_main_path(models, bundle=bundle, device=device,
+                                               n_samples=n_samples, rows=rows, cols=cols,
+                                               tag=tag, data=data)
+        cfg = slice_config(bundle, n_samples)
+        ref = render_dynamic(cpu, cfg)
+        got = {"rgb": out["render_dyn_rgb"], "mask": out["render_dyn_mask"]}
+        flips, worst = _hold_against_cpu(tag, got, ref, ("rgb",), ("mask",), {"rgb": ("mask",)})
+        pcl = compute_dyn_pointcloud(
+            rgb_1=data["rgb_src_temporal"][0], dyn_mask_1=data["dyn_mask_src_temporal"][0],
+            depth_1=data["depth_src_temporal"][0], flow_12=data["flow_fwd"],
+            flow_12_occ_mask=data["flow_fwd_occ_mask"], rgb_2=data["rgb_src_temporal"][1],
+            depth_2=data["depth_src_temporal"][1], cam_1=data["flat_cam_src_temporal"][0],
+            cam_2=data["flat_cam_src_temporal"][1], cam_tgt=data["flat_cam_tgt"],
+            time_1=data["time_src_temporal"][0], time_2=data["time_src_temporal"][1],
+            time_tgt=data["time_tgt"][0], cfg=cfg)
+        if cfg.dyn_render_type == "pcl":
+            def raster():
+                return rasterize_points(pcl["points"], pcl["colors"], data["flat_cam_tgt"],
+                                        (h, w), valid=pcl["valid"],
+                                        radius=cfg.dyn_render_pcl_pt_radius)
+        else:
+            def raster():
+                return rasterize_grid_mesh(pcl["points"], pcl["colors"], pcl["valid"],
+                                           data["flat_cam_tgt"], (h, w))
+        ms, all_ms = _cuda_ms(raster, iters=5)
+        log(f"{tag} dynamic layer ({cfg.dyn_render_type}, {int(pcl['valid'].sum())} valid of "
+            f"{pcl['valid'].numel()} points) vs render_dynamic on the CPU: mask pixels differing "
+            f"{flips['mask']}, rgb max err {worst['rgb']:.2e} where the masks agree; mask covers "
+            f"{float(out['render_dyn_mask'].mean()):.4f}; rasterizer device ms median {ms:.3f} "
+            f"({', '.join(f'{x:.3f}' for x in all_ms)}); s/view {statistics.mean(secs):.4f}; "
+            f"on {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -1955,7 +2442,7 @@ def main() -> int:
         return 2
     from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
 
-    name, _smi = phase_device()
+    name, smi = phase_device()
     phase_build()
     models = init_gnt_models(seed=SEED, device="cuda")
     k1_worst, k1_times = phase_kernel_vs_plain(models[1])
@@ -1987,6 +2474,9 @@ def main() -> int:
         root = pathlib.Path(tmp)
         phase_reader(models, root / "scene")
         phase_eval(models, root)
+        phase_jpeg(smi)
+        phase_geo(root / "geo", smi)
+    phase_point_mesh(models, smi)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     rows = []

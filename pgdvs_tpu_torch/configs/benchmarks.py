@@ -13,10 +13,9 @@ gnt = transformer), dy = dynamic branch, pcl_clean = statistical outlier
 removal, masked_attn / masked_input = GNT dynamic-mask handling, zoed =
 ZoeDepth instead of CVD depth, track_* = occlusion recovery via tracking.
 
-Every name resolves; rendering one that needs a branch the port has not
-reached yet (geo, pcl / mesh rendering, a tracker) raises ValueError in
-``check_slice``. Tracker construction (``make_tracker``) waits for the
-track slice.
+Every name resolves; rendering one that needs a tracker raises ValueError
+in ``check_slice`` (and the CLI refuses the vis bundles). Tracker
+construction (``make_tracker``) waits for the track slice.
 """
 
 from __future__ import annotations

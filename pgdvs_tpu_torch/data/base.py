@@ -3,7 +3,7 @@
 The counterpart of ``pgdvs_tpu.data.base``: the released benchmark data
 ships as zip archives read through a handle opened lazily per process, and
 crops renormalize the camera intrinsics. Images decode through
-``image_io.read_png``.
+``image_io.read_image`` (PNG or JPEG).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Optional
 
 import numpy as np
 
-from pgdvs_tpu_torch.data.image_io import read_png, refuse_jpeg
+from pgdvs_tpu_torch.data.image_io import read_image
 
 
 class ZipReader:
@@ -48,10 +48,9 @@ class ZipReader:
         return self._zip().read(name)
 
     def read_image(self, name: str) -> np.ndarray:
-        """Decode a PNG from the archive (``read_png``: what PIL would give);
-        a JPEG member raises, naming it."""
-        refuse_jpeg(f"{self.path}:{name}")
-        return read_png(self.read_bytes(name))
+        """Decode a PNG or JPEG member of the archive (``read_image``: what
+        PIL would give); what it does not decode raises, naming the member."""
+        return read_image(self.read_bytes(name), name=f"{self.path}:{name}")
 
     def read_npz(self, name: str) -> dict:
         with np.load(io.BytesIO(self.read_bytes(name)), allow_pickle=False) as z:

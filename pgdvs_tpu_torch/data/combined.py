@@ -2,8 +2,8 @@
 
 The counterpart of ``pgdvs_tpu.data.combined``: a named registry and one
 flat index space over the concatenation of the selected datasets. Of the JAX
-package's five readers only ``nvidia_eval`` is ported; the other names raise
-``KeyError`` saying so.
+package's five readers ``nvidia_eval`` and ``nvidia_eval_pure_geo`` are
+ported; the other names raise ``KeyError`` saying so.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Dict, List, Sequence
 DATASET_REGISTRY: Dict[str, type] = {}
 
 # the JAX package's readers that the port does not carry yet
-NOT_PORTED = ("nvidia_eval_pure_geo", "nvidia_vis", "mono_vis", "dycheck_iphone_eval")
+NOT_PORTED = ("nvidia_vis", "mono_vis", "dycheck_iphone_eval")
 
 
 def register_dataset(name: str):
@@ -26,8 +26,10 @@ def register_dataset(name: str):
 
 def _populate():
     from pgdvs_tpu_torch.data.nvidia_eval import NvidiaEvalDataset
+    from pgdvs_tpu_torch.data.nvidia_pure_geo import NvidiaPureGeoEvalDataset
 
     DATASET_REGISTRY.setdefault("nvidia_eval", NvidiaEvalDataset)
+    DATASET_REGISTRY.setdefault("nvidia_eval_pure_geo", NvidiaPureGeoEvalDataset)
 
 
 class CombinedDataset:

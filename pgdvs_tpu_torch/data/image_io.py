@@ -3,15 +3,26 @@
 The JAX package's readers decode with PIL and resize with OpenCV and PIL;
 the GPU machine has neither. This module carries what they use:
 
-``read_png`` decodes a PNG into exactly the array ``np.asarray(PIL.Image.
-open(f))`` gives: (H, W) uint8 for 8-bit grey, (H, W) bool for 1-bit grey,
+``read_image`` decodes a PNG or a JPEG file (told apart by their first
+bytes) into exactly the array ``np.array(PIL.Image.open(f))`` gives.
+
+``read_png``: (H, W) uint8 for 8-bit grey, (H, W) bool for 1-bit grey,
 (H, W) uint8 palette indices for a palette image, (H, W, 2 / 3 / 4) uint8
 for grey + alpha, RGB and RGBA. 16-bit and interlaced files raise, naming
-the file, as do JPEG files (no decoder yet). The scanlines are un-filtered by
-a C function (``csrc/png_unfilter.c``), built with the host C compiler at
-first use into ``pgdvs_tpu_torch/_build/`` and loaded with ctypes; a failed
-build raises with the command it ran. ``unfilter_plain`` is its numpy
-version, which the tests hold it against.
+the file. The scanlines are un-filtered by a C function
+(``csrc/png_unfilter.c``); ``unfilter_plain`` is its numpy version, which
+the tests hold it against.
+
+``read_jpeg``: (H, W, 3) uint8 for a YCbCr or RGB JPEG, (H, W) uint8 for a
+grey one, by a baseline decoder in C (``csrc/jpeg_decode.c``) that follows
+libjpeg-turbo's arithmetic (the library Pillow's wheels decode with), so
+the two agree bit for bit. Progressive, lossless and arithmetic-coded
+files, 12-bit samples, 2 or 4 components, sampling other than 1x1, 2x1 or
+2x2 luma over 1x1 chroma, and truncated files raise, naming the file.
+
+The C sources are built with the host C compiler at first use into
+``pgdvs_tpu_torch/_build/`` and loaded with ctypes; a failed build raises
+with the command it ran.
 
 ``write_png`` writes uint8 grey / grey + alpha / RGB / RGBA and 1-bit grey
 (from bool) with any of the five filter types, fixed, cycled row by row, or
@@ -43,6 +54,7 @@ import numpy as np
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 UNFILTER_SOURCE = PKG_DIR / "csrc" / "png_unfilter.c"
+JPEG_SOURCE = PKG_DIR / "csrc" / "jpeg_decode.c"
 BUILD_DIR = PKG_DIR / "_build"
 CC_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c99"]
 
@@ -51,7 +63,38 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 # colour type -> bit depths read_png takes
 PNG_DEPTHS = {0: (1, 8), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
-JPEG_SUFFIXES = (".jpg", ".jpeg")
+JPEG_SOI = b"\xff\xd8"
+
+
+# ------------------------------------------------------------ host builds
+
+
+def build_host_library(source: Path) -> ctypes.CDLL:
+    """Build (if needed) and load a C source of ``csrc/`` as a shared
+    library. The library is named by the source's stem and a hash of the
+    source and flags, so an edited source rebuilds; the build goes through
+    a temporary file and an atomic rename, so processes that build at once
+    do not collide."""
+    src = source.read_bytes()
+    digest = hashlib.sha256(src + " ".join(CC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    if not so.exists():
+        cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc") or "cc"
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [cc, *CC_FLAGS, "-o", tmp, str(source)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            os.unlink(tmp)
+            raise RuntimeError(f"building {source.name} failed: {' '.join(cmd)}: {e}") from e
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"building {source.name} failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
 
 
 # ------------------------------------------------------------- un-filtering
@@ -59,30 +102,8 @@ JPEG_SUFFIXES = (".jpg", ".jpeg")
 
 @functools.lru_cache(maxsize=None)
 def load_unfilter_library():
-    """Build (if needed) and load ``csrc/png_unfilter.c``; cached for the
-    process. The library is named by a hash of the source and flags, so an
-    edited source rebuilds; the build goes through a temporary file and an
-    atomic rename, so processes that build at once do not collide."""
-    src = UNFILTER_SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(CC_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libpng_unfilter_{digest}.so"
-    if not so.exists():
-        cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc") or "cc"
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [cc, *CC_FLAGS, "-o", tmp, str(UNFILTER_SOURCE)]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as e:
-            os.unlink(tmp)
-            raise RuntimeError(f"building the PNG un-filter failed: {' '.join(cmd)}: {e}") from e
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"building the PNG un-filter failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    """``csrc/png_unfilter.c``, built and loaded once per process."""
+    lib = build_host_library(UNFILTER_SOURCE)
     lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                                  ctypes.c_int64, ctypes.c_int]
     lib.png_unfilter.restype = ctypes.c_int
@@ -149,28 +170,76 @@ def unfilter_plain(raw, height: int, stride: int, bpp: int) -> np.ndarray:
 # ----------------------------------------------------------------- decoding
 
 
-def refuse_jpeg(name: str) -> None:
-    """Raise NotImplementedError, naming the file, if ``name`` is a JPEG."""
-    if name.lower().endswith(JPEG_SUFFIXES):
-        raise NotImplementedError(
-            f"{name}: JPEG is not decoded yet (ROADMAP.md, queue 1: the JPEG decoder "
-            "after the evaluation slice); convert the frames to PNG")
-
-
 def _name(source) -> str:
     return "<bytes>" if isinstance(source, (bytes, bytearray, memoryview)) else str(source)
 
 
-def read_png(source, native: bool = True) -> np.ndarray:
+def _read(source):
+    """(name, bytes) of a path or of bytes."""
+    if isinstance(source, (bytes, bytearray, memoryview)):
+        return _name(source), bytes(source)
+    return _name(source), Path(source).read_bytes()
+
+
+def read_image(source, name=None) -> np.ndarray:
+    """Decode a PNG or JPEG file (path) or its bytes, told apart by their
+    first bytes, into what ``np.array(PIL.Image.open(f))`` gives; errors
+    name ``name`` (default: the path)."""
+    src_name, data = _read(source)
+    name = name or src_name
+    if data[:2] == JPEG_SOI:
+        return read_jpeg(data, name=name)
+    if data[:8] == PNG_SIGNATURE:
+        return read_png(data, name=name)
+    raise ValueError(f"{name}: neither a PNG nor a JPEG file")
+
+
+@functools.lru_cache(maxsize=None)
+def load_jpeg_library():
+    """``csrc/jpeg_decode.c``, built and loaded once per process."""
+    lib = build_host_library(JPEG_SOURCE)
+    lib.jpeg_header.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                                ctypes.c_char_p, ctypes.c_int64]
+    lib.jpeg_header.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                                ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
+    lib.jpeg_decode.restype = ctypes.c_int
+    return lib
+
+
+def _jpeg_check(code: int, name: str, err) -> None:
+    msg = err.value.decode(errors="replace")
+    if code == 2:
+        raise NotImplementedError(f"{name}: {msg}")
+    if code:
+        raise ValueError(f"{name}: {msg}")
+
+
+def read_jpeg(source, name=None) -> np.ndarray:
+    """Decode a baseline JPEG file (path) or its bytes: (H, W, 3) uint8 RGB
+    or (H, W) uint8 grey, equal to ``np.array(PIL.Image.open(f))`` (see
+    the module docstring for what raises)."""
+    src_name, data = _read(source)
+    name = name or src_name
+    buf = np.frombuffer(data, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    hwc = np.zeros(3, np.int32)
+    lib = load_jpeg_library()
+    _jpeg_check(lib.jpeg_header(buf.ctypes.data, buf.size, hwc.ctypes.data, err, len(err)),
+                name, err)
+    h, w, c = (int(x) for x in hwc)
+    out = np.empty((h, w, 3) if c == 3 else (h, w), np.uint8)
+    _jpeg_check(lib.jpeg_decode(buf.ctypes.data, buf.size, out.ctypes.data, out.size, err,
+                                len(err)), name, err)
+    return out
+
+
+def read_png(source, native: bool = True, name=None) -> np.ndarray:
     """Decode a PNG file (path) or its bytes into what ``np.asarray(PIL.Image.
     open(f))`` gives (see the module docstring). ``native=False`` un-filters
     with ``unfilter_plain``."""
-    name = _name(source)
-    if isinstance(source, (bytes, bytearray, memoryview)):
-        data = bytes(source)
-    else:
-        refuse_jpeg(name)
-        data = Path(source).read_bytes()
+    src_name, data = _read(source)
+    name = name or src_name
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
     pos, ihdr, idat = 8, None, []

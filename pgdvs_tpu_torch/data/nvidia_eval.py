@@ -19,8 +19,8 @@ the target is held out, duplicated); depth range = [0.8·min, 1.2·q90] of the
 spatial sources' point cloud in the target camera; flow occlusion =
 |coord_diff|_1 > thres.
 
-Images decode through ``image_io.read_png`` (JPEG frames raise, naming the
-file) and resize as the JAX reader's libraries do: rgb with
+Images decode through ``image_io.read_image`` (PNG, or JPEG as the real
+DynIBaR frames are, bit for bit what PIL gives) and resize as the JAX reader's libraries do: rgb with
 ``resize_area`` (OpenCV INTER_AREA), depth and eval masks with
 ``resize_nearest_cv``, dynamic masks with ``resize_nearest_pil``, a target
 off the eval height with ``resize_lanczos_pil``.
@@ -35,7 +35,7 @@ import numpy as np
 
 from pgdvs_tpu_torch.core.geometry import sort_poses_wrt_ref, unproject_depth
 from pgdvs_tpu_torch.data.image_io import (
-    read_png,
+    read_image,
     resize_area,
     resize_lanczos_pil,
     resize_nearest_cv,
@@ -153,13 +153,13 @@ class NvidiaEvalDataset:
         raise FileNotFoundError(d / f"cam{cam + 1:02d}.*")
 
     def _read_rgb(self, path, h, w):
-        img = read_png(path)
+        img = read_image(path)
         if img.shape[0] != h or img.shape[1] != w:
             img = resize_area(img, h, w)
         return img.astype(np.float32) / 255.0
 
     def _read_mask(self, scene, frame_id, h, w):
-        m = read_png(self.mask_dir / scene / f"dense/masks/final/{frame_id:05d}_final.png")
+        m = read_image(self.mask_dir / scene / f"dense/masks/final/{frame_id:05d}_final.png")
         if m.ndim == 3:
             m = m[..., 0]
         if m.shape[0] != h or m.shape[1] != w:
@@ -226,7 +226,7 @@ class NvidiaEvalDataset:
         """The target image at the eval height: resized with LANCZOS to the
         size of the scene's ``images_<w>x<h>`` directory, or to the eval
         height at the raw aspect ratio."""
-        raw = read_png(img_f)
+        raw = read_image(img_f)
         if raw.shape[0] != self.tgt_height:
             mono_dirs = list((self.raw_dir / scene / "dense").glob(f"images_*x{self.tgt_height}"))
             if mono_dirs:
@@ -241,7 +241,7 @@ class NvidiaEvalDataset:
         f = self.raw_dir / scene / f"dense/mv_masks/{tgt_frame:05d}/cam{tgt_cam_id + 1:02d}.png"
         if not f.exists():
             return np.ones((h, w, 3), np.float32)
-        em = read_png(f).astype(np.float32)
+        em = read_image(f).astype(np.float32)
         if em.ndim == 2:
             em = np.repeat(em[..., None], 3, -1)
         em = (em > 1e-3).astype(np.float32)

@@ -146,22 +146,29 @@ class Evaluator:
     """Render + score a dataset of contract dicts.
 
     Args:
-      models: (feature_net, gnt) on the device the renders run on.
+      models: (feature_net, gnt) on the device the renders run on; None
+        for static_mode "geo", which renders no network.
       cfg: a RenderConfig inside the ported slice (else ValueError).
-      static_mode: "gnt" (the only one ported).
+      static_mode: "gnt" or "geo".
       out_dir: optional directory for per-image pickles and PNGs (the
         reference's infos/ + vis/ layout).
       lpips_net: optional ``metrics.lpips.LPIPS`` module.
       save_vis: write ``{id}_combined.png`` per item.
+      device: where the renders run when ``models`` is None (default cuda);
+        else the models' device.
     """
 
     def __init__(self, models, cfg: RenderConfig, static_mode: str = "gnt",
-                 out_dir: Optional[str] = None, lpips_net=None, save_vis: bool = False):
+                 out_dir: Optional[str] = None, lpips_net=None, save_vis: bool = False,
+                 device="cuda"):
         check_slice(cfg, static_mode)
+        if models is None and static_mode != "geo":
+            raise ValueError(f"static_mode {static_mode!r} renders the GNT: models needed")
         self.models = models
         self.cfg = cfg
         self.static_mode = static_mode
-        self.device = next(models[0].parameters()).device
+        self.device = (next(models[0].parameters()).device if models is not None
+                       else torch.device(device))
         self.out_dir = pathlib.Path(out_dir) if out_dir else None
         self.save_vis = save_vis
         self.lpips_net = lpips_net

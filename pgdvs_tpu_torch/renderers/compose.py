@@ -1,9 +1,11 @@
-"""Top-level novel-view renderer: static GNT + dynamic softsplat + composite.
+"""Top-level novel-view renderer: static + dynamic + composite.
 
 Counterpart of ``pgdvs_tpu.renderers.compose.render_novel_view`` on the
 ported slices, with the same output keys: the static background from GNT
-(masked view attention reads ``dyn_mask_src_spatial``), the dynamic
-foreground from softmax splatting, composited as
+(masked view attention reads ``dyn_mask_src_spatial``) or from the
+aggregated point cloud (``static_mode="geo"``: ``st_pcl_rgb`` /
+``st_pcl_valid``, no models), the dynamic foreground
+(``renderers.dynamic``), composited as
 ``(1 - dyn_mask) * static + dyn_mask * dyn``; ``pure_gnt`` and
 ``pure_gnt_with_dyn_mask`` return the static layer alone. With a
 ``render_stride`` the static layer is rendered on every stride-th pixel and
@@ -21,6 +23,7 @@ import torch
 from pgdvs_tpu_torch.core.interpolate import resize
 from pgdvs_tpu_torch.renderers.config import RenderConfig, check_slice
 from pgdvs_tpu_torch.renderers.dynamic import render_dynamic
+from pgdvs_tpu_torch.renderers.static_geo import render_static_geo
 from pgdvs_tpu_torch.renderers.static_gnt import render_image_gnt
 
 
@@ -32,11 +35,13 @@ def render_novel_view(models, data, cfg: RenderConfig,
     """Render one novel (space, time) view.
 
     Args:
-      models: (feature_net, gnt) modules on the data's device.
+      models: (feature_net, gnt) modules on the data's device (unused, and
+        may be None, for static_mode="geo").
       data: the renderer input contract for one view as tensors
         (``pgdvs_tpu_torch.data.contract``).
       cfg: a RenderConfig inside the ported slice (else ValueError).
       generator: torch.Generator for the dynamic branch's noise.
+      static_mode: "gnt" or "geo".
       noise: optional [H, W, 3] standard-normal draw used instead.
 
     Returns a dict with combined_rgb and the intermediates the JAX
@@ -44,17 +49,23 @@ def render_novel_view(models, data, cfg: RenderConfig,
     """
     check_slice(cfg, static_mode)
     h, w = data["rgb_src_temporal"].shape[1:3]
-    src_rgbs = (data["static_rgb_src_spatial"] if cfg.gnt_use_masked_spatial_src
-                else data["rgb_src_spatial"])
-    st = render_image_gnt(models, data["flat_cam_tgt"],
-                          data["flat_cam_src_spatial"], src_rgbs, (h, w),
-                          data["depth_range"], cfg,
-                          src_invalid_masks=data.get("dyn_mask_src_spatial"))
-    ret = {f"static_coarse_{k}": v for k, v in st.items()}
-    static_rgb = st["rgb"]
-    if cfg.pure_gnt or cfg.pure_gnt_with_dyn_mask:
-        ret["combined_rgb"] = static_rgb
-        return ret
+    if static_mode == "geo":
+        static_rgb, static_mask = render_static_geo(
+            data["st_pcl_rgb"], data["flat_cam_tgt"], (h, w), cfg,
+            valid=data.get("st_pcl_valid"))
+        ret = {"geo_static_rgb": static_rgb, "geo_static_mask": static_mask}
+    else:
+        src_rgbs = (data["static_rgb_src_spatial"] if cfg.gnt_use_masked_spatial_src
+                    else data["rgb_src_spatial"])
+        st = render_image_gnt(models, data["flat_cam_tgt"],
+                              data["flat_cam_src_spatial"], src_rgbs, (h, w),
+                              data["depth_range"], cfg,
+                              src_invalid_masks=data.get("dyn_mask_src_spatial"))
+        ret = {f"static_coarse_{k}": v for k, v in st.items()}
+        static_rgb = st["rgb"]
+        if cfg.pure_gnt or cfg.pure_gnt_with_dyn_mask:
+            ret["combined_rgb"] = static_rgb
+            return ret
 
     dyn = render_dynamic(data, cfg, generator=generator, noise=noise)
     dyn_rgb, dyn_mask = dyn["rgb"], dyn["mask"]

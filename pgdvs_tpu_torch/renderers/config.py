@@ -44,11 +44,13 @@ The port renders these slices of the configuration space so far: static
 GNT with or without masked view attention (``gnt_use_dyn_mask``,
 ``pure_gnt_with_dyn_mask``), every epipolar sampler of the JAX package
 (exact, the default and reference-faithful; fused, quad, quad_i8, patch),
-coarse and fine samples, any render stride, softsplat dynamic layer with
-or without statistical outlier removal (``dyn_pcl_remove_outlier``), no
-tracker. ``check_slice`` raises ValueError for anything outside them (the
-geo static mode, pcl / mesh dynamic rendering, the track branch); nothing
-falls back silently.
+coarse and fine samples, any render stride; or the static layer from the
+aggregated point cloud (``static_mode="geo"``, with or without its outlier
+removal, ``st_pcl_remove_outlier``); the dynamic layer by softsplat, the
+point rasterizer or the grid mesh (``dyn_render_type``), with or without
+statistical outlier removal (``dyn_pcl_remove_outlier``); no tracker.
+``check_slice`` raises ValueError for the track branch and for an unknown
+mode; nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -113,10 +115,11 @@ def apply_perf_preset(cfg: RenderConfig) -> RenderConfig:
 def check_slice(cfg: RenderConfig, static_mode: str = "gnt") -> None:
     """Raise ValueError unless the port renders ``cfg``."""
     unsupported = {
-        "static_mode != 'gnt'": static_mode != "gnt",
+        "static_mode not in ('gnt', 'geo')": static_mode not in ("gnt", "geo"),
         "epipolar_mode not in ('exact', 'fused', 'quad', 'quad_i8', 'patch')":
             cfg.epipolar_mode not in ("exact", "fused", "quad", "quad_i8", "patch"),
-        "dyn_render_type != 'softsplat'": cfg.dyn_render_type != "softsplat",
+        "dyn_render_type not in ('softsplat', 'pcl', 'mesh')":
+            cfg.dyn_render_type not in ("softsplat", "pcl", "mesh"),
         "dyn_render_track_temporal != 'none'": cfg.dyn_render_track_temporal != "none",
     }
     bad = [name for name, hit in unsupported.items() if hit]

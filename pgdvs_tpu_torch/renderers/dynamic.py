@@ -1,12 +1,16 @@
-"""Dynamic-foreground rendering: depth + flow point cloud, softmax-splatted.
+"""Dynamic-foreground rendering: a depth + flow point cloud, splatted.
 
 Counterpart of ``pgdvs_tpu.renderers.dynamic`` on the ported slices (no
-tracker, softsplat only). Every pixel of temporal source 1 is a candidate
-point: lifted by its depth, advected by flow into frame 2, lifted again
-there, interpolated linearly to the target time, optionally cleaned by
-statistical outlier removal (``dyn_pcl_remove_outlier``), projected into the
-target camera, and splatted with static-region colours replaced by clamped
-gaussian noise so they lose contested pixels.
+tracker). Every pixel of temporal source 1 is a candidate point: lifted by
+its depth, advected by flow into frame 2, lifted again there, interpolated
+linearly to the target time, optionally cleaned by statistical outlier
+removal (``dyn_pcl_remove_outlier``), then rendered by ``dyn_render_type``:
+``softsplat`` (projected into the target camera and softmax-splatted with
+static-region colours replaced by clamped gaussian noise so they lose
+contested pixels), ``pcl`` (the z-buffered point rasterizer,
+``kernels/point_raster.py``) or ``mesh`` (the pixel-grid mesh rasterizer,
+``kernels/mesh_raster.py``). The cloud stays the dense H*W buffer, the JAX
+package's default (its ``dyn_point_capacity`` of 0).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from pgdvs_tpu_torch.core import cameras
 from pgdvs_tpu_torch.core.geometry import uv_depth_to_world
 from pgdvs_tpu_torch.core.interpolate import bilinear_sample, nearest_sample
 from pgdvs_tpu_torch.kernels.knn import statistical_outlier_mask
+from pgdvs_tpu_torch.kernels.mesh_raster import rasterize_grid_mesh
+from pgdvs_tpu_torch.kernels.point_raster import rasterize_points
 from pgdvs_tpu_torch.kernels.softsplat import brightness_metric, softsplat
 from pgdvs_tpu_torch.renderers.config import RenderConfig
 
@@ -89,18 +95,17 @@ def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
 def render_dynamic(data, cfg: RenderConfig,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[torch.Tensor] = None):
-    """Render the dynamic layer for one novel view (softsplat).
+    """Render the dynamic layer for one novel view.
 
-    The static-region colours are replaced by ``clamp(noise, 0, 1)``, where
-    noise is a standard normal [H, W, 3] drawn from ``generator`` unless it
-    is given directly.
+    With softsplat the static-region colours are replaced by
+    ``clamp(noise, 0, 1)``, where noise is a standard normal [H, W, 3]
+    drawn from ``generator`` unless it is given directly; pcl and mesh
+    draw no noise.
 
     Returns rgb [H, W, 3], mask [H, W, 1] and the per-branch intermediates.
     """
-    if cfg.dyn_render_type != "softsplat":
-        raise ValueError(f"dyn_render_type={cfg.dyn_render_type!r} is outside "
-                         "the ported slice (softsplat only)")
     rgb_t = data["rgb_src_temporal"]
+    h, w = rgb_t.shape[1:3]
     pcl = compute_dyn_pointcloud(
         rgb_1=rgb_t[0],
         dyn_mask_1=data["dyn_mask_src_temporal"][0],
@@ -117,18 +122,28 @@ def render_dynamic(data, cfg: RenderConfig,
         time_tgt=data["time_tgt"][0],
         cfg=cfg,
     )
-    dyn_mask = pcl["valid_mask_img"]
-    if noise is None:
-        noise = torch.randn(rgb_t[0].shape, generator=generator,
-                            dtype=rgb_t.dtype, device=rgb_t.device)
-    noise = torch.clamp(noise, 0.0, 1.0)
-    rgb_1_rand = rgb_t[0] * dyn_mask + noise * (1.0 - dyn_mask)
-    metric = brightness_metric(rgb_1_rand, rgb_t[1], data["flow_fwd"],
-                               cfg.softsplat_metric_abs_alpha)
-    splat_rgb = softsplat(rgb_1_rand, pcl["flow_to_tgt"], metric, mode="soft")
-    splat_mask = softsplat(dyn_mask, pcl["flow_to_tgt"], metric, mode="soft")
-    mask = (splat_mask > 1e-3).float()
-    rgb = splat_rgb * mask
+    if cfg.dyn_render_type == "pcl":
+        rgb, mask = rasterize_points(pcl["points"], pcl["colors"], data["flat_cam_tgt"],
+                                     (h, w), valid=pcl["valid"],
+                                     radius=cfg.dyn_render_pcl_pt_radius)
+    elif cfg.dyn_render_type == "mesh":
+        rgb, mask = rasterize_grid_mesh(pcl["points"], pcl["colors"], pcl["valid"],
+                                        data["flat_cam_tgt"], (h, w))
+    elif cfg.dyn_render_type == "softsplat":
+        dyn_mask = pcl["valid_mask_img"]
+        if noise is None:
+            noise = torch.randn(rgb_t[0].shape, generator=generator,
+                                dtype=rgb_t.dtype, device=rgb_t.device)
+        noise = torch.clamp(noise, 0.0, 1.0)
+        rgb_1_rand = rgb_t[0] * dyn_mask + noise * (1.0 - dyn_mask)
+        metric = brightness_metric(rgb_1_rand, rgb_t[1], data["flow_fwd"],
+                                   cfg.softsplat_metric_abs_alpha)
+        splat_rgb = softsplat(rgb_1_rand, pcl["flow_to_tgt"], metric, mode="soft")
+        splat_mask = softsplat(dyn_mask, pcl["flow_to_tgt"], metric, mode="soft")
+        mask = (splat_mask > 1e-3).float()
+        rgb = splat_rgb * mask
+    else:
+        raise ValueError(f"unknown dyn_render_type={cfg.dyn_render_type!r}")
     return {
         "rgb": rgb,
         "mask": mask,

@@ -3,17 +3,21 @@
 The port's counterpart of the repository's ``run.py`` (the JAX CLI), with
 its ``eval`` and ``benchmark`` subcommands and the same flags, less the
 JAX-only ones (``--distributed``, ``--devices``, ``--gnt-dtype``), plus
-``--device {cuda,cpu}`` (default cuda; without a card, cuda raises). What
-the port does not carry yet raises, naming its ``ROADMAP.md`` item: the
-geo static mode and pcl / mesh dynamic rendering (``check_slice``), a
-tracker, the vis engine, a dataset other than ``nvidia_eval``; the vis,
-train and bench subcommands are not there.
+``--device {cuda,cpu}`` (default cuda; without a card, cuda raises). The
+geo static mode (``--static-mode geo`` on ``nvidia_eval_pure_geo``, the
+``st_cvd_*`` bundles) renders no network, so it loads no GNT. What the port
+does not carry yet raises, naming its ``ROADMAP.md`` item: a tracker, the
+vis engine, a dataset other than ``nvidia_eval`` and
+``nvidia_eval_pure_geo``; the vis, train and bench subcommands are not
+there.
 
 Examples:
   python -m pgdvs_tpu_torch.run eval --data-root /data --scene-ids Balloon1 \
       --out-dir experiments/balloon1 --save-vis
   python -m pgdvs_tpu_torch.run benchmark --benchmark-type default \
       --data-root /data --out-dir experiments/default [--perf-preset exact]
+  python -m pgdvs_tpu_torch.run benchmark --benchmark-type st_cvd_dy_cvd \
+      --data-root /data --out-dir experiments/st_cvd_dy_cvd
 """
 
 from __future__ import annotations
@@ -86,10 +90,13 @@ def _dataset_kwargs(args, spec_args=None) -> dict:
     return kwargs
 
 
+PORTED_DATASETS = ("nvidia_eval", "nvidia_eval_pure_geo")
+
+
 def _check_dataset(name: str) -> None:
-    if name != "nvidia_eval":
+    if name not in PORTED_DATASETS:
         raise ValueError(f"dataset {name!r} is not ported to pgdvs_tpu_torch yet; only "
-                         f"'nvidia_eval' is ({BRANCHES_ITEM})")
+                         f"{PORTED_DATASETS} are ({BRANCHES_ITEM})")
 
 
 def build_dataset(args, name=None, spec_args=None):
@@ -100,13 +107,16 @@ def build_dataset(args, name=None, spec_args=None):
     return CombinedDataset([(name, _dataset_kwargs(args, spec_args))])
 
 
-def build_models_and_params(args):
+def build_models_and_params(args, static_mode="gnt"):
     """(feature_net, gnt) on ``args.device``: the reference checkpoint
     (``--gnt-ckpt`` or ``$PGDVS_CKPT_DIR``), else random weights from seed
-    0 with a warning."""
+    0 with a warning; None for static_mode "geo", which renders no
+    network."""
     from pgdvs_tpu_torch.models.gnt.weight_port import load_gnt_checkpoint
     from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
 
+    if static_mode == "geo":
+        return None
     models = load_gnt_checkpoint(args.gnt_ckpt, device=args.device)
     if models is None:
         LOGGER.warning(
@@ -130,7 +140,7 @@ def _evaluate(args, models, cfg, dataset, static_mode, save_vis):
     from pgdvs_tpu_torch.engines.evaluator import Evaluator
 
     ev = Evaluator(models, cfg, static_mode=static_mode, out_dir=args.out_dir,
-                   lpips_net=_lpips(args.device), save_vis=save_vis)
+                   lpips_net=_lpips(args.device), save_vis=save_vis, device=args.device)
     result = ev.run(dataset, process_index=args.process_index,
                     process_count=args.process_count, max_items=args.max_items)
     print(json.dumps(result, indent=2))
@@ -145,8 +155,11 @@ def cmd_eval(args):
 
     cfg = build_render_config(args)
     check_slice(cfg, args.static_mode)
+    if args.static_mode == "geo" and args.dataset != "nvidia_eval_pure_geo":
+        raise ValueError("--static-mode geo renders the aggregated static cloud, which only "
+                         f"--dataset nvidia_eval_pure_geo provides, not {args.dataset!r}")
     dataset = build_dataset(args)
-    models = build_models_and_params(args)
+    models = build_models_and_params(args, args.static_mode)
     return _evaluate(args, models, cfg, dataset, args.static_mode, args.save_vis)
 
 
@@ -171,7 +184,7 @@ def cmd_benchmark(args):
     if args.dataset_family == "dycheck_iphone":
         name = "dycheck_iphone_eval"
     dataset = build_dataset(args, name, spec.get("dataset_args"))
-    models = build_models_and_params(args)
+    models = build_models_and_params(args, spec["static_mode"])
     return _evaluate(args, models, cfg, dataset, spec["static_mode"], save_vis=True)
 
 

@@ -4,9 +4,14 @@ write_reader_scene`` at 24x32, 3 frames, default directory names): ``eval``
 (fast preset, patch sampling) and ``benchmark --benchmark-type default``
 write pickles, PNGs and a ``summary.json`` of the evaluator's schema;
 ``build_render_config`` equals the JAX CLI's field by field for the same
-argv (presets, overrides, a restored base); an unknown field exits; what
-the port does not carry raises, naming its ROADMAP item; ``--device cuda``
-without a card raises."""
+argv (presets, overrides, a restored base); an unknown field exits; the
+pure-geometry bundle, ``eval --static-mode geo``, and the point / mesh
+dynamic layers run (``--max-items 1``) and their summaries match the JAX
+CLI's (``run.py``) on the same scene, with one reference checkpoint for both
+where a GNT renders (the exact preset; JAX's float32 flax network,
+``use_pallas_gnt=false``, against the port's float32 network on the CPU);
+what the port does not carry raises, naming its ROADMAP item; ``--device
+cuda`` without a card raises."""
 
 import argparse
 import dataclasses
@@ -79,8 +84,8 @@ def test_benchmark_default(scene_root, tmp_path, preset):
     _check_outputs(out, result, 1)
 
 
-def _jax_build_render_config():
-    """The JAX CLI's build_render_config (the repository's run.py)."""
+def _jax_cli():
+    """The JAX CLI module (the repository's run.py)."""
     import importlib.util
     import pathlib
 
@@ -90,7 +95,11 @@ def _jax_build_render_config():
     with pytest.MonkeyPatch.context() as mp:  # undo the env default it sets on import
         mp.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         spec.loader.exec_module(mod)
-    return mod.build_render_config
+    return mod
+
+
+def _jax_build_render_config():
+    return _jax_cli().build_render_config
 
 
 @pytest.mark.parametrize("preset", ["fast", "exact"])
@@ -110,6 +119,81 @@ def test_build_render_config_matches_jax(preset, render_cfg, base):
         assert getattr(got, f.name) == getattr(ref, f.name), f.name
 
 
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    """A reference GNT checkpoint of the port's random models (seed 0),
+    which both CLIs load."""
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    path = tmp_path_factory.mktemp("ckpt") / "gnt" / "model_720000.pth"
+    chip_smoke.save_reference_checkpoint(init_gnt_models(seed=0, device="cpu"), path)
+    return path
+
+
+# (argv after the subcommand, whether a GNT renders); the GNT cases on the
+# exact preset, where both sides run a float32 network
+CLI_RUNS = {
+    "eval_geo": (["eval", "--static-mode", "geo", "--dataset", "nvidia_eval_pure_geo"], False),
+    "eval_mesh": (["eval", "--render-cfg", "dyn_render_type=mesh", "--perf-preset", "exact"],
+                  True),
+    "benchmark_st_cvd_dy_cvd": (["benchmark", "--benchmark-type", "st_cvd_dy_cvd"], False),
+    "benchmark_render_point": (["benchmark", "--benchmark-type",
+                                "st_gnt_masked_attn_dy_cvd_pcl_clean_render_point",
+                                "--perf-preset", "exact"], True),
+}
+# summary means, port against JAX: the geo runs render within 1e-5 of JAX
+# (tests/test_torch_port_geo.py); where a GNT renders, the port's float32
+# network against JAX's flax float32 network moves about 2.5 % of the
+# quantised values by one uint8 level (59 of 2304 on the point bundle),
+# which moves PSNR by ~1e-3 dB and SSIM by ~1.5e-4
+CLI_TOL = {False: dict(rtol=1e-5, atol=0.0), True: dict(rtol=0.0, atol=5e-3)}
+
+
+def _split_render_cfg(argv):
+    """(argv without --render-cfg, its K=V pairs)."""
+    if "--render-cfg" not in argv:
+        return list(argv), []
+    i = argv.index("--render-cfg")
+    return argv[:i] + argv[i + 2:], [argv[i + 1]]
+
+
+@pytest.mark.parametrize("case", sorted(CLI_RUNS))
+def test_branch_bundles_match_the_jax_cli(scene_root, ckpt, tmp_path, case):
+    """The refusals of the geo, mesh, point and st_cvd_dy_cvd cases before
+    the point-cloud slice, now runs of one item each: the port's outputs
+    (pickle, PNG, summary) and its summary means against the JAX CLI's on
+    the same scene. The JAX benchmark subcommand takes no --dataset-arg, so
+    the bundle's dataset arguments carry the tiny scene's there."""
+    import pgdvs_tpu.configs.benchmarks as jbench
+
+    argv, render_cfg = _split_render_cfg(CLI_RUNS[case][0])
+    gnt = CLI_RUNS[case][1]
+    common = ["--data-root", str(scene_root), "--scene-ids", chip_smoke.READER_SCENE,
+              "--dataset-arg", f"tgt_height={H}", "n_src_views_spatial=2", "--max-items", "1",
+              "--gnt-ckpt", str(ckpt)]
+    knobs = ["n_coarse_samples_per_ray=8", "ray_tile=256", "st_render_pcl_pt_radius=0.1",
+             "dyn_render_pcl_pt_radius=0.1", *render_cfg]
+    out_t, out_j = tmp_path / "port", tmp_path / "jax"
+    res_t = trun.main([*argv, *common, "--device", "cpu", "--out-dir", str(out_t),
+                       "--render-cfg", *knobs])
+    _check_outputs(out_t, res_t, 1, vis=argv[0] == "benchmark")
+    jcli = _jax_cli()
+    with pytest.MonkeyPatch.context() as mp:
+        if argv[0] == "benchmark":
+            name = argv[argv.index("--benchmark-type") + 1]
+            spec = jbench.BENCHMARK_TYPES[name]
+            mp.setitem(jbench.BENCHMARK_TYPES, name, {**spec, "dataset_args": {
+                **spec.get("dataset_args", {}), "tgt_height": H, "n_src_views_spatial": 2}})
+        jcli.main([*argv, *common, "--gnt-dtype", "float32", "--out-dir", str(out_j),
+                   "--render-cfg", *knobs, "use_pallas_gnt=false", "knn_tile=256"])
+    res_j = json.loads((out_j / "summary.json").read_text())
+    assert res_t["count"] == res_j["count"] == 1
+    assert sorted(res_t["mean"]) == sorted(res_j["mean"])
+    for key, v in res_j["mean"].items():
+        if key != "render_wall_s":
+            np.testing.assert_allclose(res_t["mean"][key], v, **CLI_TOL[gnt], err_msg=key)
+
+
 @pytest.mark.parametrize("field", ["bogus=1", "knn_tile=256"])
 def test_unknown_render_cfg_field_exits(field):
     args = argparse.Namespace(perf_preset="fast", render_cfg=[field])
@@ -118,20 +202,21 @@ def test_unknown_render_cfg_field_exits(field):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["eval", "--static-mode", "geo"], ValueError, "static_mode"),
+    (["eval", "--static-mode", "mesh"], SystemExit, None),
     (["eval", "--dataset", "nvidia_vis"], ValueError, "ROADMAP.md"),
-    (["eval", "--render-cfg", "dyn_render_type=mesh"], ValueError, "dyn_render_type"),
-    (["benchmark", "--benchmark-type", "st_cvd_dy_cvd"], ValueError, "static_mode"),
+    (["eval", "--render-cfg", "dyn_render_type=splat"], ValueError, "dyn_render_type"),
+    (["eval", "--static-mode", "geo"], ValueError, "nvidia_eval_pure_geo"),
     (["benchmark", "--benchmark-type", "st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir"],
      ValueError, "ROADMAP.md.*track"),
     (["benchmark", "--benchmark-type", "visualize_nvidia_max_disp_32"], ValueError,
      "ROADMAP.md.*visualization"),
-    (["benchmark", "--benchmark-type", "st_gnt_masked_attn_dy_cvd_pcl_clean_render_point"],
-     ValueError, "dyn_render_type"),
+    (["benchmark", "--render-cfg", "dyn_render_track_temporal=no_tgt"], ValueError,
+     "dyn_render_track_temporal"),
     (["benchmark", "--dataset-family", "dycheck_iphone"], ValueError, "dycheck_iphone_eval"),
     (["benchmark", "--render-cfg", "bogus=2"], SystemExit, "unknown render_cfg field"),
 ])
 def test_out_of_port_bundles_raise(tmp_path, extra, exc, match):
+    """What the port does not carry, and what is not a mode at all."""
     with pytest.raises(exc, match=match):
         trun.main([*extra, "--device", "cpu", "--data-root", str(tmp_path)])
 

@@ -828,3 +828,55 @@ def test_evaluator_item_on_card(card, tmp_path, monkeypatch):
     assert pickle.loads((tmp_path / "x.pkl").read_bytes()) == rec.metrics
     png = read_png(tmp_path / "x_combined.png")
     assert np.array_equal(png, (np.clip(pred, 0, 1) * 255).astype(np.uint8))
+
+
+# ------------------------------------------------------- point-cloud renderers
+
+def _synthetic_cloud(h, w, seed=0):
+    """The synthetic contract's static cloud and dynamic source frame."""
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+
+    return make_contract_data(h=h, w=w, n_spatial=2, n_frames=6, seed=seed)
+
+
+@pytest.mark.parametrize("radius,ndc", [(0.03, True), (1.5, False)])
+def test_point_raster_on_card_matches_cpu(card, radius, ndc):
+    """The point raster at 96x128 on the card against the CPU: alpha equal
+    but for a point on a footprint's edge to the ulp (at most 1e-4 of the
+    pixels), the image within 1e-4 where alpha agrees (index_add_'s
+    atomics, the projection's summation order)."""
+    from pgdvs_tpu_torch.kernels.point_raster import rasterize_points
+
+    data = _synthetic_cloud(96, 128)
+    pcl = torch.from_numpy(data["st_pcl_rgb"])
+    valid = torch.from_numpy(np.random.default_rng(2).random(pcl.shape[0]) > 0.1)
+    cam_t = torch.from_numpy(data["flat_cam_tgt"])
+    args = dict(radius=radius, ndc_radius=ndc)
+    ref = rasterize_points(pcl[:, :3], pcl[:, 3:], cam_t, (96, 128), valid=valid, **args)
+    got = rasterize_points(pcl[:, :3].to(card), pcl[:, 3:].to(card), cam_t.to(card), (96, 128),
+                           valid=valid.to(card), **args)
+    alpha, ref_alpha = got[1].cpu(), ref[1]
+    assert 0.3 < float(ref_alpha.mean()) and int((alpha != ref_alpha).sum()) <= 1e-4 * alpha.numel()
+    agree = alpha == ref_alpha
+    assert float(((got[0].cpu() - ref[0]).abs() * agree).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("kind", ["pcl", "mesh"])
+def test_dynamic_raster_on_card_matches_cpu(card, kind):
+    """The dynamic layer of the point / mesh bundles at 96x128 (outlier
+    removal on) on the card against the CPU, held as the point raster
+    above."""
+    from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
+    from pgdvs_tpu_torch.renderers.dynamic import render_dynamic
+
+    bundle = {"pcl": "st_gnt_masked_attn_dy_cvd_pcl_clean_render_point",
+              "mesh": "st_gnt_masked_attn_dy_cvd_pcl_clean_render_mesh"}[kind]
+    cfg = resolve_benchmark(bundle)[0]
+    data = {k: torch.from_numpy(v) for k, v in _synthetic_cloud(96, 128).items()
+            if isinstance(v, np.ndarray)}
+    ref = render_dynamic(data, cfg)
+    got = render_dynamic({k: v.to(card) for k, v in data.items()}, cfg)
+    mask, ref_mask = got["mask"].cpu(), ref["mask"]
+    assert float(ref_mask.sum()) > 0 and int((mask != ref_mask).sum()) <= 1e-4 * mask.numel()
+    agree = mask == ref_mask
+    assert float(((got["rgb"].cpu() - ref["rgb"]).abs() * agree).max()) <= 1e-4

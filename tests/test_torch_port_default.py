@@ -20,6 +20,7 @@ import torch
 from pgdvs_tpu.configs.benchmarks import resolve_benchmark as j_resolve_benchmark
 from pgdvs_tpu.data.synthetic import make_contract_data
 from pgdvs_tpu.renderers.compose import render_novel_view as j_render_novel_view
+from pgdvs_tpu.renderers.dynamic import render_dynamic as j_render_dynamic
 from pgdvs_tpu.renderers.static_gnt import init_gnt_params, make_gnt_models
 from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
 from pgdvs_tpu_torch.models.gnt.params_from_jax import gnt_state_dict, resunet_state_dict
@@ -74,7 +75,7 @@ def both():
     got = render_novel_view((fnet, gnt), _tdata(data), cfg,
                             noise=torch.from_numpy(noise))
     return {"ref": ref, "got": got, "mono3_calls": len(calls), "data": data,
-            "cfg": cfg}
+            "cfg": cfg, "models": (fnet, gnt)}
 
 
 def test_jax_side_took_mono3(both):
@@ -141,20 +142,48 @@ def test_default_outlier_removal_drops_points(both):
 
 
 def test_masked_bundles_refuse_what_stays_outside():
+    """The track bundle, an unknown static mode and a contract without the
+    dynamic masks raise; the point and mesh bundles render (below)."""
     data = make_contract_data(h=8, w=8, n_spatial=2, n_frames=3)
     models = init_gnt_models(device="cpu")
     base = resolve_benchmark("default")[0].replace(n_coarse_samples_per_ray=4)
-    for name in ("st_gnt_masked_attn_dy_cvd_pcl_clean_render_point",
-                 "st_gnt_masked_attn_dy_cvd_pcl_clean_render_mesh",
-                 "st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir"):
-        cfg = resolve_benchmark(name)[0].replace(n_coarse_samples_per_ray=4)
-        with pytest.raises(ValueError, match="outside the ported slice"):
-            render_novel_view(models, _tdata(data), cfg)
+    cfg = resolve_benchmark("st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir")[0].replace(
+        n_coarse_samples_per_ray=4)
+    with pytest.raises(ValueError, match="outside the ported slice"):
+        render_novel_view(models, _tdata(data), cfg)
     with pytest.raises(ValueError, match="static_mode"):
-        render_novel_view(models, _tdata(data), base, static_mode="geo")
+        render_novel_view(models, _tdata(data), base, static_mode="mesh")
     no_masks = {k: v for k, v in _tdata(data).items() if k != "dyn_mask_src_spatial"}
     with pytest.raises(ValueError, match="dynamic masks"):
         render_novel_view(models, no_masks, base)
+
+
+@pytest.mark.parametrize("bundle,kind", [
+    ("st_gnt_masked_attn_dy_cvd_pcl_clean_render_point", "pcl"),
+    ("st_gnt_masked_attn_dy_cvd_pcl_clean_render_mesh", "mesh")])
+def test_masked_point_and_mesh_bundles_render(both, bundle, kind):
+    """The `default` bundle with the dynamic layer rasterized as points
+    (radius 0.1 NDC, 1.2 pixels here) or as a grid mesh: the static layer
+    is `default`'s bit for bit (the same GNT configuration), the dynamic
+    layer JAX's (``render_dynamic``) at 1e-5 with equal masks, the
+    composite within the `default` rgb bound of JAX's static layer
+    composited with JAX's dynamic layer."""
+    over = dict(n_coarse_samples_per_ray=S, ray_tile=256, dyn_render_pcl_pt_radius=0.1)
+    cfg = resolve_benchmark(bundle)[0].replace(**over)
+    cfg_j = j_resolve_benchmark(bundle)[0].replace(**over, knn_tile=256)
+    assert cfg.dyn_render_type == kind
+    got = render_novel_view(both["models"], _tdata(both["data"]), cfg)
+    dyn = j_render_dynamic({k: v for k, v in both["data"].items() if k != "misc"}, cfg_j,
+                           jax.random.PRNGKey(1))
+    np.testing.assert_array_equal(got["static_coarse_rgb"].numpy(),
+                                  both["got"]["static_coarse_rgb"].numpy())
+    mask = np.asarray(dyn["mask"])
+    assert mask.sum() > 0
+    np.testing.assert_array_equal(got["render_dyn_mask"].numpy(), mask)
+    np.testing.assert_allclose(got["render_dyn_rgb"].numpy(), np.asarray(dyn["rgb"]),
+                               rtol=1e-5, atol=1e-5)
+    want = (1.0 - mask) * both["ref"]["static_coarse_rgb"] + mask * np.asarray(dyn["rgb"])
+    np.testing.assert_allclose(got["combined_rgb"].numpy(), want, atol=TOL["rgb"])
 
 
 def test_pure_gnt_with_dyn_mask_returns_the_static_layer():

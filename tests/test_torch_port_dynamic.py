@@ -66,8 +66,10 @@ def test_render_dynamic_matches(data):
 
 
 def test_render_dynamic_refuses_other_branches(data):
+    """The track branch and an unknown dyn_render_type raise (pcl and mesh
+    render since the point-cloud slice: tests/test_torch_port_geo.py)."""
     tdata = {k: _t(v) for k, v in data.items() if isinstance(v, np.ndarray)}
-    for cfg in (RenderConfig(dyn_render_type="pcl"),
+    for cfg in (RenderConfig(dyn_render_type="splat"),
                 RenderConfig(dyn_render_track_temporal="no_tgt")):
         with pytest.raises(ValueError):
             render_dynamic(tdata, cfg, generator=torch.Generator().manual_seed(0))

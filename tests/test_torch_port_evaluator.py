@@ -15,7 +15,10 @@ metric keys; per item, the port's metrics equal to JAX's
 ``compute_nvidia_metrics`` of the port's render; the renders within the
 `default` bounds of tests/test_torch_port_default.py; the pickles' schema
 and join ids; the PNGs decoding, with PIL, to the truncated uint8 of the
-render; striding and ``max_items``.
+render; striding and ``max_items``. Then the pure-geometry bundle
+``st_cvd_dy_cvd`` (no models) through both engines on the same scene read by
+both pure-geometry readers: the renders within 1e-5 (masks equal), the
+mean metrics within 1e-5 relative.
 """
 
 import pickle
@@ -30,12 +33,14 @@ import torch
 import chip_smoke
 from pgdvs_tpu.configs.benchmarks import resolve_benchmark as j_resolve_benchmark
 from pgdvs_tpu.data.nvidia_eval import NvidiaEvalDataset as JNvidiaEvalDataset
+from pgdvs_tpu.data.nvidia_pure_geo import NvidiaPureGeoEvalDataset as JPureGeo
 from pgdvs_tpu.engines import evaluator as jev
 from pgdvs_tpu.metrics import dycheck as jdm
 from pgdvs_tpu.metrics.lpips_jax import lpips_distance as j_lpips_distance
 from pgdvs_tpu.renderers.static_gnt import init_gnt_params, make_gnt_models
 from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
 from pgdvs_tpu_torch.data.nvidia_eval import NvidiaEvalDataset
+from pgdvs_tpu_torch.data.nvidia_pure_geo import NvidiaPureGeoEvalDataset
 from pgdvs_tpu_torch.engines import evaluator as tev
 from pgdvs_tpu_torch.metrics import dycheck as tdm
 from pgdvs_tpu_torch.metrics.lpips import LPIPS, lpips_params_from_jax
@@ -210,12 +215,13 @@ def scene(tmp_path_factory):
     return NvidiaEvalDataset(root, **kw), JNvidiaEvalDataset(root, **kw)
 
 
-def _port_evaluator(engines, out_dir=None, renders=None):
+def _port_evaluator(engines, out_dir=None, renders=None, static_mode="gnt"):
     """The port's Evaluator; its renders take the JAX item's noise (drawn
     from PRNGKey(seed), the seed read from the generator) and are kept in
     ``renders`` by item seed."""
     models, cfg = engines["t"]
-    ev = tev.Evaluator(models, cfg, out_dir=out_dir, save_vis=True)
+    ev = tev.Evaluator(models, cfg, out_dir=out_dir, save_vis=True, static_mode=static_mode,
+                       device="cpu")
     real = tev.render_novel_view
 
     def render(models, data, cfg, generator=None, static_mode="gnt"):
@@ -346,8 +352,61 @@ def test_nan_guard_zero_fills_as_jax(engines, scene):
 
 
 def test_evaluator_refuses_what_stays_outside(engines):
+    """The track branch and an unknown static mode raise; the GNT's static
+    mode needs models (the geo mode runs without: below)."""
     models, cfg = engines["t"]
     with pytest.raises(ValueError, match="static_mode"):
-        tev.Evaluator(models, cfg, static_mode="geo")
-    with pytest.raises(ValueError, match="dyn_render_type"):
-        tev.Evaluator(models, cfg.replace(dyn_render_type="pcl"))
+        tev.Evaluator(models, cfg, static_mode="mesh")
+    with pytest.raises(ValueError, match="dyn_render_track_temporal"):
+        tev.Evaluator(models, cfg.replace(dyn_render_track_temporal="no_tgt"))
+    with pytest.raises(ValueError, match="models needed"):
+        tev.Evaluator(None, cfg, device="cpu")
+
+
+GEO_BUNDLE = "st_cvd_dy_cvd"
+
+
+@pytest.fixture(scope="module")
+def geo_runs(tmp_path_factory):
+    """``st_cvd_dy_cvd`` (static radius 0.1 NDC: 1.2 pixels here) through
+    the port's Evaluator with no models and JAX's, each on its own
+    pure-geometry reader of one scene, RUN_ITEMS items."""
+    root = _write_scene(tmp_path_factory.mktemp("geo_scene"))
+    kw = dict(scene_ids=[chip_smoke.READER_SCENE], tgt_height=H, n_src_views_spatial=2)
+    over = dict(st_render_pcl_pt_radius=0.1)
+    engines = {"t": (None, resolve_benchmark(GEO_BUNDLE)[0].replace(**over))}
+    renders_t, renders_j = {}, {}
+    ev, render = _port_evaluator(engines, renders=renders_t, static_mode="geo")
+    assert ev.device == torch.device("cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tev, "render_novel_view", render)
+        res_t = ev.run(NvidiaPureGeoEvalDataset(root, **kw), max_items=RUN_ITEMS)
+    cfg_j = j_resolve_benchmark(GEO_BUNDLE)[0].replace(**over, knn_tile=256)
+    jev_ = jev.Evaluator(None, None, cfg_j, static_mode="geo")
+    real = jev_._render
+
+    def keep(p, data, key):
+        out = real(p, data, key)
+        renders_j[len(renders_j)] = jax.tree_util.tree_map(np.asarray, out)
+        return out
+
+    jev_._render = keep
+    res_j = jev_.run(JPureGeo(root, **kw), max_items=RUN_ITEMS)
+    return res_t, res_j, renders_t, renders_j
+
+
+def test_geo_run_matches_jax(geo_runs):
+    res_t, res_j, renders_t, renders_j = geo_runs
+    assert res_t["count"] == res_j["count"] == RUN_ITEMS
+    assert sorted(res_t["mean"]) == sorted(res_j["mean"])
+    for key, v in res_j["mean"].items():
+        if key != "render_wall_s":
+            np.testing.assert_allclose(res_t["mean"][key], v, rtol=RTOL, err_msg=key)
+    for i in range(RUN_ITEMS):
+        got, ref = renders_t[i], renders_j[i]
+        assert sorted(got) == sorted(ref)
+        assert 0 < ref["geo_static_mask"].mean() <= 1
+        for key in ("geo_static_mask", "render_dyn_mask"):
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+        for key in ("geo_static_rgb", "render_dyn_rgb", "combined_rgb"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=RTOL, atol=RTOL, err_msg=key)

@@ -8,7 +8,9 @@ function and its numpy plain version); ``write_png`` round-trips through PIL
 with each filter type; the four resizes equal ``cv2.resize`` (INTER_AREA,
 INTER_NEAREST) and ``PIL.Image.resize`` (NEAREST, LANCZOS) bit for bit on
 integer and non-integer factors. What the codec refuses raises, naming the
-file; a failed build of the C un-filter raises with its command.
+file; a JPEG file decodes through ``read_image`` as PIL decodes it (the
+decoder's own matrix is tests/test_torch_port_jpeg.py); a failed build of
+the C un-filter raises with its command.
 """
 
 import io
@@ -127,8 +129,13 @@ def test_unfilter_native_equals_plain():
 def test_refusals_name_the_file(tmp_path):
     jpg = tmp_path / "cam01.jpg"
     PIL.Image.fromarray(_smooth(8, 8, 3)).save(jpg)
-    with pytest.raises(NotImplementedError, match=r"cam01\.jpg.*JPEG.*ROADMAP"):
+    with PIL.Image.open(jpg) as im:
+        np.testing.assert_array_equal(image_io.read_image(jpg), np.array(im))
+    with pytest.raises(ValueError, match=r"cam01\.jpg: not a PNG"):
         image_io.read_png(jpg)
+    PIL.Image.fromarray(_smooth(8, 8, 3)).save(jpg, progressive=True)
+    with pytest.raises(NotImplementedError, match=r"cam01\.jpg: progressive JPEG"):
+        image_io.read_image(jpg)
     deep = tmp_path / "deep.png"
     PIL.Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 999).save(deep)
     with pytest.raises(NotImplementedError, match=r"deep\.png.*bit depth 16"):

@@ -2,11 +2,12 @@
 package's.
 
 The scene is the JAX package's own fixture (``build_fake_scene`` of
-tests/test_datasets.py, 6 frames at 48x64), its JPEG frames re-saved as PNG
-with PIL so both readers read the same tree, in three variants: at the eval
-size; with every raw image, mask and disparity at 2x (the target takes the
-LANCZOS resize, the sources INTER_AREA's fast path, depth and masks the
-nearest ones); and at 1.5x (INTER_AREA's general path). Every contract key
+tests/test_datasets.py, 6 frames at 48x64), in four variants: its JPEG
+frames read as they are (the port's JPEG decoder against PIL's); and,
+re-saved as PNG with PIL, at the eval size; with every raw image, mask and
+disparity at 2x (the target takes the LANCZOS resize, the sources
+INTER_AREA's fast path, depth and masks the nearest ones); and at 1.5x
+(INTER_AREA's general path). Every contract key
 of every item is held against the JAX reader at 1e-5 (rtol and atol),
 ``depth_range`` included, over the options: the four spatial-ranking
 metrics, the track sources, ZoeDepth fixed and "moe" (the zoe files are
@@ -86,17 +87,20 @@ def _write_zoe(root):
 
 @pytest.fixture(scope="module")
 def scenes(tmp_path_factory):
-    """variant -> scene root, each built once: "eval", "raw2x", "raw1.5x"."""
+    """variant -> scene root, each built once: "jpeg" (the JPEG frames as
+    written), "eval", "raw2x", "raw1.5x" (re-saved as PNG)."""
     built = {}
 
     def get(variant):
         if variant not in built:
             root = build_fake_scene(tmp_path_factory.mktemp(f"nvidia_{variant}"))
             for f in (root / "raw" / SCENE / "dense/mv_images").rglob("*.jpg"):
+                if variant == "jpeg":
+                    continue
                 with PIL.Image.open(f) as im:
                     im.save(f.with_suffix(".png"))
                 f.unlink()
-            if variant != "eval":
+            if variant not in ("eval", "jpeg"):
                 _upscale_raw(root, {"raw2x": 2.0, "raw1.5x": 1.5}[variant])
             _write_zoe(root)
             built[variant] = root
@@ -105,7 +109,7 @@ def scenes(tmp_path_factory):
     return get
 
 
-VARIANTS = ["eval", "raw2x", "raw1.5x"]
+VARIANTS = ["jpeg", "eval", "raw2x", "raw1.5x"]
 
 
 def _assert_items_equal(got, ref, where):
@@ -137,11 +141,13 @@ OPTIONS = {
 
 @pytest.mark.parametrize("variant,option", [
     *(("eval", option) for option in OPTIONS),
-    ("raw2x", "dist"), ("raw2x", "track"), ("raw1.5x", "dist"), ("raw1.5x", "zoe_moe")])
+    ("raw2x", "dist"), ("raw2x", "track"), ("raw1.5x", "dist"), ("raw1.5x", "zoe_moe"),
+    ("jpeg", "dist"), ("jpeg", "track")])
 def test_reader_matches_jax(scenes, variant, option):
     """Every item (6 in the mono video, 6 held out), every contract key,
     against the JAX reader at 1e-5: every option at the eval size, a few at
-    the raw sizes (the resizes are what differs there)."""
+    the raw sizes (the resizes are what differs there) and on the JPEG
+    frames."""
     kw = dict(data_root=str(scenes(variant)), n_src_views_spatial=3, **DIRS, **OPTIONS[option])
     ours, ref = NvidiaEvalDataset(**kw), JNvidiaEvalDataset(**kw)
     assert ours.items == ref.items and len(ours) == 12
@@ -175,9 +181,15 @@ def test_reader_emits_contract_shapes(scenes, variant):
 
 
 def test_jpeg_frames_raise_naming_the_file(tmp_path):
+    """The JPEG frames decode (the "jpeg" variant above); a progressive
+    one, which the decoder does not take, raises, naming the file."""
     root = build_fake_scene(tmp_path)
+    f = root / "raw" / SCENE / "dense/mv_images/00000/cam01.jpg"
+    with PIL.Image.open(f) as im:
+        im.load()
+    im.save(f, progressive=True)
     ds = NvidiaEvalDataset(data_root=str(root), n_src_views_spatial=3, **DIRS)
-    with pytest.raises(NotImplementedError, match=r"cam01\.jpg.*JPEG"):
+    with pytest.raises(NotImplementedError, match=r"cam01\.jpg: progressive JPEG"):
         ds[0]
 
 
@@ -193,7 +205,10 @@ def test_zip_reader_matches_jax(tmp_path):
         PIL.Image.fromarray(img).save(buf, format="PNG")
         zf.writestr("scene/img.png", buf.getvalue())
         zf.writestr("scene/ours.png", encode_png(img, "cycle"))
-        zf.writestr("scene/img.jpg", b"\xff\xd8")
+        buf = io.BytesIO()
+        PIL.Image.fromarray(img).save(buf, format="JPEG", quality=90)
+        zf.writestr("scene/img.jpg", buf.getvalue())
+        zf.writestr("scene/cut.jpg", buf.getvalue()[:200])
         buf = io.BytesIO()
         np.savez(buf, flow=arr)
         zf.writestr("scene/f.npz", buf.getvalue())
@@ -202,14 +217,14 @@ def test_zip_reader_matches_jax(tmp_path):
         zf.writestr("scene/a.npy", buf.getvalue())
     ours, ref = tbase.ZipReader(zpath), jbase.ZipReader(zpath)
     assert ours.namelist() == ref.namelist()
-    for name in ("scene/img.png", "scene/ours.png"):
+    for name in ("scene/img.png", "scene/ours.png", "scene/img.jpg"):
         np.testing.assert_array_equal(ours.read_image(name), ref.read_image(name))
     np.testing.assert_array_equal(ours.read_npz("scene/f.npz")["flow"],
                                   ref.read_npz("scene/f.npz")["flow"])
     np.testing.assert_array_equal(ours.read_npy("scene/a.npy"), ref.read_npy("scene/a.npy"))
     assert ours.exists("scene/img.png") and not ours.exists("nope")
-    with pytest.raises(NotImplementedError, match=r"img\.jpg"):
-        ours.read_image("scene/img.jpg")
+    with pytest.raises(ValueError, match=r"data\.zip:scene/cut\.jpg: truncated"):
+        ours.read_image("scene/cut.jpg")
     state = pickle.dumps(ours)  # the open handle is dropped
     assert ours._zf is not None and b"ZipFile" not in state
     ours2 = pickle.loads(state)
@@ -321,7 +336,9 @@ def test_combined_dataset(scenes):
     np.testing.assert_array_equal(combined[len(single) + 3]["rgb_tgt"], single[3]["rgb_tgt"])
     with pytest.raises(IndexError):
         combined[-1]
-    for name in ("nvidia_eval_pure_geo", "nvidia_vis", "mono_vis", "dycheck_iphone_eval"):
+    geo = CombinedDataset([("nvidia_eval_pure_geo", kw)])
+    assert type(geo.datasets[0]).__name__ == "NvidiaPureGeoEvalDataset"
+    for name in ("nvidia_vis", "mono_vis", "dycheck_iphone_eval"):
         with pytest.raises(KeyError, match="not ported"):
             CombinedDataset([(name, {})])
     with pytest.raises(KeyError, match="unknown dataset"):

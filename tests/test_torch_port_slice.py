@@ -106,14 +106,16 @@ def test_slice_oob_mask(both):
 
 
 def test_slice_refuses_configs_outside_it(both):
+    """The track branch and unknown modes raise (the geo static mode and
+    the pcl / mesh dynamic layers render: tests/test_torch_port_geo.py)."""
     data = make_contract_data(h=8, w=8, n_spatial=2, n_frames=3)
     tdata = {k: torch.from_numpy(np.array(v)) for k, v in data.items()
              if isinstance(v, np.ndarray)}
     models = init_gnt_models(device="cpu")
     base = apply_perf_preset(RenderConfig(n_coarse_samples_per_ray=4))
-    for cfg, mode in ((base.replace(dyn_render_type="pcl"), "gnt"),
-                      (base, "geo"),
-                      (base.replace(dyn_render_type="mesh"), "gnt"),
+    for cfg, mode in ((base.replace(dyn_render_type="splat"), "gnt"),
+                      (base, "mesh"),
+                      (base.replace(dyn_render_type="pcl"), "point"),
                       (base.replace(dyn_render_track_temporal="no_tgt"), "gnt"),
                       (base.replace(epipolar_mode="quad_u4"), "gnt")):
         with pytest.raises(ValueError):
