@@ -115,7 +115,22 @@ exits non-zero without printing a result:
   13. ``[pcl]`` / ``[mesh]``: the ``..._render_point`` / ``..._render_mesh``
      bundles at 288x550 on the synthetic scene as phase 5 (78 K2 launches,
      the static crop against the CPU, s/view), their dynamic layer held
-     against the CPU and the rasterizer's device ms.
+     against the CPU and the rasterizer's device ms;
+  14. ``[track-eval]`` (in [eval]'s directory): ``run benchmark
+     --benchmark-type st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir``
+     in-process over two of [reader]'s items read with their track sources
+     (TAPIR on seeded random weights): 78 K2 launches per item, checked as
+     [eval] checks its runs;
+  15. ``[track-lk]``: ``default`` with the track branch and the LK tracker
+     at 288x550, ±5 track frames (every dynamic pixel of the 10 real track
+     frames a query), through ``phase_main_path``, then taken apart
+     (``track_breakdown``: query slots, valid queries, points lifted and
+     kept after each filter, the tracker's device ms and launches, the
+     rasterizer's ms); the branch at 48x64 held against the CPU;
+  16. ``[track-tapir]``: TapirTracker on the card against the CPU on a
+     small clip (grids, heads, tracks, visibility), chunked tracking against
+     one call, then both tapir bundles at 288x550 as [track-lk], with the
+     peak memory.
 
 The second-to-last line is a JSON object describing each kernel (its times,
 its launches on its path and its bound on the card); the last line is
@@ -1207,7 +1222,7 @@ def expected_launches(cfg, n_rays, plain=False):
 def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
                     n_spatial=10, n_frames=12, n_samples=256, rows=(140, 144),
                     cols=(200, 264), n_timed=2, preset="fast", tag=None, tol=SLICE_TOL,
-                    data=None, require_outliers=True, **overrides):
+                    data=None, require_outliers=True, tracker=None, **overrides):
     """Drive render_novel_view once for the unmasked config (bundle None:
     on the fast preset patch, K1's patch_rows mode; on "quad" K1) or a
     named bundle (``default``: K2's path; on the exact preset K2 unfolded),
@@ -1216,8 +1231,9 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
     the render, at ``tol``), then time it. The view is the synthetic scene
     at h x w, or ``data``, a contract already on ``device`` (a reader's
     item), whose dynamic cloud need not hold an outlier for the removal to
-    drop (``require_outliers=False``). Returns ({kernel name: launches},
-    seconds per view, the timed render's output)."""
+    drop (``require_outliers=False``); ``tracker`` goes to every render (the
+    track branch). Returns ({kernel name: launches}, seconds per view, the
+    timed render's output)."""
     import warnings
 
     import torch
@@ -1245,7 +1261,7 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
 
     def render():
         gen = torch.Generator(device=device).manual_seed(SEED)
-        out = render_novel_view(models, data, cfg, generator=gen)
+        out = render_novel_view(models, data, cfg, generator=gen, tracker=tracker)
         sync()
         return out
 
@@ -2235,15 +2251,16 @@ def _geo_render(data, cfg, noise):
     return render_novel_view(None, data, cfg, static_mode="geo", noise=noise)
 
 
-def _hold_against_cpu(tag, got, ref, rgb_keys, mask_keys, mask_for):
-    """Masks equal but for at most GEO_MASK_FLIPS of the pixels; each rgb
-    within GEO_RGB_TOL where the masks ``mask_for[key]`` all agree. Returns
+def _hold_against_cpu(tag, got, ref, rgb_keys, mask_keys, mask_for,
+                      flip_share=GEO_MASK_FLIPS, rgb_tol=GEO_RGB_TOL):
+    """Masks equal but for at most ``flip_share`` of the pixels; each rgb
+    within ``rgb_tol`` where the masks ``mask_for[key]`` all agree. Returns
     (flips, worst rgb)."""
     flips, worst = {}, {}
     for key in mask_keys:
         a, b = got[key].float().cpu(), ref[key].float()
         flips[key] = int((a != b).sum())
-        if flips[key] > GEO_MASK_FLIPS * a.numel():
+        if flips[key] > flip_share * a.numel():
             raise AssertionError(f"{tag} {key}: {flips[key]} of {a.numel()} pixels differ "
                                  "from the CPU")
     for key in rgb_keys:
@@ -2252,7 +2269,7 @@ def _hold_against_cpu(tag, got, ref, rgb_keys, mask_keys, mask_for):
             agree = agree * (got[m].cpu() == ref[m]).all(dim=-1, keepdim=True)
         err = ((got[key].float().cpu() - ref[key]).abs() * agree).max()
         worst[key] = float(err)
-        if not worst[key] <= GEO_RGB_TOL:
+        if not worst[key] <= rgb_tol:
             raise AssertionError(f"{tag} {key}: max err {worst[key]} against the CPU")
     return flips, worst
 
@@ -2429,6 +2446,347 @@ def phase_point_mesh(models, smi, device="cuda", h=288, w=550, n_samples=256,
             f"on {smi}")
 
 
+# ------------------------------------------------- the track branch
+
+TRACK_K = 5                 # ±5 track frames: T = 12 slots
+TRACK_BUNDLES = ("st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir",
+                 "st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir_raw_res")
+TRACK_EVAL_ITEMS = 2
+# the reduced-size branch on the card against the CPU (48x64, k_track=2):
+# LK on both; a query whose visibility flips between the two moves one
+# point, which may change a few pixels of the track layer
+TRACK_CPU_HW = (48, 64)
+TRACK_MASK_FLIPS = 0.01
+TRACK_RGB_TOL = 1e-3
+# TapirTracker on the card against the CPU (T = 4, 64x64, 64 queries), both
+# float32 with TF32 off: grids and the cost-volume heads' logits within
+# these; tracks by median and 90th percentile of |card - CPU| (px) with a
+# budget for tracks a soft-argmax cell flip moved by more than 8 px (the
+# JAX package holds its flax TAPIR to the haiku one so,
+# tests/test_tapir_parity.py); visibility agreeing on TAPIR_VIS_SHARE
+TAPIR_GRID_TOL = 1e-4
+TAPIR_LOGIT_TOL = 1e-3
+TAPIR_TRACK_MEDIAN = 0.05
+TAPIR_TRACK_P90 = 0.5
+TAPIR_OUTLIERS = 0.05
+TAPIR_VIS_SHARE = 0.97
+# chunked against one call on the card (4096 queries): tracks and logits
+# within 1e-3 but for a share of entries a cell flip may move
+TAPIR_CHUNK_TOL = 1e-3
+TAPIR_CHUNK_FLIPS = 0.005
+
+
+def _event_ms(fn):
+    """(result, device ms) of one call of ``fn`` between two CUDA events."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def _profile_cuda(fn):
+    """(result, device kernel launches, summed kernel ms, elapsed ms) of one
+    call of ``fn`` under ``torch.profiler``; the launches and summed ms are
+    None where the profiler sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, ms = _event_ms(fn)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return out, None, None, ms
+    return out, len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, ms
+
+
+class RecordingTracker:
+    """A tracker that keeps what the smoke reports of it: its first call
+    runs under ``torch.profiler`` (kernel launches, summed kernel ms), every
+    call is timed by CUDA events, and the last call's frames, queries and
+    outputs are kept, so no extra tracker call is made to take the branch
+    apart."""
+
+    def __init__(self, tracker):
+        self.tracker = tracker
+        self.calls = []
+        self.last = None
+
+    def __call__(self, frames, queries, query_valid=None):
+        def fn():
+            return self.tracker(frames, queries, query_valid)
+
+        if self.calls:
+            out, ms = _event_ms(fn)
+            launches = busy = None
+        else:
+            out, launches, busy, ms = _profile_cuda(fn)
+        self.calls.append({"ms": ms, "launches": launches, "busy_ms": busy,
+                           "queries": int(queries.shape[0])})
+        self.last = (frames, queries, out)
+        return out
+
+
+def track_breakdown(tag, data, cfg, rec, smi, require_points=True):
+    """The track branch of the last render taken apart on the card: the
+    base cloud (with its KNN threshold), the query slots and the valid
+    queries, the tracker (``rec``, a RecordingTracker: launches and summed
+    kernel ms of its first call, under the profiler; CUDA-event ms of its
+    last, in the timed render), the lift and both filters (points lifted
+    and kept after each) on the last call's tracks, the rasterizer of the
+    merged cloud (CUDA events). With ``require_points`` the branch must
+    keep a point (LK on the synthetic scene does; TAPIR on random weights
+    need not). Returns the counts."""
+    import torch
+
+    from pgdvs_tpu_torch.kernels.point_raster import rasterize_points
+    from pgdvs_tpu_torch.renderers.dynamic import compute_dyn_pointcloud
+    from pgdvs_tpu_torch.renderers.dynamic_track import (build_track_stack,
+                                                          compute_track_pointcloud,
+                                                          select_queries)
+
+    h, w = data["rgb_src_temporal"].shape[1:3]
+    pcl, pcl_ms = _event_ms(lambda: compute_dyn_pointcloud(
+        rgb_1=data["rgb_src_temporal"][0], dyn_mask_1=data["dyn_mask_src_temporal"][0],
+        depth_1=data["depth_src_temporal"][0], flow_12=data["flow_fwd"],
+        flow_12_occ_mask=data["flow_fwd_occ_mask"], rgb_2=data["rgb_src_temporal"][1],
+        depth_2=data["depth_src_temporal"][1], cam_1=data["flat_cam_src_temporal"][0],
+        cam_2=data["flat_cam_src_temporal"][1], cam_tgt=data["flat_cam_tgt"],
+        time_1=data["time_src_temporal"][0], time_2=data["time_src_temporal"][1],
+        time_tgt=data["time_tgt"][0], cfg=cfg))
+    stack = build_track_stack(data)
+    _queries, q_valid = select_queries(stack, h * w)
+    _frames, queries, (tracks, vis) = rec.last
+    n = queries.shape[0]
+    if n != int(q_valid.sum()) or n == 0:
+        raise AssertionError(f"{tag} the tracker saw {n} queries of {int(q_valid.sum())}")
+    stats = {"query_slots": int(q_valid.numel()), "valid_queries": n}
+    ones = torch.ones((n,), dtype=torch.bool, device=queries.device)
+    (points, colors, valid), lift_ms = _event_ms(lambda: compute_track_pointcloud(
+        stack, tracks, vis, ones, data["time_tgt"][0], pcl["points"], pcl["colors"],
+        pcl["valid"], pcl["nn_dist_thres"], cfg, stats))
+    if require_points and not stats["kept_self_filter"] > 0:
+        raise AssertionError(f"{tag} the track branch kept no point: {stats}")
+    raster_ms, raster_all = _cuda_ms(lambda: rasterize_points(
+        torch.cat([points, pcl["points"]]), torch.cat([colors, pcl["colors"]]),
+        data["flat_cam_tgt"], (h, w), valid=torch.cat([valid, pcl["valid"]]),
+        radius=cfg.dyn_render_pcl_pt_radius), iters=3)
+    first, last = rec.calls[0], rec.calls[-1]
+    log(f"{tag} query slots {stats['query_slots']}, valid queries {n} "
+        f"({int(stack['real_track'].sum())} real track frames of {stack['rgbs'].shape[0]}), "
+        f"lifted {stats['lifted']}, kept after the base-cloud filter "
+        f"{stats['kept_base_filter']}, after the self filter {stats['kept_self_filter']}; "
+        f"base cloud {int(pcl['valid'].sum())} points")
+    log(f"{tag} device ms: base cloud + KNN threshold {pcl_ms:.3f}; tracker {last['ms']:.3f} "
+        f"in the timed render (CUDA events; {len(rec.calls)} calls: "
+        + ", ".join(f"{c['ms']:.1f}" for c in rec.calls) + "), its first call "
+        + (f"{first['busy_ms']:.3f} ms of kernels over {first['launches']} launches "
+           "(torch.profiler)" if first["launches"] is not None
+           else "not measured (the profiler saw no device activity)")
+        + f"; lift + both filters {lift_ms:.3f}; rasterizer median {raster_ms:.3f} "
+        f"({', '.join(f'{x:.3f}' for x in raster_all)}); on {smi}")
+    return stats
+
+
+def _track_contract(h, w, k, device):
+    """The synthetic contract with ±k track frames, on ``device``."""
+    from pgdvs_tpu_torch.data.loader import contract_to_device
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+
+    return contract_to_device(make_contract_data(h=h, w=w, n_spatial=10, n_frames=12,
+                                                 tgt_time=0.5, k_track=k), device)
+
+
+def phase_track_lk(models, smi, h=288, w=550, n_samples=256):
+    """[track-lk]: F4's configuration, the ``default`` bundle with
+    ``dyn_render_track_temporal="no_tgt"`` and ``LucasKanadeTracker()``, at
+    288x550 with 10 sources, 256 samples and ±5 track frames through
+    ``phase_main_path`` (78 K2 launches, the static crop against the CPU,
+    s/view after a warm-up, peak memory); ``track_breakdown``; then the same
+    branch at TRACK_CPU_HW with ``k_track=2`` held against the port on the
+    CPU (``render_dynamic``: masks equal but for TRACK_MASK_FLIPS of the
+    pixels, rgb within TRACK_RGB_TOL where they agree)."""
+    import torch
+
+    from pgdvs_tpu_torch.models.tracking import LucasKanadeTracker
+    from pgdvs_tpu_torch.renderers.dynamic import render_dynamic
+
+    tag = "[track-lk]"
+    tracker = LucasKanadeTracker()
+    rec = RecordingTracker(tracker)
+    data = _track_contract(h, w, TRACK_K, "cuda")
+    launches, secs, out = phase_main_path(models, bundle="default", data=data, tag=tag,
+                                          n_samples=n_samples, cols=(160, 224),
+                                          tracker=rec, dyn_render_track_temporal="no_tgt")
+    if not bool(out["render_dyn_temporal_track_mask"].any()):
+        raise AssertionError(f"{tag} the track layer is empty")
+    cfg = slice_config("default", n_samples, dyn_render_track_temporal="no_tgt")
+    track_breakdown(tag, data, cfg, rec, smi)
+    log(f"{tag} K2 launches {launches['gnt_fused_mono3']}; track layer covers "
+        f"{float(out['render_dyn_temporal_track_mask'].mean()):.4f} of the view, adds "
+        f"{int((out['render_dyn_mask'] - out['render_dyn_temporal_closest_mask']).sum())} "
+        f"pixels to the splat's {int(out['render_dyn_temporal_closest_mask'].sum())}; "
+        f"s/view {statistics.mean(secs):.4f}; on {smi}")
+    sh, sw = TRACK_CPU_HW
+    small = _track_contract(sh, sw, 2, "cuda")
+    cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in small.items()}
+    noise = torch.randn((sh, sw, 3), generator=torch.Generator().manual_seed(SEED))
+    got = render_dynamic(small, cfg, noise=noise.cuda(), tracker=tracker)
+    ref = render_dynamic(cpu, cfg, noise=noise, tracker=tracker)
+    keys = ("mask", "temporal_track_mask")
+    flips, worst = _hold_against_cpu(
+        tag, got, ref, ("rgb", "temporal_track_rgb"), keys,
+        {"rgb": keys, "temporal_track_rgb": keys}, TRACK_MASK_FLIPS, TRACK_RGB_TOL)
+    if not bool(ref["temporal_track_mask"].any()):
+        raise AssertionError(f"{tag} the CPU's track layer at {sh}x{sw} is empty")
+    log(f"{tag} the branch at {sh}x{sw}, k_track 2, card vs CPU: mask pixels differing "
+        f"{flips}, rgb max err where the masks agree {worst}")
+
+
+def phase_track_tapir(models, smi, h=288, w=550, n_samples=256):
+    """[track-tapir]: TapirTracker (seeded random weights: no checkpoint
+    is in the repository, and the JAX package falls back so too) on the
+    card against the CPU on a small clip (T = 4, 64x64, 64 queries): the
+    grids, the cost-volume heads, the tracks, the visibility; chunked
+    tracking against one call on 4096 queries; then each of TRACK_BUNDLES at
+    288x550 (10 sources, 256 samples, ±5 track frames, every dynamic pixel
+    of the real track frames a query) through ``phase_main_path`` (78 K2
+    launches, the static crop against the CPU, s/view after a warm-up, peak
+    memory) and ``track_breakdown``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pgdvs_tpu_torch.configs.benchmarks import make_tracker
+    from pgdvs_tpu_torch.data import synthetic
+    from pgdvs_tpu_torch.models.tracking.tapir import TapirTracker
+
+    tag = "[track-tapir]"
+    tracker = make_tracker("tapir", device="cuda")
+    cpu_tracker = TapirTracker(copy.deepcopy(tracker.model).cpu())
+    m_card, m_cpu = tracker.model, cpu_tracker.model
+    t_n, n = 4, 64
+    frames = np.stack([synthetic.render_frame(64, 64, synthetic.camera_pose(i + 1, 10),
+                                              0.3 + 0.1 * i)["rgb"] for i in range(t_n)])
+    frames = torch.from_numpy(frames.astype(np.float32))
+    rng = np.random.default_rng(SEED)
+    q = torch.from_numpy(np.stack([rng.integers(0, t_n, n), rng.uniform(0, 63, n),
+                                   rng.uniform(0, 63, n)], axis=-1).astype(np.float32))
+    video = frames * 2 - 1
+    qyx = q[:, [0, 2, 1]]
+    with torch.no_grad():
+        g_card = m_card.feature_grids(video.cuda())
+        g_cpu = m_cpu.feature_grids(video)
+        grid_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(g_card, g_cpu))
+        qf = m_cpu.query_features(g_cpu, qyx, (64, 64))
+        heads_card = m_card.tracks_from_cost_volume(qf[1].cuda(), g_cpu[1].cuda(), qyx.cuda(),
+                                                    (64, 64))
+        heads_cpu = m_cpu.tracks_from_cost_volume(qf[1], g_cpu[1], qyx, (64, 64))
+    logit_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(heads_card[1:],
+                                                                      heads_cpu[1:]))
+    if not (grid_err <= TAPIR_GRID_TOL and logit_err <= TAPIR_LOGIT_TOL):
+        raise AssertionError(f"{tag} card vs CPU: grids {grid_err}, head logits {logit_err}")
+    tr_card, vis_card = tracker(frames.cuda(), q.cuda())
+    tr_cpu, vis_cpu = cpu_tracker(frames, q)
+    d = (tr_card.cpu() - tr_cpu).abs().numpy()
+    med, p90, outl = float(np.median(d)), float(np.quantile(d, 0.9)), float((d > 8.0).mean())
+    vis_share = float((vis_card.cpu() == vis_cpu).float().mean())
+    if not (med <= TAPIR_TRACK_MEDIAN and p90 <= TAPIR_TRACK_P90 and outl <= TAPIR_OUTLIERS
+            and vis_share >= TAPIR_VIS_SHARE):
+        raise AssertionError(f"{tag} tracks card vs CPU: median {med}, p90 {p90}, outliers "
+                             f"{outl}, visibility agreeing {vis_share}")
+    log(f"{tag} TapirTracker card vs CPU (T {t_n}, 64x64 -> 256x256, {n} queries, TF32 off): "
+        f"grids max err {grid_err:.2e}, cost-volume head logits {logit_err:.2e}, tracks |d| "
+        f"median {med:.2e} p90 {p90:.2e} px, share > 8 px {outl:.4f}, visibility agreeing "
+        f"{vis_share:.4f}")
+    nq = 4096
+    qq = torch.from_numpy(np.stack([rng.integers(0, t_n, nq), rng.uniform(0, 255, nq),
+                                    rng.uniform(0, 255, nq)], axis=-1).astype(np.float32)).cuda()
+    with torch.no_grad():
+        vid = torch.nn.functional.interpolate(video.permute(0, 3, 1, 2), size=(256, 256),
+                                              mode="bilinear").permute(0, 2, 3, 1).cuda()
+        one = m_card(vid, qq, chunk=nq)
+        chunked = m_card(vid, qq, chunk=512)
+    errs = [(a - b).abs() for a, b in zip(chunked, one)]
+    flips = max(float((e > TAPIR_CHUNK_TOL).float().mean()) for e in errs)
+    if not flips <= TAPIR_CHUNK_FLIPS:
+        raise AssertionError(f"{tag} chunked vs one call: share over {TAPIR_CHUNK_TOL} {flips}")
+    log(f"{tag} {nq} queries in chunks of 512 vs one call on the card: max |d| "
+        + ", ".join(f"{float(e.max()):.2e}" for e in errs)
+        + f" (tracks, occlusion, expected distance); share over {TAPIR_CHUNK_TOL}: {flips:.5f}")
+    del g_card, g_cpu, one, chunked, errs, cpu_tracker
+    data = _track_contract(h, w, TRACK_K, "cuda")
+    for bundle in TRACK_BUNDLES:
+        btag = f"{tag}[{'raw_res' if bundle.endswith('raw_res') else '256'}]"
+        rec = RecordingTracker(make_tracker(
+            "tapir_raw_res" if bundle.endswith("raw_res") else "tapir", device="cuda"))
+        launches, secs, out = phase_main_path(models, bundle=bundle, data=data, tag=btag,
+                                              n_samples=n_samples, cols=(160, 224),
+                                              n_timed=1, tracker=rec)
+        if not bool(out["render_dyn_temporal_track_mask"].any()):
+            raise AssertionError(f"{btag} the track layer is empty")
+        cfg = slice_config(bundle, n_samples)
+        track_breakdown(btag, data, cfg, rec, smi, require_points=False)
+        log(f"{btag} K2 launches {launches['gnt_fused_mono3']}; track layer covers "
+            f"{float(out['render_dyn_temporal_track_mask'].mean()):.4f} of the view; s/view "
+            f"{statistics.mean(secs):.4f}; peak device memory of a render "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; on {smi}")
+        del out
+
+
+def phase_track_eval(models, root, smi, n_items=TRACK_EVAL_ITEMS, eval_hw=READER_EVAL_HW,
+                     n_samples=256):
+    """[track-eval]: ``python -m pgdvs_tpu_torch.run benchmark --benchmark-type
+    st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir`` in-process over the
+    first ``n_items`` items of [reader]'s scene (24 frames, read with its
+    track sources), ``$PGDVS_CKPT_DIR`` the [eval] checkpoints (the GNT and
+    the LPIPS backbone; no TAPIR checkpoint: random weights): 78 K2
+    launches per item, the pickles, summary.json and PNGs checked as
+    [eval] checks them, s/view of the renders."""
+    import os
+
+    from pgdvs_tpu_torch.data.nvidia_eval import NvidiaEvalDataset
+    from pgdvs_tpu_torch.renderers.static_gnt import resolve_epipolar_cfg
+
+    tag = "[track-eval]"
+    bundle = TRACK_BUNDLES[0]
+    scene, ckpts = root / "scene", root / "ckpts"
+    ds = NvidiaEvalDataset(scene, scene_ids=[READER_SCENE], tgt_height=eval_hw[0],
+                           with_track_sources=True)
+    items = [ds[i] for i in range(n_items)]
+    h, w = items[0]["rgb_tgt"].shape[:2]
+    cfg = resolve_epipolar_cfg(slice_config(bundle, n_samples), models[1], h, w)[0]
+    want = expected_launches(cfg, h * w)
+    out = root / "track_benchmark"
+    old = os.environ.get("PGDVS_CKPT_DIR")
+    os.environ["PGDVS_CKPT_DIR"] = str(ckpts)
+    try:
+        result, renders, _stages = _run_cli(
+            ["benchmark", "--benchmark-type", bundle, "--data-root", str(scene), "--scene-ids",
+             READER_SCENE, "--max-items", str(n_items), "--device", "cuda", "--dataset-arg",
+             f"tgt_height={eval_hw[0]}", "--render-cfg", f"n_coarse_samples_per_ray={n_samples}",
+             "--out-dir", str(out)], tag, n_items, want)
+    finally:
+        if old is None:
+            os.environ.pop("PGDVS_CKPT_DIR", None)
+        else:
+            os.environ["PGDVS_CKPT_DIR"] = old
+    worst = _check_eval_outputs(out, result, renders, items, random_lpips(), tag)
+    n_track = [int(it["n_actual_src_track_fwd"][0] + it["n_actual_src_track_bwd"][0])
+               for it in items]
+    log(f"{tag} run benchmark --benchmark-type {bundle}: {n_items} items (real track frames "
+        f"{n_track}), {cfg.epipolar_mode} sampling, launches per item {_nonzero(want)}; pickles "
+        f"== compute_nvidia_metrics on the CPU (PSNR / SSIM bit for bit, LPIPS rel "
+        f"{worst:.2e}), summary.json, PNGs == truncated renders; render s/view "
+        + " ".join(f"{secs:.4f}" for secs, _ in renders) + "; mean " + json.dumps(result["mean"])
+        + f"; on {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -2476,7 +2834,10 @@ def main() -> int:
         phase_eval(models, root)
         phase_jpeg(smi)
         phase_geo(root / "geo", smi)
+        phase_track_eval(models, root, smi)
     phase_point_mesh(models, smi)
+    phase_track_lk(models, smi)
+    phase_track_tapir(models, smi)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     rows = []

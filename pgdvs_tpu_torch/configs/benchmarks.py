@@ -13,9 +13,9 @@ gnt = transformer), dy = dynamic branch, pcl_clean = statistical outlier
 removal, masked_attn / masked_input = GNT dynamic-mask handling, zoed =
 ZoeDepth instead of CVD depth, track_* = occlusion recovery via tracking.
 
-Every name resolves; rendering one that needs a tracker raises ValueError
-in ``check_slice`` (and the CLI refuses the vis bundles). Tracker
-construction (``make_tracker``) waits for the track slice.
+Every name resolves; ``make_tracker`` builds a bundle's tracker
+(Lucas-Kanade or TAPIR) and raises ValueError for CoTracker, which is not
+ported; the CLI refuses the vis bundles.
 """
 
 from __future__ import annotations
@@ -234,3 +234,30 @@ def resolve_benchmark(name: str, preset: str = "fast"):
     spec = dict(BENCHMARK_TYPES[name])
     cfg = RenderConfig(**spec.get("render_cfg", {}))
     return (apply_perf_preset(cfg) if preset == "fast" else cfg), spec
+
+
+# ROADMAP.md, queue 1, item 4 (the branches slice) carries CoTracker
+COTRACKER_ITEM = "ROADMAP.md queue 1 item 4, the branches slice: track, CoTracker"
+
+
+def make_tracker(name, device=None):
+    """The tracker a bundle names (its ``tracker`` entry) on ``device``:
+    None for None / "none", ``LucasKanadeTracker()`` for "lk", TAPIR at
+    256x256 for "tapir" and at the frames' size for "tapir_raw_res" (the
+    released checkpoint under ``$PGDVS_CKPT_DIR``, else seeded random
+    weights with a warning). "cotracker" raises ValueError (not ported);
+    any other name KeyError."""
+    if name in (None, "none"):
+        return None
+    if name == "lk":
+        from pgdvs_tpu_torch.models.tracking import LucasKanadeTracker
+
+        return LucasKanadeTracker()
+    if name in ("tapir", "tapir_raw_res"):
+        from pgdvs_tpu_torch.models.tracking.tapir import make_tapir_tracker
+
+        return make_tapir_tracker(keep_raw_res=name == "tapir_raw_res", device=device)
+    if name == "cotracker":
+        raise ValueError(f"the 'cotracker' tracker is not ported yet ({COTRACKER_ITEM}); "
+                         "the ported trackers are 'lk', 'tapir' and 'tapir_raw_res'")
+    raise KeyError(f"unknown tracker {name!r}")

@@ -15,21 +15,26 @@ import torch
 from pgdvs_tpu_torch.core.sampling import linspace
 
 
-def _gather(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor):
-    """img [H, W, C]; clipped integer ix/iy [...] -> [..., C]."""
-    h, w, c = img.shape
-    idx = (iy * w + ix).reshape(-1)
-    return img.reshape(h * w, c)[idx].reshape(ix.shape + (c,))
+def _gather(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, frame=None):
+    """img [H, W, C], or [T, H, W, C] with integer ``frame`` indices
+    broadcast against ix; clipped integer ix/iy [...] -> [..., C]."""
+    h, w, c = img.shape[-3:]
+    idx = iy * w + ix
+    if frame is not None:
+        idx = idx + frame * (h * w)
+    return img.reshape(-1, c)[idx.reshape(-1)].reshape(ix.shape + (c,))
 
 
 def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                    zero_pad: bool = True) -> torch.Tensor:
-    """Bilinearly sample img [H, W, C] at pixel coordinates x, y [...].
+                    zero_pad: bool = True, frame=None) -> torch.Tensor:
+    """Bilinearly sample img [H, W, C] at pixel coordinates x, y [...]; with
+    ``frame`` (integer, broadcast against x), img [T, H, W, C] at those
+    frames.
 
     zero_pad: taps outside the image contribute zero; otherwise the
     coordinate is edge-clamped.
     """
-    h, w = img.shape[0], img.shape[1]
+    h, w = img.shape[-3], img.shape[-2]
     sx = torch.clamp(torch.floor(x), 0, max(w - 2, 0))
     sy = torch.clamp(torch.floor(y), 0, max(h - 2, 0))
     if zero_pad:
@@ -46,10 +51,10 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     ix1 = torch.clamp(ix0 + 1, max=w - 1)
     iy1 = torch.clamp(iy0 + 1, max=h - 1)
     out = (
-        _gather(img, ix0, iy0) * (wy0 * wx0)[..., None]
-        + _gather(img, ix1, iy0) * (wy0 * wx1)[..., None]
-        + _gather(img, ix0, iy1) * (wy1 * wx0)[..., None]
-        + _gather(img, ix1, iy1) * (wy1 * wx1)[..., None]
+        _gather(img, ix0, iy0, frame) * (wy0 * wx0)[..., None]
+        + _gather(img, ix1, iy0, frame) * (wy0 * wx1)[..., None]
+        + _gather(img, ix0, iy1, frame) * (wy1 * wx0)[..., None]
+        + _gather(img, ix1, iy1, frame) * (wy1 * wx1)[..., None]
     )
     return out.to(img.dtype)
 

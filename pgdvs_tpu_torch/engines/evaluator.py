@@ -156,11 +156,13 @@ class Evaluator:
       save_vis: write ``{id}_combined.png`` per item.
       device: where the renders run when ``models`` is None (default cuda);
         else the models' device.
+      tracker: optional point tracker (``configs.benchmarks.make_tracker``)
+        on that device, passed to every render (the track bundles).
     """
 
     def __init__(self, models, cfg: RenderConfig, static_mode: str = "gnt",
                  out_dir: Optional[str] = None, lpips_net=None, save_vis: bool = False,
-                 device="cuda"):
+                 device="cuda", tracker=None):
         check_slice(cfg, static_mode)
         if models is None and static_mode != "geo":
             raise ValueError(f"static_mode {static_mode!r} renders the GNT: models needed")
@@ -172,6 +174,7 @@ class Evaluator:
         self.out_dir = pathlib.Path(out_dir) if out_dir else None
         self.save_vis = save_vis
         self.lpips_net = lpips_net
+        self.tracker = tracker
         self._lpips = None
         if lpips_net is not None:
             self._lpips = lambda a, b, m: lpips_on_host_arrays(lpips_net, a, b, m)
@@ -186,7 +189,7 @@ class Evaluator:
         t0 = time.perf_counter()
         gen = torch.Generator(device=device).manual_seed(seed)
         out = render_novel_view(self.models, data, self.cfg, generator=gen,
-                                static_mode=self.static_mode)
+                                static_mode=self.static_mode, tracker=self.tracker)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         pred = out["combined_rgb"].float().cpu().numpy()

@@ -1,11 +1,15 @@
 """Brute-force KNN mean distance + statistical outlier removal (torch).
 
-Counterpart of ``pgdvs_tpu.kernels.knn`` (same-set mode), the Open3D-style
-statistical outlier removal the reference runs on the dynamic point cloud
-(the reference's ``pgdvs/renderers/pgdvs_renderer_dyn.py:405-457``): for
-every valid point, the mean of its K nearest **squared** distances to the
-other valid points; a point is kept when that mean lies below
-``median + std_thres * std`` of the cloud's means.
+Counterpart of ``pgdvs_tpu.kernels.knn``, the Open3D-style statistical
+outlier removal the reference runs on the dynamic point cloud (the
+reference's ``pgdvs/renderers/pgdvs_renderer_dyn.py:405-457``): for every
+valid point, the mean of its K nearest **squared** distances to the other
+valid points; a point is kept when that mean lies below
+``median + std_thres * std`` of the cloud's means, or below a threshold
+given from outside. The cross-set mode measures each valid query against a
+second cloud instead (the track renderer's distance to the base cloud,
+``pgdvs_renderer_dyn_track.py:296-338``): every valid candidate counts and
+nothing is excluded as the query itself.
 
 This is plain tensor code on both devices (the JAX package does it in XLA,
 not Pallas). The distance matrix is never materialised whole: the valid
@@ -26,15 +30,20 @@ CAND_TILE = 2048
 
 
 def knn_mean_sq_dist(points: torch.Tensor, valid=None, k: int = 50,
-                     tile: int = CAND_TILE, query_tile: int = QUERY_TILE):
-    """Mean squared distance from each valid point to its K nearest other
-    valid points (the point itself excluded).
+                     tile: int = CAND_TILE, query_tile: int = QUERY_TILE,
+                     candidates=None, cand_valid=None, exclude_self: bool = True):
+    """Mean squared distance from each valid query to its K nearest valid
+    candidates.
 
     Args:
-      points: [N, 3]; valid: [N] bool (default all valid).
-      k: neighbour count. Where fewer than K other valid points exist the
-        missing neighbours count as 1e30, as in the JAX package.
+      points: [N, 3] queries; valid: [N] bool (default all valid).
+      k: neighbour count. Where fewer than K candidates exist the missing
+        neighbours count as 1e30, as in the JAX package.
       tile / query_tile: candidate / query block sizes (memory only).
+      candidates: optional [M, 3] second cloud (cross-set mode), with
+        cand_valid [M] bool (default all valid). Without it the candidates
+        are the valid queries themselves, each query excluded
+        (``exclude_self`` must then stay True, as in the JAX package).
 
     Returns mean_d2 [N] float32, 1e30 at invalid points.
     """
@@ -42,24 +51,35 @@ def knn_mean_sq_dist(points: torch.Tensor, valid=None, k: int = 50,
     dev = points.device
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    same_set = candidates is None
     idx = torch.nonzero(valid, as_tuple=True)[0]
     pts = points[idx].float()
-    m = pts.shape[0]
     sq = torch.sum(pts * pts, dim=-1)
+    if same_set:
+        if not exclude_self:
+            raise ValueError("same-set knn always excludes self")
+        cands, c_sq = pts, sq
+    else:
+        if cand_valid is not None:
+            candidates = candidates[cand_valid]
+        cands = candidates.float()
+        c_sq = torch.sum(cands * cands, dim=-1)
+    m = pts.shape[0]
     means = torch.empty((m,), dtype=torch.float32, device=dev)
     for q0 in range(0, m, query_tile):
         q = pts[q0:q0 + query_tile]
         q_sq = sq[q0:q0 + query_tile]
         q_ids = torch.arange(q0, q0 + q.shape[0], device=dev)
         best = torch.full((q.shape[0], k), _BIG, dtype=torch.float32, device=dev)
-        for c0 in range(0, m, tile):
-            c = pts[c0:c0 + tile]
+        for c0 in range(0, cands.shape[0], tile):
+            c = cands[c0:c0 + tile]
             cross = q @ c.T
-            d2 = torch.clamp(q_sq[:, None] - 2.0 * cross + sq[None, c0:c0 + tile],
+            d2 = torch.clamp(q_sq[:, None] - 2.0 * cross + c_sq[None, c0:c0 + tile],
                              min=0.0)
-            c_ids = torch.arange(c0, c0 + c.shape[0], device=dev)
-            d2 = torch.where(q_ids[:, None] == c_ids[None, :],
-                             torch.full_like(d2, _BIG), d2)
+            if same_set:
+                c_ids = torch.arange(c0, c0 + c.shape[0], device=dev)
+                d2 = torch.where(q_ids[:, None] == c_ids[None, :],
+                                 torch.full_like(d2, _BIG), d2)
             merged = torch.cat([best, d2], dim=1)
             best = torch.topk(merged, k, dim=1, largest=False, sorted=True).values
         means[q0:q0 + query_tile] = best.mean(dim=1)
@@ -87,15 +107,20 @@ def masked_std(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def statistical_outlier_mask(points: torch.Tensor, valid=None, k: int = 50,
-                             std_thres: float = 0.1, tile: int = CAND_TILE):
+                             std_thres: float = 0.1, tile: int = CAND_TILE,
+                             dist_thres=None):
     """Open3D-style statistical outlier mask over a (padded) point cloud.
 
     Returns keep [N] bool (valid and mean-KNN squared distance below the
-    threshold) and the threshold, median + std_thres * std over the valid
-    points' means.
+    threshold) and the threshold: ``dist_thres`` where given (the track
+    renderer reuses the base cloud's, ``pgdvs_renderer_dyn_track.py:355-362``),
+    else median + std_thres * std over the valid points' means.
     """
     if valid is None:
         valid = torch.ones((points.shape[0],), dtype=torch.bool, device=points.device)
     mean_d2 = knn_mean_sq_dist(points, valid, k=k, tile=tile)
-    thres = masked_median(mean_d2, valid) + masked_std(mean_d2, valid) * std_thres
+    if dist_thres is None:
+        thres = masked_median(mean_d2, valid) + masked_std(mean_d2, valid) * std_thres
+    else:
+        thres = dist_thres
     return valid & (mean_d2 < thres), thres

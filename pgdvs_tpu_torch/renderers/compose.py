@@ -5,7 +5,8 @@ ported slices, with the same output keys: the static background from GNT
 (masked view attention reads ``dyn_mask_src_spatial``) or from the
 aggregated point cloud (``static_mode="geo"``: ``st_pcl_rgb`` /
 ``st_pcl_valid``, no models), the dynamic foreground
-(``renderers.dynamic``), composited as
+(``renderers.dynamic``, with the track branch where a tracker is given),
+composited as
 ``(1 - dyn_mask) * static + dyn_mask * dyn``; ``pure_gnt`` and
 ``pure_gnt_with_dyn_mask`` return the static layer alone. With a
 ``render_stride`` the static layer is rendered on every stride-th pixel and
@@ -31,7 +32,7 @@ from pgdvs_tpu_torch.renderers.static_gnt import render_image_gnt
 def render_novel_view(models, data, cfg: RenderConfig,
                       generator: Optional[torch.Generator] = None,
                       static_mode: str = "gnt",
-                      noise: Optional[torch.Tensor] = None):
+                      noise: Optional[torch.Tensor] = None, tracker=None):
     """Render one novel (space, time) view.
 
     Args:
@@ -43,6 +44,8 @@ def render_novel_view(models, data, cfg: RenderConfig,
       generator: torch.Generator for the dynamic branch's noise.
       static_mode: "gnt" or "geo".
       noise: optional [H, W, 3] standard-normal draw used instead.
+      tracker: optional point tracker (``models.tracking``), which runs the
+        track branch under ``dyn_render_track_temporal="no_tgt"``.
 
     Returns a dict with combined_rgb and the intermediates the JAX
     renderer returns.
@@ -67,7 +70,7 @@ def render_novel_view(models, data, cfg: RenderConfig,
             ret["combined_rgb"] = static_rgb
             return ret
 
-    dyn = render_dynamic(data, cfg, generator=generator, noise=noise)
+    dyn = render_dynamic(data, cfg, generator=generator, noise=noise, tracker=tracker)
     dyn_rgb, dyn_mask = dyn["rgb"], dyn["mask"]
     if cfg.render_stride > 1:
         rh, rw = static_rgb.shape[:2]

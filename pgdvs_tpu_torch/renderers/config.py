@@ -48,9 +48,11 @@ coarse and fine samples, any render stride; or the static layer from the
 aggregated point cloud (``static_mode="geo"``, with or without its outlier
 removal, ``st_pcl_remove_outlier``); the dynamic layer by softsplat, the
 point rasterizer or the grid mesh (``dyn_render_type``), with or without
-statistical outlier removal (``dyn_pcl_remove_outlier``); no tracker.
-``check_slice`` raises ValueError for the track branch and for an unknown
-mode; nothing falls back silently.
+statistical outlier removal (``dyn_pcl_remove_outlier``), with or without
+the track branch (``dyn_render_track_temporal="no_tgt"`` and a tracker of
+``models.tracking``: Lucas-Kanade or TAPIR; CoTracker is not ported).
+``check_slice`` raises ValueError for an unknown mode; nothing falls back
+silently.
 """
 
 from __future__ import annotations
@@ -120,7 +122,8 @@ def check_slice(cfg: RenderConfig, static_mode: str = "gnt") -> None:
             cfg.epipolar_mode not in ("exact", "fused", "quad", "quad_i8", "patch"),
         "dyn_render_type not in ('softsplat', 'pcl', 'mesh')":
             cfg.dyn_render_type not in ("softsplat", "pcl", "mesh"),
-        "dyn_render_track_temporal != 'none'": cfg.dyn_render_track_temporal != "none",
+        "dyn_render_track_temporal not in ('none', 'no_tgt')":
+            cfg.dyn_render_track_temporal not in ("none", "no_tgt"),
     }
     bad = [name for name, hit in unsupported.items() if hit]
     if bad:

@@ -1,7 +1,6 @@
 """Dynamic-foreground rendering: a depth + flow point cloud, splatted.
 
-Counterpart of ``pgdvs_tpu.renderers.dynamic`` on the ported slices (no
-tracker). Every pixel of temporal source 1 is a candidate point: lifted by
+Counterpart of ``pgdvs_tpu.renderers.dynamic``. Every pixel of temporal source 1 is a candidate point: lifted by
 its depth, advected by flow into frame 2, lifted again there, interpolated
 linearly to the target time, optionally cleaned by statistical outlier
 removal (``dyn_pcl_remove_outlier``), then rendered by ``dyn_render_type``:
@@ -10,7 +9,12 @@ static-region colours replaced by clamped gaussian noise so they lose
 contested pixels), ``pcl`` (the z-buffered point rasterizer,
 ``kernels/point_raster.py``) or ``mesh`` (the pixel-grid mesh rasterizer,
 ``kernels/mesh_raster.py``). The cloud stays the dense H*W buffer, the JAX
-package's default (its ``dyn_point_capacity`` of 0).
+package's default (its ``dyn_point_capacity`` of 0). With a tracker and
+``dyn_render_track_temporal="no_tgt"`` the track branch
+(``renderers/dynamic_track.py``) renders the content the two temporally
+closest frames do not see, and fills the pixels the layer leaves uncovered
+(pgdvs_renderer_dyn.py:229-235); without a tracker that branch is skipped,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from pgdvs_tpu_torch.kernels.mesh_raster import rasterize_grid_mesh
 from pgdvs_tpu_torch.kernels.point_raster import rasterize_points
 from pgdvs_tpu_torch.kernels.softsplat import brightness_metric, softsplat
 from pgdvs_tpu_torch.renderers.config import RenderConfig
+from pgdvs_tpu_torch.renderers.dynamic_track import render_with_track
 
 
 def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
@@ -38,10 +43,9 @@ def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
     Images [H, W, C]; cams flat-34; times scalars. Returns points [H*W, 3],
     colors [H*W, 3], valid [H*W] bool (dynamic, flow in bounds and, with
     ``dyn_pcl_remove_outlier``, not an outlier), flow_to_tgt [H, W, 2],
-    valid_mask_img [H, W, 1].
+    valid_mask_img [H, W, 1] and nn_dist_thres, the outlier threshold the
+    track branch reuses (0 when neither needs it).
     """
-    if cfg.dyn_render_track_temporal != "none":
-        raise ValueError("tracking is outside the ported slices")
     h, w, _ = rgb_1.shape
     k2, c2w2 = cameras.flat_cam_intrinsics(cam_2), cameras.flat_cam_c2w(cam_2)
     rays_o, rays_d, uv, _ = cameras.get_rays(
@@ -74,11 +78,14 @@ def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
             (time_tgt - time_1) / denom) * pcl_2
         colors = rgb_f2
 
-    if cfg.dyn_pcl_remove_outlier:
-        valid, _thres = statistical_outlier_mask(
+    nn_dist_thres = torch.zeros((), dtype=torch.float32, device=points.device)
+    if cfg.dyn_pcl_remove_outlier or cfg.dyn_render_track_temporal != "none":
+        keep, nn_dist_thres = statistical_outlier_mask(
             points, valid, k=cfg.dyn_pcl_outlier_knn,
             std_thres=cfg.dyn_pcl_outlier_std_thres,
         )
+        if cfg.dyn_pcl_remove_outlier:
+            valid = keep
 
     uv_tgt, _z, _front = cameras.project_points(points, cam_tgt)
     flow_to_tgt = torch.where(valid[:, None], uv_tgt - uv,
@@ -89,18 +96,20 @@ def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
         "valid": valid,
         "flow_to_tgt": flow_to_tgt,
         "valid_mask_img": valid.float().reshape(h, w, 1),
+        "nn_dist_thres": nn_dist_thres,
     }
 
 
 def render_dynamic(data, cfg: RenderConfig,
                    generator: Optional[torch.Generator] = None,
-                   noise: Optional[torch.Tensor] = None):
+                   noise: Optional[torch.Tensor] = None, tracker=None):
     """Render the dynamic layer for one novel view.
 
     With softsplat the static-region colours are replaced by
     ``clamp(noise, 0, 1)``, where noise is a standard normal [H, W, 3]
     drawn from ``generator`` unless it is given directly; pcl and mesh
-    draw no noise.
+    draw no noise. ``tracker`` (``models.tracking``) runs the track branch
+    under ``dyn_render_track_temporal="no_tgt"``.
 
     Returns rgb [H, W, 3], mask [H, W, 1] and the per-branch intermediates.
     """
@@ -144,12 +153,15 @@ def render_dynamic(data, cfg: RenderConfig,
         rgb = splat_rgb * mask
     else:
         raise ValueError(f"unknown dyn_render_type={cfg.dyn_render_type!r}")
-    return {
-        "rgb": rgb,
-        "mask": mask,
-        "temporal_closest_rgb": rgb,
-        "temporal_closest_mask": mask,
-        "temporal_track_rgb": torch.zeros_like(rgb),
-        "temporal_track_mask": torch.zeros_like(mask),
-        "pcl": pcl,
-    }
+    out = {"temporal_closest_rgb": rgb, "temporal_closest_mask": mask, "pcl": pcl}
+    if tracker is not None and cfg.dyn_render_track_temporal == "no_tgt":
+        track = render_with_track(data, cfg, tracker, base_pcl=pcl)
+        m_track = (~(mask > 0) & (track["mask"] > 0)).float()
+        rgb = (1.0 - m_track) * rgb + m_track * track["rgb"]
+        mask = ((mask > 0) | (track["mask"] > 0)).float()
+        out.update(temporal_track_rgb=track["rgb"], temporal_track_mask=track["mask"])
+    else:
+        out.update(temporal_track_rgb=torch.zeros_like(rgb),
+                   temporal_track_mask=torch.zeros_like(mask))
+    out.update(rgb=rgb, mask=mask)
+    return out

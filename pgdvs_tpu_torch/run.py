@@ -5,8 +5,10 @@ its ``eval`` and ``benchmark`` subcommands and the same flags, less the
 JAX-only ones (``--distributed``, ``--devices``, ``--gnt-dtype``), plus
 ``--device {cuda,cpu}`` (default cuda; without a card, cuda raises). The
 geo static mode (``--static-mode geo`` on ``nvidia_eval_pure_geo``, the
-``st_cvd_*`` bundles) renders no network, so it loads no GNT. What the port
-does not carry yet raises, naming its ``ROADMAP.md`` item: a tracker, the
+``st_cvd_*`` bundles) renders no network, so it loads no GNT. A bundle's
+tracker (Lucas-Kanade or TAPIR, the ``_track_tapir`` bundles) is built by
+``configs.benchmarks.make_tracker`` on ``--device``. What the port does not
+carry yet raises, naming its ``ROADMAP.md`` item: the CoTracker tracker, the
 vis engine, a dataset other than ``nvidia_eval`` and
 ``nvidia_eval_pure_geo``; the vis, train and bench subcommands are not
 there.
@@ -136,11 +138,12 @@ def _lpips(device):
     return net.to(device)
 
 
-def _evaluate(args, models, cfg, dataset, static_mode, save_vis):
+def _evaluate(args, models, cfg, dataset, static_mode, save_vis, tracker=None):
     from pgdvs_tpu_torch.engines.evaluator import Evaluator
 
     ev = Evaluator(models, cfg, static_mode=static_mode, out_dir=args.out_dir,
-                   lpips_net=_lpips(args.device), save_vis=save_vis, device=args.device)
+                   lpips_net=_lpips(args.device), save_vis=save_vis, device=args.device,
+                   tracker=tracker)
     result = ev.run(dataset, process_index=args.process_index,
                     process_count=args.process_count, max_items=args.max_items)
     print(json.dumps(result, indent=2))
@@ -167,7 +170,7 @@ def cmd_benchmark(args):
     """Run a named benchmark_type bundle (the reference's ablation matrix).
     Unlike the JAX CLI's, it also applies ``--dataset-arg`` (after the
     bundle's own dataset arguments)."""
-    from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
+    from pgdvs_tpu_torch.configs.benchmarks import make_tracker, resolve_benchmark
     from pgdvs_tpu_torch.renderers.config import RenderConfig, check_slice
 
     cfg, spec = resolve_benchmark(args.benchmark_type, preset=args.perf_preset)
@@ -176,16 +179,15 @@ def cmd_benchmark(args):
     if spec.get("engine") == "vis":
         raise ValueError(f"benchmark {args.benchmark_type!r} runs the vis engine, not ported "
                          f"yet ({BRANCHES_ITEM}: visualization)")
-    if spec.get("tracker"):
-        raise ValueError(f"benchmark {args.benchmark_type!r} needs the {spec['tracker']!r} "
-                         f"tracker, not ported yet ({BRANCHES_ITEM}: track)")
     check_slice(cfg, spec["static_mode"])
+    tracker = make_tracker(spec.get("tracker"), device=args.device)
     name = spec.get("dataset", "nvidia_eval")
     if args.dataset_family == "dycheck_iphone":
         name = "dycheck_iphone_eval"
     dataset = build_dataset(args, name, spec.get("dataset_args"))
     models = build_models_and_params(args, spec["static_mode"])
-    return _evaluate(args, models, cfg, dataset, spec["static_mode"], save_vis=True)
+    return _evaluate(args, models, cfg, dataset, spec["static_mode"], save_vis=True,
+                     tracker=tracker)
 
 
 def main(argv=None):

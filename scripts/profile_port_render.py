@@ -7,6 +7,9 @@
     python3 scripts/profile_port_render.py --bundle default # masked bundle (K2)
     python3 scripts/profile_port_render.py --bundle default --preset exact  # (K2 unfolded)
     python3 scripts/profile_port_render.py --fine 64        # + 64 fine samples (two passes)
+    python3 scripts/profile_port_render.py --bundle default --tracker lk   # the track branch
+    python3 scripts/profile_port_render.py \
+        --bundle st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir --tracker tapir
 
 Renders the 288x550, 10-source, 256-sample synthetic scene of
 ``chip_smoke.py`` once as a warm-up, times a second render with the host
@@ -15,7 +18,11 @@ clock (ending in a synchronise), then profiles a third with
 limit, the unprofiled seconds per view, the kernels with the most self
 device time, the sum of all kernel time, and the device busy time (the
 union of kernel intervals) against the profiled render's own wall clock,
-whose complement is the idle share of a view. Needs a CUDA device.
+whose complement is the idle share of a view. With ``--tracker`` the scene
+carries ±5 track frames and the render runs the track branch
+(``dyn_render_track_temporal="no_tgt"``) with that tracker
+(``configs.benchmarks.make_tracker``; TAPIR on seeded random weights
+without a checkpoint). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -55,6 +62,8 @@ def main() -> int:
                     "exact (the reference-faithful sampler)")
     ap.add_argument("--fine", type=int, default=0,
                     help="fine samples per ray (a second pass on the merged samples)")
+    ap.add_argument("--tracker", default=None, choices=("lk", "tapir", "tapir_raw_res"),
+                    help="run the track branch with this tracker (±5 track frames)")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
 
@@ -67,6 +76,7 @@ def main() -> int:
         print("profile_port_render: needs a CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
+    from pgdvs_tpu_torch.configs.benchmarks import make_tracker
     from pgdvs_tpu_torch.data.synthetic import make_contract_data
     from pgdvs_tpu_torch.renderers.compose import render_novel_view
     from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
@@ -79,13 +89,17 @@ def main() -> int:
     models = init_gnt_models(seed=chip_smoke.SEED)
     cfg = chip_smoke.slice_config(args.bundle, preset=args.preset,
                                   n_fine_samples_per_ray=args.fine)
-    data_np = make_contract_data(h=288, w=550, n_spatial=10, n_frames=12, tgt_time=0.5)
+    tracker = make_tracker(args.tracker, device="cuda")
+    if tracker is not None:
+        cfg = cfg.replace(dyn_render_track_temporal="no_tgt")
+    data_np = make_contract_data(h=288, w=550, n_spatial=10, n_frames=12, tgt_time=0.5,
+                                 k_track=chip_smoke.TRACK_K if tracker is not None else 0)
     data = {k: torch.as_tensor(v).cuda() for k, v in data_np.items()
             if isinstance(v, np.ndarray)}
 
     def render():
         gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-        render_novel_view(models, data, cfg, generator=gen)
+        render_novel_view(models, data, cfg, generator=gen, tracker=tracker)
         torch.cuda.synchronize()
 
     render()
@@ -109,11 +123,13 @@ def main() -> int:
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     total = sum(us for us, _n in by_name.values()) / 1e6
     label = (f"{args.bundle or 'unmasked'}, {args.preset} preset ({cfg.epipolar_mode} sampler, "
-             f"{cfg.n_coarse_samples_per_ray} + {args.fine} fine samples)")
+             f"{cfg.n_coarse_samples_per_ray} + {args.fine} fine samples"
+             + (f", tracker {args.tracker}" if tracker is not None else "") + ")")
     print(f"[profile] {label}: unprofiled render {wall:.4f} s; profiled render "
           f"{prof_wall:.4f} s; kernel time {total:.4f} s; device busy {busy:.4f} s "
           f"= {busy / prof_wall:.2%} of the profiled render's wall clock (idle "
           f"share {1 - busy / prof_wall:.2%})")
+    print(f"[profile] {len(kernels)} device events (kernels and copies)")
     for name, (us, n) in rows[:args.top]:
         print(f"[profile] {us / 1e3:10.1f} ms {us / 1e6 / total:6.1%} x{n:<6d} {name[:90]}")
     return 0

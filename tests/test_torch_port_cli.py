@@ -157,18 +157,16 @@ def _split_render_cfg(argv):
     return argv[:i] + argv[i + 2:], [argv[i + 1]]
 
 
-@pytest.mark.parametrize("case", sorted(CLI_RUNS))
-def test_branch_bundles_match_the_jax_cli(scene_root, ckpt, tmp_path, case):
-    """The refusals of the geo, mesh, point and st_cvd_dy_cvd cases before
-    the point-cloud slice, now runs of one item each: the port's outputs
-    (pickle, PNG, summary) and its summary means against the JAX CLI's on
-    the same scene. The JAX benchmark subcommand takes no --dataset-arg, so
-    the bundle's dataset arguments carry the tiny scene's there."""
+def _run_both_clis(root, ckpt, tmp_path, argv, gnt, jax_flags=()):
+    """``argv`` (a subcommand and its flags) through the port's CLI and the
+    JAX CLI over one item of the scene at ``root``; the port's outputs
+    checked, its summary means held against the JAX CLI's. The JAX
+    benchmark subcommand takes no --dataset-arg, so the bundle's dataset
+    arguments carry the tiny scene's there."""
     import pgdvs_tpu.configs.benchmarks as jbench
 
-    argv, render_cfg = _split_render_cfg(CLI_RUNS[case][0])
-    gnt = CLI_RUNS[case][1]
-    common = ["--data-root", str(scene_root), "--scene-ids", chip_smoke.READER_SCENE,
+    argv, render_cfg = _split_render_cfg(argv)
+    common = ["--data-root", str(root), "--scene-ids", chip_smoke.READER_SCENE,
               "--dataset-arg", f"tgt_height={H}", "n_src_views_spatial=2", "--max-items", "1",
               "--gnt-ckpt", str(ckpt)]
     knobs = ["n_coarse_samples_per_ray=8", "ray_tile=256", "st_render_pcl_pt_radius=0.1",
@@ -184,7 +182,7 @@ def test_branch_bundles_match_the_jax_cli(scene_root, ckpt, tmp_path, case):
             spec = jbench.BENCHMARK_TYPES[name]
             mp.setitem(jbench.BENCHMARK_TYPES, name, {**spec, "dataset_args": {
                 **spec.get("dataset_args", {}), "tgt_height": H, "n_src_views_spatial": 2}})
-        jcli.main([*argv, *common, "--gnt-dtype", "float32", "--out-dir", str(out_j),
+        jcli.main([*argv, *common, *jax_flags, "--gnt-dtype", "float32", "--out-dir", str(out_j),
                    "--render-cfg", *knobs, "use_pallas_gnt=false", "knn_tile=256"])
     res_j = json.loads((out_j / "summary.json").read_text())
     assert res_t["count"] == res_j["count"] == 1
@@ -192,6 +190,147 @@ def test_branch_bundles_match_the_jax_cli(scene_root, ckpt, tmp_path, case):
     for key, v in res_j["mean"].items():
         if key != "render_wall_s":
             np.testing.assert_allclose(res_t["mean"][key], v, **CLI_TOL[gnt], err_msg=key)
+
+
+@pytest.mark.parametrize("case", sorted(CLI_RUNS))
+def test_branch_bundles_match_the_jax_cli(scene_root, ckpt, tmp_path, case):
+    """The refusals of the geo, mesh, point and st_cvd_dy_cvd cases before
+    the point-cloud slice, now runs of one item each: the port's outputs
+    (pickle, PNG, summary) and its summary means against the JAX CLI's on
+    the same scene."""
+    _run_both_clis(scene_root, ckpt, tmp_path, *CLI_RUNS[case])
+
+
+TRACK_BUNDLES = ("st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir",
+                 "st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir_raw_res")
+# a TAPIR small enough for the CPU: 2 mixer blocks 16 wide, one PIPs
+# iteration, the 256x256 working size of the "tapir" bundle cut to 32x32
+TAPIR_KW = dict(num_pips_iter=1, num_mixer_blocks=2, mixer_hidden_dim=16)
+TAPIR_RES = (32, 32)
+JAX_CHUNK = 256
+
+
+def _small_haiku_ckpt(hid=TAPIR_KW["mixer_hidden_dim"], blocks=TAPIR_KW["num_mixer_blocks"]):
+    """A haiku TAPIR checkpoint in the released layout (tests/test_tapir.py
+    builds the full-size one), mixer ``blocks`` deep and ``hid`` wide, its
+    kernels normal with variance 1 / fan_in, norm scales 1 and offsets 0."""
+    rng = np.random.default_rng(0)
+    ckpt = {}
+
+    def conv(path, shape, bias=False, depthwise=False):
+        fan_in = shape[0] if depthwise else int(np.prod(shape[:-1]))
+        ckpt[path] = {"w": (rng.normal(size=shape) / np.sqrt(fan_in)).astype(np.float32)}
+        if bias:
+            ckpt[path]["b"] = np.zeros(shape[-1] * (shape[1] if depthwise else 1), np.float32)
+
+    def norm(path, c, offset=True):
+        ckpt[path] = {"scale": np.ones(c, np.float32)}
+        if offset:
+            ckpt[path]["offset"] = np.zeros(c, np.float32)
+
+    conv("tapir/~/resnet/~/initial_conv", (7, 7, 3, 64))
+    cin = 64
+    for g, ch in enumerate((64, 128, 256, 256)):
+        for b in range(2):
+            base = f"tapir/~/resnet/~/block_group_{g}/~/block_{b}"
+            c0 = cin if b == 0 else ch
+            norm(f"{base}/~/instancenorm_0", c0)
+            conv(f"{base}/~/conv_0", (3, 3, c0, ch))
+            norm(f"{base}/~/instancenorm_1", ch)
+            conv(f"{base}/~/conv_1", (3, 3, ch, ch))
+            if b == 0:
+                conv(f"{base}/~/shortcut_conv", (1, 1, c0, ch))
+        cin = ch
+    conv("tapir/~/cost_volume_regression_1", (3, 3, 1, 16), bias=True)
+    conv("tapir/~/cost_volume_regression_2", (3, 3, 16, 1), bias=True)
+    conv("tapir/~/cost_volume_occlusion_1", (3, 3, 16, 32), bias=True)
+    conv("tapir/~/cost_volume_occlusion_2", (32, 16), bias=True)
+    conv("tapir/~/occlusion_out", (16, 2), bias=True)
+    conv("tapir/~/pips_mlp_mixer/linear", (4 + 384 + 98, hid), bias=True)
+    for i in range(blocks):
+        base = f"tapir/~/pips_mlp_mixer/{'block' if i == 0 else f'block_{i}'}"
+        norm(f"{base}/layer_norm", hid, offset=False)
+        conv(f"{base}/mlp1_up", (3, hid, 4), bias=True, depthwise=True)
+        conv(f"{base}/mlp1_up_1", (3, hid * 4, 1), bias=True, depthwise=True)
+        norm(f"{base}/layer_norm_1", hid, offset=False)
+        conv(f"{base}/mlp2_up", (hid, hid * 4), bias=True)
+        conv(f"{base}/mlp2_down", (hid * 4, hid), bias=True)
+    norm("tapir/~/pips_mlp_mixer/layer_norm", hid, offset=False)
+    conv("tapir/~/pips_mlp_mixer/linear_1", (hid, 388), bias=True)
+    return ckpt
+
+
+@pytest.fixture(scope="module")
+def track_scene(tmp_path_factory):
+    """An 8-frame scene: the first item's target frame 0 has five real
+    backward track frames (the reader's default of five per side)."""
+    root = tmp_path_factory.mktemp("cli_track_scene")
+    chip_smoke.write_reader_scene(root, raw_hw=(H, W), eval_hw=(H, W), n_frames=8, items=(),
+                                  flow_frames=((0, 8),))
+    return root
+
+
+@pytest.mark.parametrize("bundle", TRACK_BUNDLES)
+def test_track_bundles_match_the_jax_cli(track_scene, ckpt, tmp_path, monkeypatch, bundle):
+    """The refusal of the tapir bundle before the track slice, now a run of
+    each tapir bundle (the exact preset, one item) against the JAX CLI: each
+    CLI's ``make_tracker`` is handed the small TAPIR above, both loaded from
+    one haiku checkpoint by their own loaders, so the CLIs' wiring (tracker
+    built on --device and passed through the Evaluator to every render) is
+    what is compared; JAX's tracks its query slots in chunks, on one of
+    the tests' eight host devices (a mesh of eight would render eight
+    copies). The port's tracker saw valid queries."""
+    import pgdvs_tpu.configs.benchmarks as jbench
+    import pgdvs_tpu.models.tracking.tapir as jtapir
+    import pgdvs_tpu_torch.configs.benchmarks as tbench
+    import pgdvs_tpu_torch.models.tracking.tapir as ttapir
+    from pgdvs_tpu.models.tracking.tapir_port import remap_haiku_params as j_remap
+    from pgdvs_tpu_torch.models.tracking.tapir_port import remap_haiku_params
+    from test_torch_port_lk import one_thread
+
+    ckpt_tapir = _small_haiku_ckpt()
+    j_params = {"params": j_remap(ckpt_tapir)}
+    model = ttapir.Tapir(**TAPIR_KW)
+    model.load_state_dict(remap_haiku_params(ckpt_tapir))
+    seen = []
+
+    def port_tracker(name, device=None):
+        tracker = ttapir.TapirTracker(model.eval(), keep_raw_res=name.endswith("raw_res"))
+
+        def track(frames, queries, query_valid=None):
+            seen.append(queries.shape[0])
+            return tracker(frames, queries, query_valid)
+
+        return track
+
+    def jax_tracker(name):
+        """JAX's TapirTracker over chunks of JAX_CHUNK query slots
+        (``lax.map``): its one call over all 12 * 24 * 32 slots takes
+        tens of GB."""
+        import jax
+
+        tracker = jtapir.TapirTracker(params=j_params, model=jtapir.Tapir(**TAPIR_KW),
+                                      keep_raw_res=name.endswith("raw_res"))
+
+        def track(frames, queries, query_valid):
+            n = queries.shape[0]
+            assert n % JAX_CHUNK == 0
+            tracks, vis = jax.lax.map(
+                lambda qv: tracker(frames, qv[0], qv[1]),
+                (queries.reshape(-1, JAX_CHUNK, 3), query_valid.reshape(-1, JAX_CHUNK)))
+            return tracks.reshape(n, -1, 2), vis.reshape(n, -1)
+
+        return track
+
+    monkeypatch.setattr(jtapir, "INITIAL_RES", TAPIR_RES)
+    monkeypatch.setattr(ttapir, "INITIAL_RES", TAPIR_RES)
+    monkeypatch.setattr(jbench, "make_tracker", jax_tracker)
+    monkeypatch.setattr(tbench, "make_tracker", port_tracker)
+    with one_thread():
+        _run_both_clis(track_scene, ckpt, tmp_path,
+                       ["benchmark", "--benchmark-type", bundle, "--perf-preset", "exact"],
+                       True, jax_flags=["--devices", "1"])
+    assert seen and seen[0] > 0
 
 
 @pytest.mark.parametrize("field", ["bogus=1", "knn_tile=256"])
@@ -206,17 +345,19 @@ def test_unknown_render_cfg_field_exits(field):
     (["eval", "--dataset", "nvidia_vis"], ValueError, "ROADMAP.md"),
     (["eval", "--render-cfg", "dyn_render_type=splat"], ValueError, "dyn_render_type"),
     (["eval", "--static-mode", "geo"], ValueError, "nvidia_eval_pure_geo"),
-    (["benchmark", "--benchmark-type", "st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir"],
+    (["benchmark", "--benchmark-type", "st_gnt_masked_attn_dy_cvd_pcl_clean_track_cotracker"],
      ValueError, "ROADMAP.md.*track"),
     (["benchmark", "--benchmark-type", "visualize_nvidia_max_disp_32"], ValueError,
      "ROADMAP.md.*visualization"),
-    (["benchmark", "--render-cfg", "dyn_render_track_temporal=no_tgt"], ValueError,
+    (["benchmark", "--render-cfg", "dyn_render_track_temporal=always"], ValueError,
      "dyn_render_track_temporal"),
     (["benchmark", "--dataset-family", "dycheck_iphone"], ValueError, "dycheck_iphone_eval"),
     (["benchmark", "--render-cfg", "bogus=2"], SystemExit, "unknown render_cfg field"),
 ])
 def test_out_of_port_bundles_raise(tmp_path, extra, exc, match):
-    """What the port does not carry, and what is not a mode at all."""
+    """What the port does not carry (the CoTracker bundle, since the track
+    branch landed; the tapir bundles run below), and what is not a mode at
+    all."""
     with pytest.raises(exc, match=match):
         trun.main([*extra, "--device", "cpu", "--data-root", str(tmp_path)])
 

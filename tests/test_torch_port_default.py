@@ -141,21 +141,35 @@ def test_default_outlier_removal_drops_points(both):
     assert 0.5 * cand < kept < cand
 
 
-def test_masked_bundles_refuse_what_stays_outside():
-    """The track bundle, an unknown static mode and a contract without the
-    dynamic masks raise; the point and mesh bundles render (below)."""
+def test_masked_bundles_refuse_what_stays_outside(both):
+    """An unknown track mode, an unknown static mode and a contract without
+    the dynamic masks raise; the point and mesh bundles render (below). The
+    track bundle renders too: given no tracker it skips the branch, as
+    JAX's renderer does, so it is this view's `default` render, held
+    against JAX's (with LK it is held in tests/test_torch_port_track.py)."""
     data = make_contract_data(h=8, w=8, n_spatial=2, n_frames=3)
     models = init_gnt_models(device="cpu")
     base = resolve_benchmark("default")[0].replace(n_coarse_samples_per_ray=4)
-    cfg = resolve_benchmark("st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir")[0].replace(
-        n_coarse_samples_per_ray=4)
-    with pytest.raises(ValueError, match="outside the ported slice"):
-        render_novel_view(models, _tdata(data), cfg)
+    with pytest.raises(ValueError, match="dyn_render_track_temporal"):
+        render_novel_view(models, _tdata(data), base.replace(dyn_render_track_temporal="always"))
     with pytest.raises(ValueError, match="static_mode"):
         render_novel_view(models, _tdata(data), base, static_mode="mesh")
     no_masks = {k: v for k, v in _tdata(data).items() if k != "dyn_mask_src_spatial"}
     with pytest.raises(ValueError, match="dynamic masks"):
         render_novel_view(models, no_masks, base)
+    cfg = resolve_benchmark("st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir")[0].replace(
+        n_coarse_samples_per_ray=S, ray_tile=256)
+    assert cfg.dyn_render_track_temporal == "no_tgt"
+    noise = np.array(jax.random.normal(jax.random.PRNGKey(1),
+                                       both["data"]["rgb_src_temporal"][0].shape, jnp.float32))
+    got = render_novel_view(both["models"], _tdata(both["data"]), cfg,
+                            noise=torch.from_numpy(noise))
+    ref = both["ref"]
+    assert sorted(got) == sorted(ref)
+    for key in ("combined_rgb", "static_coarse_rgb"):
+        np.testing.assert_allclose(got[key].numpy(), ref[key], atol=TOL["rgb"], err_msg=key)
+    for key in ("render_dyn_rgb", "render_dyn_mask", "render_dyn_temporal_track_mask"):
+        np.testing.assert_allclose(got[key].numpy(), ref[key], atol=1e-4, err_msg=key)
 
 
 @pytest.mark.parametrize("bundle,kind", [

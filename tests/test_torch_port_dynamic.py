@@ -66,10 +66,23 @@ def test_render_dynamic_matches(data):
 
 
 def test_render_dynamic_refuses_other_branches(data):
-    """The track branch and an unknown dyn_render_type raise (pcl and mesh
-    render since the point-cloud slice: tests/test_torch_port_geo.py)."""
+    """An unknown dyn_render_type raises (pcl and mesh render since the
+    point-cloud slice: tests/test_torch_port_geo.py). The track mode renders
+    since the track slice (with a tracker: tests/test_torch_port_track.py);
+    without one it skips the branch, as JAX's does: the same layer as JAX's,
+    the track layer empty."""
     tdata = {k: _t(v) for k, v in data.items() if isinstance(v, np.ndarray)}
-    for cfg in (RenderConfig(dyn_render_type="splat"),
-                RenderConfig(dyn_render_track_temporal="no_tgt")):
-        with pytest.raises(ValueError):
-            render_dynamic(tdata, cfg, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError):
+        render_dynamic(tdata, RenderConfig(dyn_render_type="splat"),
+                       generator=torch.Generator().manual_seed(0))
+    key = jax.random.PRNGKey(0)
+    noise = np.asarray(jax.random.normal(key, data["rgb_src_temporal"][0].shape, jnp.float32))
+    got = render_dynamic(tdata, RenderConfig(dyn_render_track_temporal="no_tgt"),
+                         noise=_t(noise))
+    jdata = {k: v for k, v in data.items() if k != "misc"}
+    ref = j_render_dynamic(jdata, JRenderConfig(dyn_render_track_temporal="no_tgt"), key)
+    for k in ("rgb", "mask", "temporal_track_rgb", "temporal_track_mask"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=ATOL, err_msg=k)
+    assert not got["temporal_track_mask"].any()
+    np.testing.assert_allclose(float(got["pcl"]["nn_dist_thres"]),
+                               float(ref["pcl"]["nn_dist_thres"]), rtol=1e-5)

@@ -215,21 +215,22 @@ def scene(tmp_path_factory):
     return NvidiaEvalDataset(root, **kw), JNvidiaEvalDataset(root, **kw)
 
 
-def _port_evaluator(engines, out_dir=None, renders=None, static_mode="gnt"):
+def _port_evaluator(engines, out_dir=None, renders=None, static_mode="gnt", tracker=None):
     """The port's Evaluator; its renders take the JAX item's noise (drawn
     from PRNGKey(seed), the seed read from the generator) and are kept in
     ``renders`` by item seed."""
     models, cfg = engines["t"]
     ev = tev.Evaluator(models, cfg, out_dir=out_dir, save_vis=True, static_mode=static_mode,
-                       device="cpu")
+                       device="cpu", tracker=tracker)
     real = tev.render_novel_view
 
-    def render(models, data, cfg, generator=None, static_mode="gnt"):
+    def render(models, data, cfg, generator=None, static_mode="gnt", tracker=None):
         seed = generator.initial_seed()
         noise = np.array(jax.random.normal(jax.random.PRNGKey(seed),
                                            tuple(data["rgb_src_temporal"][0].shape),
                                            jnp.float32))
-        out = real(models, data, cfg, static_mode=static_mode, noise=torch.from_numpy(noise))
+        out = real(models, data, cfg, static_mode=static_mode, noise=torch.from_numpy(noise),
+                   tracker=tracker)
         if renders is not None:
             renders[seed] = {k: v.numpy() for k, v in out.items()}
         return out
@@ -351,16 +352,76 @@ def test_nan_guard_zero_fills_as_jax(engines, scene):
     assert all(np.isfinite(v) for v in got.metrics.values())
 
 
-def test_evaluator_refuses_what_stays_outside(engines):
-    """The track branch and an unknown static mode raise; the GNT's static
-    mode needs models (the geo mode runs without: below)."""
+def test_evaluator_refuses_what_stays_outside(engines, track_runs):
+    """An unknown track mode and an unknown static mode raise; the GNT's
+    static mode needs models (the geo mode runs without: below). The track
+    mode the port carries runs: the Evaluator with an LK tracker against
+    JAX's over one item of a 6-frame scene read with its track sources
+    (masks equal, the dynamic layer at 1e-4, the static layer at TOL)."""
     models, cfg = engines["t"]
     with pytest.raises(ValueError, match="static_mode"):
         tev.Evaluator(models, cfg, static_mode="mesh")
     with pytest.raises(ValueError, match="dyn_render_track_temporal"):
-        tev.Evaluator(models, cfg.replace(dyn_render_track_temporal="no_tgt"))
+        tev.Evaluator(models, cfg.replace(dyn_render_track_temporal="always"))
     with pytest.raises(ValueError, match="models needed"):
         tev.Evaluator(None, cfg, device="cpu")
+    (res_t, renders_t), (res_j, renders_j) = track_runs
+    assert res_t["count"] == res_j["count"] == 1
+    got, ref = renders_t[0], renders_j[0]
+    assert sorted(got) == sorted(ref)
+    assert ref["render_dyn_temporal_track_mask"].any()
+    for key in ("render_dyn_mask", "render_dyn_temporal_track_mask",
+                "render_dyn_temporal_closest_mask"):
+        np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+    for key in ("render_dyn_rgb", "render_dyn_temporal_track_rgb"):
+        np.testing.assert_allclose(got[key], ref[key], atol=1e-4, err_msg=key)
+    for key in ("combined_rgb", "static_coarse_rgb"):
+        np.testing.assert_allclose(got[key], ref[key], atol=TOL["rgb"], err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def track_runs(engines, tmp_path_factory):
+    """`default` on the exact preset with the track branch on (points of
+    0.1 NDC, 1.2 pixels here) and an LK tracker: the port's Evaluator and
+    JAX's (its float32 flax network, ``use_pallas_gnt=False``), each on its
+    own reader (``with_track_sources``, two track frames a side) of one
+    6-frame scene, one item (target frame 0: two real backward track
+    frames)."""
+    from pgdvs_tpu.models.tracking import LucasKanadeTracker as JLucasKanadeTracker
+    from pgdvs_tpu.renderers.static_gnt import make_gnt_models as j_make_gnt_models
+    from pgdvs_tpu_torch.models.tracking import LucasKanadeTracker
+    from test_torch_port_lk import one_thread
+
+    root = tmp_path_factory.mktemp("track_scene")
+    chip_smoke.write_reader_scene(root, raw_hw=(H, W), eval_hw=(H, W), n_frames=6, items=(),
+                                  flow_frames=((0, 6),))
+    kw = dict(scene_ids=[chip_smoke.READER_SCENE], tgt_height=H, n_src_views_spatial=2,
+              with_track_sources=True, n_src_views_temporal_track_one_side=2)
+    over = dict(n_coarse_samples_per_ray=S, ray_tile=256, dyn_render_track_temporal="no_tgt",
+                dyn_render_pcl_pt_radius=0.1)
+    models, _ = engines["t"]
+    renders_t, renders_j = {}, {}
+    ev, render = _port_evaluator(
+        {"t": (models, resolve_benchmark("default", "exact")[0].replace(**over))},
+        renders=renders_t, tracker=LucasKanadeTracker())
+    with pytest.MonkeyPatch.context() as mp, one_thread():
+        mp.setattr(tev, "render_novel_view", render)
+        res_t = ev.run(NvidiaEvalDataset(root, **kw), max_items=1)
+    _, params, _ = engines["j"]
+    cfg_j = j_resolve_benchmark("default", "exact")[0].replace(
+        **over, use_pallas_gnt=False, knn_tile=256)
+    jev_ = jev.Evaluator(j_make_gnt_models(dtype="float32"), params, cfg_j,
+                         tracker=JLucasKanadeTracker())
+    real = jev_._render
+
+    def keep(p, data, key):
+        out = real(p, data, key)
+        renders_j[len(renders_j)] = jax.tree_util.tree_map(np.asarray, out)
+        return out
+
+    jev_._render = keep
+    res_j = jev_.run(JNvidiaEvalDataset(root, **kw), max_items=1)
+    return (res_t, renders_t), (res_j, renders_j)
 
 
 GEO_BUNDLE = "st_cvd_dy_cvd"

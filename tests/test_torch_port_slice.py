@@ -69,7 +69,8 @@ def both():
         epipolar_mode="quad")
     got = render_novel_view((fnet, gnt), tdata, cfg,
                             noise=torch.from_numpy(noise))
-    return {"ref": ref, "got": got, "mono4_calls": len(calls)}
+    return {"ref": ref, "got": got, "mono4_calls": len(calls), "models": (fnet, gnt),
+            "tdata": tdata, "cfg": cfg, "noise": torch.from_numpy(noise)}
 
 
 def test_jax_side_took_mono4(both):
@@ -106,8 +107,12 @@ def test_slice_oob_mask(both):
 
 
 def test_slice_refuses_configs_outside_it(both):
-    """The track branch and unknown modes raise (the geo static mode and
-    the pcl / mesh dynamic layers render: tests/test_torch_port_geo.py)."""
+    """Unknown modes raise, an unknown track mode among them (the geo static
+    mode and the pcl / mesh dynamic layers render:
+    tests/test_torch_port_geo.py; the track branch with a tracker:
+    tests/test_torch_port_track.py). The track mode the port carries,
+    "no_tgt", renders without a tracker as JAX's renderer does, skipping
+    the branch: the same dynamic layer as JAX's render of this view."""
     data = make_contract_data(h=8, w=8, n_spatial=2, n_frames=3)
     tdata = {k: torch.from_numpy(np.array(v)) for k, v in data.items()
              if isinstance(v, np.ndarray)}
@@ -116,7 +121,12 @@ def test_slice_refuses_configs_outside_it(both):
     for cfg, mode in ((base.replace(dyn_render_type="splat"), "gnt"),
                       (base, "mesh"),
                       (base.replace(dyn_render_type="pcl"), "point"),
-                      (base.replace(dyn_render_track_temporal="no_tgt"), "gnt"),
+                      (base.replace(dyn_render_track_temporal="always"), "gnt"),
                       (base.replace(epipolar_mode="quad_u4"), "gnt")):
         with pytest.raises(ValueError):
             render_novel_view(models, tdata, cfg, static_mode=mode)
+    no_tgt = both["cfg"].replace(dyn_render_track_temporal="no_tgt")
+    got = render_novel_view(both["models"], both["tdata"], no_tgt, noise=both["noise"])
+    for key in ("render_dyn_rgb", "render_dyn_mask", "render_dyn_temporal_track_mask"):
+        np.testing.assert_allclose(got[key].numpy(), both["ref"][key], atol=1e-4, err_msg=key)
+    assert not got["render_dyn_temporal_track_mask"].any()
