@@ -129,11 +129,30 @@ exits non-zero without printing a result:
      rasterizer's ms); the branch at 48x64 held against the CPU;
   16. ``[track-tapir]``: TapirTracker on the card against the CPU on a
      small clip (grids, heads, tracks, visibility), chunked tracking against
-     one call, then both tapir bundles at 288x550 as [track-lk], with the
-     peak memory.
+     one call, then both tapir bundles at 288x550 as [track-lk] (the
+     ``_raw_res`` one on ±2 track frames since PR 15), with the peak memory;
+  17. ``[vis]`` (in [eval]'s directory): [reader]'s scene written anew with
+     flows at its 576x1100 frame size, through ``run benchmark
+     --benchmark-type visualize_nvidia_max_disp_32`` in-process, the
+     400-frame trajectory cut to 8 frames by ``--dataset-arg``: K2 masked
+     once per 2048-ray tile of each 576x1100 frame, each PNG the frame's
+     render truncated, frame 0's static layer held against the CPU on a
+     crop, s/frame, host ms per item, the video written or skipped;
+  18. ``[mono-vis]``: a DAVIS-layout scene at 480x854 (``write_mono_scene``,
+     12 frames) through ``run vis --dataset mono_vis`` for 4 frames on the
+     fast preset (K1 patch_rows), checked as [vis];
+  19. ``[dycheck]``: a synthetic iPhone capture (``write_iphone_capture``,
+     360x480, 24 train frames, one val frame at a train time and one
+     between two) through ``run benchmark --benchmark-type default
+     --dataset-family dycheck_iphone`` on the fast preset (K2 masked) and on
+     exact (K2 unfolded), 10 KMeans-clustered spatial sources and per-pixel
+     depth ranges: each pickle equal to the covisible metrics recomputed on
+     the CPU, a crop held against the CPU, the spatial indices chosen, host
+     ms per item and of the KMeans refit, s/item.
 
 The second-to-last line is a JSON object describing each kernel (its times,
-its launches on its path and its bound on the card); the last line is
+its launches on its path, its launches per frame / item on phases 17-19 and
+its bound on the card); the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device: without one it exits
 non-zero before doing anything. Imports nothing of JAX.
 """
@@ -1062,7 +1081,8 @@ def _sampling_setup(models, data, cfg):
 def crop_on_cpu(models, data, cfg, rows, cols, keys=SLICE_TOL):
     """Static layer for a crop of the render's pixels (render coordinates,
     so every stride-th target pixel), rendered by the plain path on the CPU
-    from the same sampling maps the card built; outputs ``keys``. On patch
+    from the same sampling maps the card built, with the scalar or the
+    per-pixel depth range of ``data``; outputs ``keys``. On patch
     the crop's rays go in the image's ray blocks (``rows`` and ``cols``
     aligned to the block) and come back in image order."""
     import copy
@@ -1086,14 +1106,34 @@ def crop_on_cpu(models, data, cfg, rows, cols, keys=SLICE_TOL):
         perm, inv = patch_ray_perm(idx.numel(), *shape, by, bx)
         idx = idx[perm]
     idx = idx.to(rays_o.device)
+    dr = data["depth_range"]
+    if dr.dim() == 1:
+        dr = dr.expand(idx.numel(), 2)
+    else:  # per pixel (DyCheck): the crop's rays' own ranges
+        dr = dr[::cfg.render_stride, ::cfg.render_stride].reshape(-1, 2)[idx]
     with torch.no_grad():
         out = render_rays_gnt(
             copy.deepcopy(models[1]).cpu(), rays_o[idx].cpu(), rays_d[idx].cpu(),
-            data["depth_range"].expand(idx.numel(), 2).cpu(), tgt.cpu(),
-            data["flat_cam_src_spatial"].cpu(), maps, cfg)
+            dr.cpu(), tgt.cpu(), data["flat_cam_src_spatial"].cpu(), maps, cfg)
     if inv is not None:
         out = {k: v[inv] for k, v in out.items()}
     return {k: out[k].reshape(shape + out[k].shape[1:]) for k in keys}
+
+
+def check_crop(tag, models, data, cfg, layer, rows, cols, tol=SLICE_TOL):
+    """A render's static layer (``layer``: its ``static_coarse_*`` maps) on
+    ``rows`` x ``cols`` against the plain path on the CPU (``crop_on_cpu``)
+    at ``tol``, the dyn count only with the dyn mask; the errors as text."""
+    crop = crop_on_cpu(models, data, cfg, rows, cols, keys=tol)
+    errs = {}
+    for key, bound in tol.items():
+        if key == "dyn_cnt" and not cfg.gnt_use_dyn_mask:
+            continue
+        a = layer[f"static_coarse_{key}"][rows[0]:rows[1], cols[0]:cols[1]].float().cpu()
+        errs[key] = float((a - crop[key]).abs().max())
+        if not errs[key] <= bound:
+            raise AssertionError(f"{tag} crop {key}: max err {errs[key]} over {bound}")
+    return " ".join(f"{k}={v:.3e}" for k, v in errs.items())
 
 
 def clamp_fraction(models, data, cfg, fine=False):
@@ -1289,17 +1329,8 @@ def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
         log(f"{tag} dynamic layer resized from {h}x{w} to {shapes} (cubic rgb, nearest "
             f"mask); mask covers {float(out['render_dyn_mask'].mean()):.4f} of the render")
 
-    crop = crop_on_cpu(models, data, cfg, rows, cols, keys=tol)
-    errs = {}
-    for key, bound in tol.items():
-        if key == "dyn_cnt" and not cfg.gnt_use_dyn_mask:
-            continue
-        a = out[f"static_coarse_{key}"][rows[0]:rows[1], cols[0]:cols[1]].float().cpu()
-        errs[key] = float((a - crop[key]).abs().max())
-        if not errs[key] <= bound:
-            raise AssertionError(f"{tag} crop {key}: max err {errs[key]} over {bound}")
     log(f"{tag} crop rows {rows} cols {cols} vs plain path on CPU: "
-        + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+        + check_crop(tag, models, data, cfg, out, rows, cols, tol))
     if resolved.epipolar_mode == "patch":
         frac, clamped, reach = clamp_fraction(models, data, cfg)
         log(f"{tag} patch_clamp_fraction {frac:.6e} ({clamped} of {reach} in-reach taps "
@@ -1656,6 +1687,101 @@ def write_reader_scene(root, raw_hw=READER_RAW_HW, eval_hw=READER_EVAL_HW,
     return psnrs
 
 
+IPHONE_SCENE = "paper-windmill"
+IPHONE_HW = (360, 480)       # the factor-2 (processed) size of the iPhone captures
+IPHONE_TRAIN = 24
+IPHONE_GAP = 11              # the time missing from the train video
+IPHONE_CENTER = (0.1, -0.05, 0.2)
+IPHONE_SCALE = 0.8
+
+
+def write_iphone_capture(root, hw=IPHONE_HW, n_train=IPHONE_TRAIN, gap=IPHONE_GAP,
+                         factor=2, seed=SEED):
+    """Write the synthetic scene under ``root`` as a DyCheck iPhone capture
+    (``<root>/raw/<IPHONE_SCENE>``, the layout ``DyCheckIPhoneEvalDataset``
+    reads), through the port's ``write_png`` only: the train video is camera
+    0 on the synthetic arc at times 0..n_train except ``gap``; the val frames
+    are camera 1 (the arc shifted by 0.05 along x) at times gap - 1 (a train
+    time: one temporal source) and gap (between two train times). Per frame:
+    RGBA at ``hw`` (the factor-``factor`` size), the z-depth .npy in the
+    capture's units, the camera json at full resolution, its position and
+    the depths in the world that ``scene.json``'s centre and scale
+    normalize back to the synthetic one; per train frame its 1-bit dynamic
+    mask under ``<root>/masks``; per val frame a covisible mask (its left
+    eighth not covisible); forward and backward flows under ``<root>/flows``
+    between the train frames either side of the gap, with a coord_diff from
+    ``seed`` that marks ~6 % of the pixels occluded. Returns the scene's
+    directory."""
+    import json
+
+    import numpy as np
+
+    from pgdvs_tpu_torch.data import synthetic
+    from pgdvs_tpu_torch.data.image_io import write_png
+
+    h, w = hw
+    scene = root / "raw" / IPHONE_SCENE
+    masks = root / "masks" / IPHONE_SCENE / "masks/final"
+    flows = root / "flows" / IPHONE_SCENE / "flows/interval_1"
+    for d in (scene / "splits", scene / "camera", scene / f"rgb/{factor}x",
+              scene / f"depth/{factor}x", scene / f"covisible/{factor}x/val", masks, flows):
+        d.mkdir(parents=True, exist_ok=True)
+    times = [t for t in range(n_train + 1) if t != gap]
+    train = [(t, 0) for t in times]
+    val = [(gap - 1, 1), (gap, 1)]
+    names = {f: f"{f[1]}_{f[0]:05d}" for f in train + val}
+    center, scale = np.asarray(IPHONE_CENTER), IPHONE_SCALE
+    k = synthetic.intrinsics(h, w)
+
+    def pose(t, cam):
+        c2w = synthetic.camera_pose(t, n_train + 1)
+        c2w[:2, 3] += np.array([0.05, 0.02]) * cam
+        return c2w
+
+    def dump(path, obj):
+        path.write_text(json.dumps(obj))
+
+    dump(scene / "scene.json", {"center": list(center), "scale": scale, "near": 0.5,
+                                "far": 20.0})
+    dump(scene / "dataset.json", {"count": len(names), "ids": list(names.values())})
+    dump(scene / "metadata.json", {n: {"warp_id": t, "camera_id": c, "appearance_id": t}
+                                   for (t, c), n in names.items()})
+    dump(scene / "extra.json", {"factor": factor, "fps": 30})
+    for split, frames in (("train", train), ("val", val)):
+        dump(scene / "splits" / f"{split}.json", {
+            "frame_names": [names[f] for f in frames], "time_ids": [t for t, _ in frames],
+            "camera_ids": [c for _, c in frames]})
+    rendered = {}
+    for (t, cam), name in names.items():
+        c2w = pose(t, cam)
+        fr = synthetic.render_frame(h, w, c2w, t / n_train)
+        rendered[(t, cam)] = (fr, c2w)
+        dump(scene / "camera" / f"{name}.json", {
+            "orientation": np.eye(3).tolist(),
+            "position": list(c2w[:3, 3] / scale + center),
+            "focal_length": float(k[0, 0]) * factor,
+            "principal_point": [float(k[0, 2]) * factor, float(k[1, 2]) * factor],
+            "image_size": [w * factor, h * factor], "skew": 0.0, "pixel_aspect_ratio": 1.0})
+        rgb = (fr["rgb"] * 255).astype(np.uint8)
+        write_png(scene / f"rgb/{factor}x" / f"{name}.png",
+                  np.concatenate([rgb, np.full((h, w, 1), 255, np.uint8)], -1))
+        np.save(scene / f"depth/{factor}x" / f"{name}.npy",
+                (fr["depth"] / scale).astype(np.float32))
+        if cam == 0:
+            write_png(masks / f"{name}_final.png", fr["dyn_mask"][..., 0] > 0)
+        else:
+            covis = np.full((h, w), 255, np.uint8)
+            covis[:, :w // 8] = 0
+            write_png(scene / f"covisible/{factor}x/val" / f"{name}.png", covis)
+    rng = np.random.default_rng(seed)
+    for a, b in (((gap - 1, 0), (gap + 1, 0)), ((gap + 1, 0), (gap - 1, 0))):
+        (fa, ca), (_fb, cb) = rendered[a], rendered[b]
+        flow = synthetic.flow_between(h, w, fa, ca, a[0] / n_train, cb, b[0] / n_train)
+        np.savez(flows / f"{names[a]}_{names[b]}.npz", flow=flow,
+                 coord_diff=rng.uniform(0, 0.6, (h, w, 2)).astype(np.float32))
+    return scene
+
+
 class StageTimer:
     """Host seconds spent in named functions while the context is open:
     each (object, attribute, stage) of ``targets`` is wrapped and its time
@@ -1922,20 +2048,23 @@ def _nonzero(launches):
     return {k: v for k, v in launches.items() if v}
 
 
-def _run_cli(argv, tag, n_items, want, device="cuda"):
-    """``python -m pgdvs_tpu_torch.run`` in-process with ``argv``: the
-    kernels' launch counts set to 0 just before each render of the
-    evaluator and read just after (each must equal ``want``), each render's
-    seconds and image kept, host seconds per scoring stage
-    (``EVAL_STAGES``) and of ``Evaluator.run``. Returns (result, [(render
-    s, image)], {stage: seconds})."""
+STATIC_KEYS = tuple(f"static_coarse_{k}" for k in SLICE_TOL)
+
+
+def _run_hooked(argv, tag, n_items, want, module, targets, device="cuda", keep=None):
+    """``python -m pgdvs_tpu_torch.run`` in-process with ``argv``, each render
+    of ``module`` (the evaluator's or the visualizer's ``render_novel_view``)
+    with the kernels' launch counts set to 0 just before and read just after
+    (each must equal ``want``); each render's seconds and image kept, and
+    render ``keep``'s static layer (``STATIC_KEYS``, on the host); host
+    seconds in each of ``targets`` (``StageTimer``). Returns (what the CLI
+    returned, [(render s, image)], {stage: seconds}, the kept layer)."""
     import torch
 
     from pgdvs_tpu_torch import run as cli
-    from pgdvs_tpu_torch.engines import evaluator as ev
 
-    renders = []
-    real = ev.render_novel_view
+    renders, kept = [], {}
+    real = module.render_novel_view
 
     def render(*args, **kwargs):
         reset_launches()
@@ -1945,25 +2074,41 @@ def _run_cli(argv, tag, n_items, want, device="cuda"):
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = read_launches()
-        if launches != want:
+        if device == "cuda" and launches != want:
             raise AssertionError(f"{tag} item {len(renders)}: launches {launches}, "
                                  f"expected {want}")
+        if len(renders) == keep:
+            kept.update({k: out[k].float().cpu() for k in STATIC_KEYS if k in out})
         renders.append((secs, out["combined_rgb"].float().cpu().numpy()))
         return out
 
-    targets = [(ev, "masked_psnr", "psnr"), (ev, "ssim_map", "ssim"),
-               (ev, "masked_map_mean", "ssim"), (ev, "lpips_on_host_arrays", "lpips"),
-               (ev.Evaluator, "_write_outputs", "writes"), (ev.Evaluator, "run", "loop")]
-    ev.render_novel_view = render
+    module.render_novel_view = render
     try:
         with StageTimer(targets) as timer:
             result = cli.main(argv)
     finally:
-        ev.render_novel_view = real
-    if len(renders) != n_items or result.get("count") != n_items:
-        raise AssertionError(f"{tag} {len(renders)} renders, count {result.get('count')}, "
-                             f"expected {n_items}")
-    return result, renders, dict(timer.seconds)
+        module.render_novel_view = real
+    if len(renders) != n_items:
+        raise AssertionError(f"{tag} {len(renders)} renders, expected {n_items}")
+    return result, renders, dict(timer.seconds), kept
+
+
+def _run_cli(argv, tag, n_items, want, device="cuda", extra_targets=(), keep=None):
+    """``_run_hooked`` on the evaluator: host seconds per scoring stage
+    (``EVAL_STAGES``), of ``Evaluator.run`` and of ``extra_targets``.
+    Returns (result, [(render s, image)], {stage: seconds}), and the kept
+    static layer when ``keep`` names a render."""
+    from pgdvs_tpu_torch.engines import evaluator as ev
+
+    targets = [(ev, "masked_psnr", "psnr"), (ev, "ssim_map", "ssim"),
+               (ev, "masked_map_mean", "ssim"), (ev, "lpips_on_host_arrays", "lpips"),
+               (ev.Evaluator, "_write_outputs", "writes"), (ev.Evaluator, "run", "loop"),
+               *extra_targets]
+    result, renders, stages, kept = _run_hooked(argv, tag, n_items, want, ev, targets,
+                                                device, keep)
+    if result.get("count") != n_items:
+        raise AssertionError(f"{tag} count {result.get('count')}, expected {n_items}")
+    return (result, renders, stages) if keep is None else (result, renders, stages, kept)
 
 
 def _check_eval_outputs(out, result, renders, items, lpips_cpu, tag):
@@ -2449,6 +2594,10 @@ def phase_point_mesh(models, smi, device="cuda", h=288, w=550, n_samples=256,
 # ------------------------------------------------- the track branch
 
 TRACK_K = 5                 # ±5 track frames: T = 12 slots
+# the _raw_res bundle's run of [track-tapir] on ±2 track frames (T = 6): its
+# TAPIR at the frames' size took ~160 s of the script on ±5, which with
+# the vis and DyCheck phases pushed it past 1050 s of its 1200
+TRACK_K_RAW_RES = 2
 TRACK_BUNDLES = ("st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir",
                  "st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir_raw_res")
 TRACK_EVAL_ITEMS = 2
@@ -2653,8 +2802,9 @@ def phase_track_tapir(models, smi, h=288, w=550, n_samples=256):
     card against the CPU on a small clip (T = 4, 64x64, 64 queries): the
     grids, the cost-volume heads, the tracks, the visibility; chunked
     tracking against one call on 4096 queries; then each of TRACK_BUNDLES at
-    288x550 (10 sources, 256 samples, ±5 track frames, every dynamic pixel
-    of the real track frames a query) through ``phase_main_path`` (78 K2
+    288x550 (10 sources, 256 samples, ±5 track frames, the ``_raw_res``
+    bundle ±2 (TRACK_K_RAW_RES), every dynamic pixel of the real track
+    frames a query) through ``phase_main_path`` (78 K2
     launches, the static crop against the CPU, s/view after a warm-up, peak
     memory) and ``track_breakdown``."""
     import copy
@@ -2720,11 +2870,12 @@ def phase_track_tapir(models, smi, h=288, w=550, n_samples=256):
         + ", ".join(f"{float(e.max()):.2e}" for e in errs)
         + f" (tracks, occlusion, expected distance); share over {TAPIR_CHUNK_TOL}: {flips:.5f}")
     del g_card, g_cpu, one, chunked, errs, cpu_tracker
-    data = _track_contract(h, w, TRACK_K, "cuda")
     for bundle in TRACK_BUNDLES:
-        btag = f"{tag}[{'raw_res' if bundle.endswith('raw_res') else '256'}]"
-        rec = RecordingTracker(make_tracker(
-            "tapir_raw_res" if bundle.endswith("raw_res") else "tapir", device="cuda"))
+        raw_res = bundle.endswith("raw_res")
+        btag = f"{tag}[{'raw_res' if raw_res else '256'}]"
+        data = _track_contract(h, w, TRACK_K_RAW_RES if raw_res else TRACK_K, "cuda")
+        rec = RecordingTracker(make_tracker("tapir_raw_res" if raw_res else "tapir",
+                                            device="cuda"))
         launches, secs, out = phase_main_path(models, bundle=bundle, data=data, tag=btag,
                                               n_samples=n_samples, cols=(160, 224),
                                               n_timed=1, tracker=rec)
@@ -2736,7 +2887,7 @@ def phase_track_tapir(models, smi, h=288, w=550, n_samples=256):
             f"{float(out['render_dyn_temporal_track_mask'].mean()):.4f} of the view; s/view "
             f"{statistics.mean(secs):.4f}; peak device memory of a render "
             f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; on {smi}")
-        del out
+        del out, data
 
 
 def phase_track_eval(models, root, smi, n_items=TRACK_EVAL_ITEMS, eval_hw=READER_EVAL_HW,
@@ -2787,6 +2938,304 @@ def phase_track_eval(models, root, smi, n_items=TRACK_EVAL_ITEMS, eval_hw=READER
         + f"; on {smi}")
 
 
+# ------------------------------------------------------- vis and DyCheck (PR 15)
+
+VIS_BUNDLE = "visualize_nvidia_max_disp_32"
+# [reader]'s 24-frame scene (flows at the frame size), the bullet-time
+# trajectory cut from 400 frames to VIS_FRAMES around frame 12
+VIS_FRAMES = 8
+VIS_ARGS = (f"n_render_frames={VIS_FRAMES}", "vis_center_time=12", "vis_time_interval=6")
+VIS_FLOW_FRAMES = ((6, 20),)
+VIS_ROWS, VIS_COLS = (284, 288), (520, 584)
+MONO_SCENE = "lady-running"
+MONO_HW = (480, 854)          # DAVIS 480p
+MONO_FRAMES = 12
+MONO_VIS_FRAMES = 4
+MONO_ARGS = (f"n_render_frames={MONO_VIS_FRAMES}", "vis_center_time=5", "vis_time_interval=1.5")
+MONO_ROWS, MONO_COLS = (236, 244), (400, 464)
+DYCHECK_ROWS, DYCHECK_COLS = (176, 180), (200, 264)
+DYCHECK_SPATIAL = 10
+
+
+def write_mono_scene(root, hw=MONO_HW, n_frames=MONO_FRAMES, seed=SEED):
+    """Write the synthetic scene under ``root/MONO_SCENE`` in the layout of
+    the preprocessing's output that ``MonoVisDataset`` reads (the DAVIS
+    captures'), through the port's ``write_png`` only: per frame the rgb PNG
+    at ``hw``, ``poses/<name>.npz`` {K 4x4, c2w} on the synthetic arc, the
+    z-depth npz, the 1-bit dynamic mask, and flows at interval 1 between
+    consecutive frames with a coord_diff from ``seed`` that marks ~6 % of
+    the pixels occluded. Returns the scene's directory."""
+    import numpy as np
+
+    from pgdvs_tpu_torch.data import synthetic
+    from pgdvs_tpu_torch.data.image_io import write_png
+
+    h, w = hw
+    scene = root / MONO_SCENE
+    for sub in ("rgbs", "poses", "depths", "masks/final", "flows/interval_1"):
+        (scene / sub).mkdir(parents=True, exist_ok=True)
+    k = synthetic.intrinsics(h, w)
+    frames = []
+    for i in range(n_frames):
+        c2w = synthetic.camera_pose(i, n_frames)
+        fr = synthetic.render_frame(h, w, c2w, i / (n_frames - 1))
+        frames.append((fr, c2w))
+        name = f"{i:05d}"
+        write_png(scene / "rgbs" / f"{name}.png", (fr["rgb"] * 255).astype(np.uint8))
+        np.savez(scene / "poses" / f"{name}.npz", K=k, c2w=c2w)
+        np.savez(scene / "depths" / f"{name}.npz", depth=fr["depth"][..., 0].astype(np.float32))
+        write_png(scene / "masks/final" / f"{name}_final.png", fr["dyn_mask"][..., 0] > 0)
+    rng = np.random.default_rng(seed)
+    for a in range(n_frames - 1):
+        for i, j in ((a, a + 1), (a + 1, a)):
+            flow = synthetic.flow_between(h, w, frames[i][0], frames[i][1], i / (n_frames - 1),
+                                          frames[j][1], j / (n_frames - 1))
+            np.savez(scene / f"flows/interval_1/{i:05d}_{j:05d}.npz", flow=flow,
+                     coord_diff=rng.uniform(0, 0.6, (h, w, 2)).astype(np.float32))
+    return scene
+
+
+def _run_vis_cli(argv, tag, n_frames, want, dataset_cls, device="cuda", keep=0):
+    """``_run_hooked`` on the visualizer: host seconds of the reader's
+    ``__getitem__`` (its calls summed; two threads read ahead while the card
+    renders) and of ``Visualizer.run``. Returns (the Visualizer, [(render s,
+    image)], {stage: seconds}, render ``keep``'s static layer)."""
+    from pgdvs_tpu_torch.engines import visualizer as vz
+
+    targets = [(dataset_cls, "__getitem__", "reader"), (vz.Visualizer, "run", "loop")]
+    return _run_hooked(argv, tag, n_frames, want, vz, targets, device, keep)
+
+
+def _check_vis_outputs(tag, out, vis, renders):
+    """One PNG per frame, each the frame's render truncated to uint8; the
+    video written or skipped as ``images_to_video`` says."""
+    import numpy as np
+
+    from pgdvs_tpu_torch.data.image_io import read_png
+
+    pngs = sorted(out.glob("*_combined.png"))
+    if [p.name for p in pngs] != [f"{i:06d}_combined.png" for i in range(len(renders))]:
+        raise AssertionError(f"{tag} PNGs {[p.name for p in pngs]}")
+    for i, (p, (_secs, pred)) in enumerate(zip(pngs, renders)):
+        if not np.isfinite(pred).all():
+            raise AssertionError(f"{tag} frame {i} is not finite")
+        if not np.array_equal(read_png(p), (np.clip(pred, 0.0, 1.0) * 255).astype(np.uint8)):
+            raise AssertionError(f"{tag} frame {i}: the PNG is not the truncated render")
+    if vis.video_written != (out / "video_combined.mp4").is_file():
+        raise AssertionError(f"{tag} video_written {vis.video_written} but the file says not")
+    return "written" if vis.video_written else "skipped (no imageio-ffmpeg)"
+
+
+def phase_vis(models, root, smi, raw_hw=READER_RAW_HW, device="cuda", rows=VIS_ROWS,
+              cols=VIS_COLS, n_samples=256):
+    """[vis]: ``run benchmark --benchmark-type visualize_nvidia_max_disp_32``
+    in-process on [reader]'s 24-frame scene at 576x1100 (written anew with
+    flows at the frame size, which the vis reader renders at), the
+    trajectory cut to VIS_FRAMES frames by ``--dataset-arg`` (K2 masked,
+    one launch per 2048-ray tile of the frame); each PNG the frame's render
+    truncated; frame 0's static layer held against the CPU on a crop; s/frame,
+    host ms per item, the video written or skipped. Returns the launches per
+    frame."""
+    import statistics
+
+    from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
+    from pgdvs_tpu_torch.data.loader import contract_to_device
+    from pgdvs_tpu_torch.data.nvidia_vis import NvidiaVisDataset
+    from pgdvs_tpu_torch.renderers.static_gnt import resolve_epipolar_cfg
+    from pgdvs_tpu_torch.run import _coerce
+
+    tag = "[vis]"
+    scene = root / "vis_scene"
+    t0 = time.perf_counter()
+    write_reader_scene(scene, raw_hw=raw_hw, eval_hw=raw_hw, items=(),
+                       flow_frames=VIS_FLOW_FRAMES)
+    t_write = time.perf_counter() - t0
+    kw = dict(data_root=scene, scene_ids=[READER_SCENE], vis_bt_max_disp=32,
+              **{k: _coerce(v) for k, v in (a.split("=") for a in VIS_ARGS)})
+    ds = NvidiaVisDataset(**kw)
+    t0 = time.perf_counter()
+    item0 = ds[0]
+    t_item = time.perf_counter() - t0
+    h, w = item0["rgb_src_temporal"].shape[1:3]
+    cfg = resolve_benchmark(VIS_BUNDLE, "fast")[0].replace(n_coarse_samples_per_ray=n_samples)
+    cfg = resolve_epipolar_cfg(cfg, models[1], h, w)[0]
+    want = expected_launches(cfg, h * w)
+    out = root / "vis_out"
+    vis, renders, stages, kept = _run_vis_cli(
+        ["benchmark", "--benchmark-type", VIS_BUNDLE, "--data-root", str(scene), "--scene-ids",
+         READER_SCENE, "--dataset-arg", *VIS_ARGS, "--device", device, "--out-dir", str(out),
+         "--render-cfg", f"n_coarse_samples_per_ray={n_samples}"],
+        tag, VIS_FRAMES, want, NvidiaVisDataset, device)
+    video = _check_vis_outputs(tag, out, vis, renders)
+    errs = check_crop(tag, models, contract_to_device(item0, device), cfg, kept, rows, cols)
+    secs = [t for t, _ in renders]
+    times = [round(t[1], 4) for t in ds.traj]
+    log(f"{tag} run benchmark --benchmark-type {VIS_BUNDLE} --dataset-arg {' '.join(VIS_ARGS)}: "
+        f"scene {raw_hw[0]}x{raw_hw[1]} written in {t_write:.3f} s; {len(renders)} frames at "
+        f"{h}x{w} (trajectory times {times}), {cfg.epipolar_mode} sampling, launches per frame "
+        f"{_nonzero(want)}; PNGs == truncated renders; video {video}")
+    log(f"{tag} frame 0 crop rows {rows} cols {cols} vs plain path on CPU: {errs}")
+    log(f"{tag} s/frame " + " ".join(f"{t:.4f}" for t in secs)
+        + f"; mean of frames 1.. {statistics.mean(secs[1:]):.4f}; Visualizer.run "
+        f"{stages['loop']:.3f} s; host ms per item: 0 workers {1e3 * t_item:.1f}, in the run "
+        f"(2 threads beside the renders) {1e3 * stages['reader'] / len(renders):.1f}; on {smi}")
+    return want
+
+
+def phase_mono_vis(models, root, smi, hw=MONO_HW, device="cuda", rows=MONO_ROWS,
+                   cols=MONO_COLS, n_samples=256):
+    """[mono-vis]: a DAVIS-layout scene at 480x854 (``write_mono_scene``,
+    12 frames) through ``run vis --dataset mono_vis`` in-process for
+    MONO_VIS_FRAMES frames on the fast preset (K1 patch_rows, one launch per
+    2048-ray tile); checked as [vis]. Returns the launches per frame."""
+    import statistics
+
+    from pgdvs_tpu_torch.data.loader import contract_to_device
+    from pgdvs_tpu_torch.data.mono_vis import MonoVisDataset
+    from pgdvs_tpu_torch.renderers.static_gnt import resolve_epipolar_cfg
+    from pgdvs_tpu_torch.run import _coerce
+
+    tag = "[mono-vis]"
+    t0 = time.perf_counter()
+    write_mono_scene(root / "mono", hw)
+    t_write = time.perf_counter() - t0
+    ds = MonoVisDataset(root / "mono", [MONO_SCENE], vis_bt_max_disp=64,
+                        **{k: _coerce(v) for k, v in (a.split("=") for a in MONO_ARGS)})
+    t0 = time.perf_counter()
+    item0 = ds[0]
+    t_item = time.perf_counter() - t0
+    h, w = item0["rgb_src_temporal"].shape[1:3]
+    cfg = resolve_epipolar_cfg(slice_config(None, n_samples), models[1], h, w)[0]
+    want = expected_launches(cfg, h * w)
+    out = root / "mono_out"
+    vis, renders, stages, kept = _run_vis_cli(
+        ["vis", "--dataset", "mono_vis", "--data-root", str(root / "mono"), "--scene-ids",
+         MONO_SCENE, "--dataset-arg", *MONO_ARGS, "--device", device, "--out-dir", str(out),
+         "--render-cfg", f"n_coarse_samples_per_ray={n_samples}"],
+        tag, MONO_VIS_FRAMES, want, MonoVisDataset, device)
+    video = _check_vis_outputs(tag, out, vis, renders)
+    errs = check_crop(tag, models, contract_to_device(item0, device), cfg, kept, rows, cols)
+    secs = [t for t, _ in renders]
+    log(f"{tag} run vis --dataset mono_vis --dataset-arg {' '.join(MONO_ARGS)}: scene "
+        f"{hw[0]}x{hw[1]}, {MONO_FRAMES} frames, written in {t_write:.3f} s; "
+        f"{len(renders)} frames (times {[round(t[1], 4) for t in ds.traj]}), "
+        f"{cfg.epipolar_mode} sampling, launches per frame {_nonzero(want)}; PNGs == "
+        f"truncated renders; video {video}")
+    log(f"{tag} frame 0 crop rows {rows} cols {cols} vs plain path on CPU: {errs}")
+    log(f"{tag} s/frame " + " ".join(f"{t:.4f}" for t in secs)
+        + f"; mean of frames 1.. {statistics.mean(secs[1:]):.4f}; host ms per item: 0 workers "
+        f"{1e3 * t_item:.1f}, in the run {1e3 * stages['reader'] / len(renders):.1f}; on {smi}")
+    return want
+
+
+def phase_dycheck(models, root, smi, hw=IPHONE_HW, device="cuda", rows=DYCHECK_ROWS,
+                  cols=DYCHECK_COLS, n_samples=256):
+    """[dycheck]: a synthetic iPhone capture (``write_iphone_capture``:
+    360x480 at factor 2, 24 train frames, two val frames, one at a train
+    time and one between two) through ``run benchmark --benchmark-type
+    default --dataset-family dycheck_iphone`` in-process on the fast and the
+    exact preset, ``$PGDVS_CKPT_DIR`` the [eval] checkpoints (so mLPIPS is
+    scored): DYCHECK_SPATIAL clustered spatial sources, the per-pixel depth
+    range, K2 masked (fast) or K2 unfolded (exact) once per 2048-ray tile;
+    each pickle equal to the covisible metrics recomputed on the CPU from its
+    render (mPSNR / mSSIM bit for bit, mLPIPS at LPIPS_RTOL), summary.json,
+    PNGs; item 1's static layer held against the CPU on a crop (the
+    per-pixel ranges); the spatial indices KMeans chose, host ms per item
+    and of the KMeans refit, s/item. Returns {preset: launches per item}."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    from pgdvs_tpu_torch.data.dycheck_iphone import DyCheckIPhoneEvalDataset
+    from pgdvs_tpu_torch.data.loader import contract_to_device
+    from pgdvs_tpu_torch.engines import evaluator as ev
+    from pgdvs_tpu_torch.renderers.static_gnt import resolve_epipolar_cfg
+
+    tag = "[dycheck]"
+    t0 = time.perf_counter()
+    write_iphone_capture(root / "iphone", hw)
+    t_write = time.perf_counter() - t0
+    dargs = {"mask_data_dir": str(root / "iphone" / "masks"),
+             "flow_data_dir": str(root / "iphone" / "flows")}
+    ds = DyCheckIPhoneEvalDataset(root / "iphone" / "raw", [IPHONE_SCENE], **dargs)
+    items, t_items, t_km = [], [], []
+    for i in range(len(ds)):
+        with StageTimer([(DyCheckIPhoneEvalDataset, "select_spatial", "kmeans")]) as timer:
+            t0 = time.perf_counter()
+            items.append(ds[i])
+            t_items.append(time.perf_counter() - t0)
+        t_km.append(timer.seconds["kmeans"])
+    h, w = items[0]["rgb_tgt"].shape[:2]
+    dr = items[1]["depth_range"]
+    pinned = float(np.isclose(dr[..., 1] - dr[..., 0], 2e-4, atol=1e-6).mean())
+    log(f"{tag} capture {h}x{w} (factor 2), {IPHONE_TRAIN} train frames, val times "
+        f"{[float(it['time_tgt'][0]) for it in items]}, written in {t_write:.3f} s; spatial sources "
+        f"(KMeans, {DYCHECK_SPATIAL} clusters) {[it['seq_ids'][1:1 + DYCHECK_SPATIAL].tolist() for it in items]}; "
+        f"temporal {[it['seq_ids'][1 + DYCHECK_SPATIAL:].tolist() for it in items]}; per-pixel "
+        f"depth range {tuple(dr.shape)}, {pinned:.4f} of item 1's pixels pinned to +-1e-4; host "
+        f"ms per item (0 workers) {[round(1e3 * t, 1) for t in t_items]}, of it the KMeans "
+        f"refit {[round(1e3 * t, 2) for t in t_km]}")
+    lpips_cpu = random_lpips()
+    old = os.environ.get("PGDVS_CKPT_DIR")
+    os.environ["PGDVS_CKPT_DIR"] = str(root / "ckpts")
+    launches = {}
+    try:
+        for preset in ("fast", "exact"):
+            cfg = resolve_epipolar_cfg(slice_config("default", n_samples, preset), models[1],
+                                       h, w)[0]
+            want = expected_launches(cfg, h * w)
+            out = root / f"dycheck_{preset}"
+            result, renders, stages, kept = _run_cli(
+                ["benchmark", "--benchmark-type", "default", "--dataset-family", "dycheck_iphone",
+                 "--perf-preset", preset, "--data-root", str(root / "iphone" / "raw"),
+                 "--scene-ids", IPHONE_SCENE, "--dataset-arg",
+                 *(f"{k}={v}" for k, v in dargs.items()), "--device", device, "--out-dir",
+                 str(out), "--render-cfg", f"n_coarse_samples_per_ray={n_samples}"],
+                f"{tag}[{preset}]", len(items), want, device,
+                extra_targets=[(DyCheckIPhoneEvalDataset, "__getitem__", "reader"),
+                               (DyCheckIPhoneEvalDataset, "select_spatial", "kmeans")], keep=1)
+            summary = json.loads((out / "summary.json").read_text())
+            if summary != json.loads(json.dumps(result)):
+                raise AssertionError(f"{tag}[{preset}] summary.json is not the run's result")
+            worst = 0.0
+            for i, ((_t, pred), item) in enumerate(zip(renders, items)):
+                rec = pickle.loads((out / f"{i:06d}.pkl").read_bytes())
+                ref = ev.compute_dycheck_metrics(pred, item["rgb_tgt"],
+                                                 item["misc"]["covisible_mask"], lpips_cpu)
+                if sorted(rec) != sorted([*ref, "render_wall_s", "scene_id"]):
+                    raise AssertionError(f"{tag}[{preset}] item {i}: keys {sorted(rec)}")
+                for k in ("mpsnr", "mssim"):
+                    if rec[k] != ref[k]:
+                        raise AssertionError(f"{tag}[{preset}] item {i} {k}: {rec[k]} vs "
+                                             f"{ref[k]} recomputed on the CPU")
+                err = abs(rec["mlpips"] - ref["mlpips"]) / abs(ref["mlpips"])
+                worst = max(worst, err)
+                if not err <= LPIPS_RTOL:
+                    raise AssertionError(f"{tag}[{preset}] item {i} mlpips: {rec['mlpips']} vs "
+                                         f"{ref['mlpips']}")
+                if not (out / f"{i:06d}_combined.png").is_file():
+                    raise AssertionError(f"{tag}[{preset}] item {i}: no PNG")
+            errs = check_crop(f"{tag}[{preset}]", models, contract_to_device(items[1], device),
+                              cfg, kept, rows, cols)
+            launches[preset] = want
+            log(f"{tag}[{preset}] run benchmark --dataset-family dycheck_iphone --perf-preset "
+                f"{preset}: {len(renders)} items, {cfg.epipolar_mode} sampling, launches per item "
+                f"{_nonzero(want)}; pickles == covisible metrics on the CPU (mPSNR / mSSIM "
+                f"bit for bit, mLPIPS rel {worst:.2e}); item 1 crop rows {rows} cols "
+                f"{cols} vs plain path on CPU: {errs}; s/item "
+                + " ".join(f"{t:.4f}" for t in [t for t, _ in renders])
+                + f"; host ms per item in the run {1e3 * stages['reader'] / len(renders):.1f} "
+                f"(KMeans {1e3 * stages['kmeans'] / len(renders):.2f}); mean "
+                + json.dumps(result["mean"]) + f"; on {smi}")
+    finally:
+        if old is None:
+            os.environ.pop("PGDVS_CKPT_DIR", None)
+        else:
+            os.environ["PGDVS_CKPT_DIR"] = old
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2835,6 +3284,11 @@ def main() -> int:
         phase_jpeg(smi)
         phase_geo(root / "geo", smi)
         phase_track_eval(models, root, smi)
+        # the visualization and DyCheck entry points: launches per frame / item
+        paths = {"[vis]": phase_vis(models, root, smi),
+                 "[mono-vis]": phase_mono_vis(models, root, smi)}
+        paths.update({f"[dycheck][{preset}]": want
+                      for preset, want in phase_dycheck(models, root, smi).items()})
     phase_point_mesh(models, smi)
     phase_track_lk(models, smi)
     phase_track_tapir(models, smi)
@@ -2875,6 +3329,8 @@ def main() -> int:
             "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"],
             "bound_by": times["bound_by"],
+            # launches per frame / item on the vis and DyCheck entry points
+            "launches_by_path": {tag: want[kname] for tag, want in paths.items()},
             # no single PyTorch call computes the GNT forward, a half-block
             # with its weights row, or the prologue (two dense layers, a
             # ReLU, a bf16 rounding and a max over views)

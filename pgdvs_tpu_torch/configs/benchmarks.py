@@ -14,8 +14,9 @@ removal, masked_attn / masked_input = GNT dynamic-mask handling, zoed =
 ZoeDepth instead of CVD depth, track_* = occlusion recovery via tracking.
 
 Every name resolves; ``make_tracker`` builds a bundle's tracker
-(Lucas-Kanade or TAPIR) and raises ValueError for CoTracker, which is not
-ported; the CLI refuses the vis bundles.
+(Lucas-Kanade or TAPIR) on the card unless asked for the CPU, and raises
+ValueError for CoTracker, which is not ported; the CLI runs the
+``visualize_nvidia_*`` bundles (``engine: "vis"``) through the Visualizer.
 """
 
 from __future__ import annotations
@@ -240,8 +241,9 @@ def resolve_benchmark(name: str, preset: str = "fast"):
 COTRACKER_ITEM = "ROADMAP.md queue 1 item 4, the branches slice: track, CoTracker"
 
 
-def make_tracker(name, device=None):
-    """The tracker a bundle names (its ``tracker`` entry) on ``device``:
+def make_tracker(name, device="cuda"):
+    """The tracker a bundle names (its ``tracker`` entry) on ``device``
+    (default the card, as ``Evaluator``'s):
     None for None / "none", ``LucasKanadeTracker()`` for "lk", TAPIR at
     256x256 for "tapir" and at the frames' size for "tapir_raw_res" (the
     released checkpoint under ``$PGDVS_CKPT_DIR``, else seeded random

@@ -1,9 +1,9 @@
 """Dataset registry + flat concatenation across sub-datasets.
 
-The counterpart of ``pgdvs_tpu.data.combined``: a named registry and one
-flat index space over the concatenation of the selected datasets. Of the JAX
-package's five readers ``nvidia_eval`` and ``nvidia_eval_pure_geo`` are
-ported; the other names raise ``KeyError`` saying so.
+The counterpart of ``pgdvs_tpu.data.combined``: a named registry of the
+JAX package's five readers (``nvidia_eval``, ``nvidia_eval_pure_geo``,
+``nvidia_vis``, ``mono_vis``, ``dycheck_iphone_eval``) and one flat index
+space over the concatenation of the selected datasets.
 """
 
 from __future__ import annotations
@@ -11,9 +11,6 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 DATASET_REGISTRY: Dict[str, type] = {}
-
-# the JAX package's readers that the port does not carry yet
-NOT_PORTED = ("nvidia_vis", "mono_vis", "dycheck_iphone_eval")
 
 
 def register_dataset(name: str):
@@ -25,11 +22,17 @@ def register_dataset(name: str):
 
 
 def _populate():
+    from pgdvs_tpu_torch.data.dycheck_iphone import DyCheckIPhoneEvalDataset
+    from pgdvs_tpu_torch.data.mono_vis import MonoVisDataset
     from pgdvs_tpu_torch.data.nvidia_eval import NvidiaEvalDataset
     from pgdvs_tpu_torch.data.nvidia_pure_geo import NvidiaPureGeoEvalDataset
+    from pgdvs_tpu_torch.data.nvidia_vis import NvidiaVisDataset
 
     DATASET_REGISTRY.setdefault("nvidia_eval", NvidiaEvalDataset)
     DATASET_REGISTRY.setdefault("nvidia_eval_pure_geo", NvidiaPureGeoEvalDataset)
+    DATASET_REGISTRY.setdefault("nvidia_vis", NvidiaVisDataset)
+    DATASET_REGISTRY.setdefault("mono_vis", MonoVisDataset)
+    DATASET_REGISTRY.setdefault("dycheck_iphone_eval", DyCheckIPhoneEvalDataset)
 
 
 class CombinedDataset:
@@ -40,9 +43,6 @@ class CombinedDataset:
         _populate()
         self.datasets: List = []
         for name, kwargs in dataset_specs:
-            if name in NOT_PORTED and name not in DATASET_REGISTRY:
-                raise KeyError(f"dataset {name!r} is not ported to pgdvs_tpu_torch yet "
-                               "(ROADMAP.md, queue 1: the branches slice)")
             if name not in DATASET_REGISTRY:
                 raise KeyError(f"unknown dataset {name!r}; known: {sorted(DATASET_REGISTRY)}")
             self.datasets.append(DATASET_REGISTRY[name](**kwargs))

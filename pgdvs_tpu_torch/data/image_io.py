@@ -4,7 +4,8 @@ The JAX package's readers decode with PIL and resize with OpenCV and PIL;
 the GPU machine has neither. This module carries what they use:
 
 ``read_image`` decodes a PNG or a JPEG file (told apart by their first
-bytes) into exactly the array ``np.array(PIL.Image.open(f))`` gives.
+bytes) into exactly the array ``np.array(PIL.Image.open(f))`` gives;
+``image_hw`` reads its (height, width) from the header alone.
 
 ``read_png``: (H, W) uint8 for 8-bit grey, (H, W) bool for 1-bit grey,
 (H, W) uint8 palette indices for a palette image, (H, W, 2 / 3 / 4) uint8
@@ -191,6 +192,24 @@ def read_image(source, name=None) -> np.ndarray:
         return read_jpeg(data, name=name)
     if data[:8] == PNG_SIGNATURE:
         return read_png(data, name=name)
+    raise ValueError(f"{name}: neither a PNG nor a JPEG file")
+
+
+def image_hw(source, name=None):
+    """(height, width) of a PNG or JPEG file (path) or its bytes, from its
+    header, without decoding the image."""
+    src_name, data = _read(source)
+    name = name or src_name
+    if data[:8] == PNG_SIGNATURE and data[12:16] == b"IHDR":
+        width, height = struct.unpack(">II", data[16:24])
+        return int(height), int(width)
+    if data[:2] == JPEG_SOI:
+        buf = np.frombuffer(data, np.uint8)
+        err = ctypes.create_string_buffer(256)
+        hwc = np.zeros(3, np.int32)
+        _jpeg_check(load_jpeg_library().jpeg_header(buf.ctypes.data, buf.size, hwc.ctypes.data,
+                                                    err, len(err)), name, err)
+        return int(hwc[0]), int(hwc[1])
     raise ValueError(f"{name}: neither a PNG nor a JPEG file")
 
 

@@ -136,9 +136,10 @@ def _find(candidates):
 
 
 def load_lpips_weights(alexnet_path: Optional[str] = None,
-                       lin_path: Optional[str] = None) -> Optional[LPIPS]:
-    """The LPIPS module on the CPU, in eval mode, from torch checkpoints, or
-    None when the backbone or the heads are unavailable.
+                       lin_path: Optional[str] = None, device="cuda") -> Optional[LPIPS]:
+    """The LPIPS module on ``device`` (default the card), in eval mode, from
+    torch checkpoints, or None when the backbone or the heads are
+    unavailable.
 
     lin_path: the LPIPS heads (``lin{k}.model.1.weight`` or
     ``lins.{k}.model.1.weight``, [1, C, 1, 1]); else
@@ -177,7 +178,7 @@ def load_lpips_weights(alexnet_path: Optional[str] = None,
         state[f"lins.{k}"] = lin_sd[key].reshape(-1)
     net = LPIPS()
     net.load_state_dict(state)
-    return net.eval()
+    return net.eval().to(device)
 
 
 def lpips_params_from_jax(params) -> dict:

@@ -433,10 +433,10 @@ def init_tapir_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 
 
 def make_tapir_tracker(keep_raw_res: bool = False, ckpt_path: Optional[str] = None,
-                       device=None) -> TapirTracker:
-    """The tracker with the released checkpoint (``tapir_port``), or with
-    seeded random weights and a warning when it is not there, as the JAX
-    package's does."""
+                       device="cuda") -> TapirTracker:
+    """The tracker on ``device`` (default the card) with the released
+    checkpoint (``tapir_port``), or with seeded random weights and a warning
+    when it is not there, as the JAX package's does."""
     from pgdvs_tpu_torch.models.tracking.tapir_port import load_tapir_checkpoint
 
     model = Tapir()
@@ -448,5 +448,4 @@ def make_tapir_tracker(keep_raw_res: bool = False, ckpt_path: Optional[str] = No
     else:
         model.load_state_dict(state)
     model.eval()
-    tracker = TapirTracker(model, keep_raw_res=keep_raw_res)
-    return tracker.to(device) if device is not None else tracker
+    return TapirTracker(model, keep_raw_res=keep_raw_res).to(device)

@@ -1,25 +1,35 @@
-"""pgdvs_tpu_torch CLI: evaluate novel-view synthesis with the PyTorch port.
+"""pgdvs_tpu_torch CLI: evaluate and visualize novel-view synthesis with the
+PyTorch port.
 
 The port's counterpart of the repository's ``run.py`` (the JAX CLI), with
-its ``eval`` and ``benchmark`` subcommands and the same flags, less the
-JAX-only ones (``--distributed``, ``--devices``, ``--gnt-dtype``), plus
+its ``eval``, ``vis`` and ``benchmark`` subcommands and the same flags, less
+the JAX-only ones (``--distributed``, ``--devices``, ``--gnt-dtype``), plus
 ``--device {cuda,cpu}`` (default cuda; without a card, cuda raises). The
-geo static mode (``--static-mode geo`` on ``nvidia_eval_pure_geo``, the
-``st_cvd_*`` bundles) renders no network, so it loads no GNT. A bundle's
-tracker (Lucas-Kanade or TAPIR, the ``_track_tapir`` bundles) is built by
+readers are the JAX package's five: ``nvidia_eval``,
+``nvidia_eval_pure_geo``, ``nvidia_vis``, ``mono_vis`` and
+``dycheck_iphone_eval`` (``benchmark --dataset-family dycheck_iphone``).
+``vis`` and the ``visualize_nvidia_*`` bundles render a trajectory through
+``engines.visualizer.Visualizer`` into ``--out-dir``. The geo static mode
+(``--static-mode geo`` on ``nvidia_eval_pure_geo``, the ``st_cvd_*``
+bundles) renders no network, so it loads no GNT. A bundle's tracker
+(Lucas-Kanade or TAPIR, the ``_track_tapir`` bundles) is built by
 ``configs.benchmarks.make_tracker`` on ``--device``. What the port does not
-carry yet raises, naming its ``ROADMAP.md`` item: the CoTracker tracker, the
-vis engine, a dataset other than ``nvidia_eval`` and
-``nvidia_eval_pure_geo``; the vis, train and bench subcommands are not
-there.
+carry yet raises, naming its ``ROADMAP.md`` item: the CoTracker tracker;
+the train and bench subcommands are not there.
 
 Examples:
   python -m pgdvs_tpu_torch.run eval --data-root /data --scene-ids Balloon1 \
       --out-dir experiments/balloon1 --save-vis
+  python -m pgdvs_tpu_torch.run vis --dataset nvidia_vis --data-root /data \
+      --scene-ids Balloon1 --out-dir experiments/balloon1_vis
+  python -m pgdvs_tpu_torch.run vis --dataset mono_vis --data-root /davis \
+      --scene-ids lady-running --out-dir experiments/lady_running_vis
   python -m pgdvs_tpu_torch.run benchmark --benchmark-type default \
       --data-root /data --out-dir experiments/default [--perf-preset exact]
-  python -m pgdvs_tpu_torch.run benchmark --benchmark-type st_cvd_dy_cvd \
-      --data-root /data --out-dir experiments/st_cvd_dy_cvd
+  python -m pgdvs_tpu_torch.run benchmark --benchmark-type visualize_nvidia_max_disp_32 \
+      --data-root /data --scene-ids Balloon1 --out-dir experiments/bt32
+  python -m pgdvs_tpu_torch.run benchmark --dataset-family dycheck_iphone \
+      --data-root /iphone --scene-ids paper-windmill --out-dir experiments/iphone
 """
 
 from __future__ import annotations
@@ -33,9 +43,6 @@ import pathlib
 import torch
 
 LOGGER = logging.getLogger("pgdvs_tpu_torch")
-
-# ROADMAP.md, queue 1, item 4 (the branches slice) carries these
-BRANCHES_ITEM = "ROADMAP.md queue 1 item 4, the branches slice"
 
 
 def _overrides(kvs, fields: set, defaults) -> dict:
@@ -92,13 +99,13 @@ def _dataset_kwargs(args, spec_args=None) -> dict:
     return kwargs
 
 
-PORTED_DATASETS = ("nvidia_eval", "nvidia_eval_pure_geo")
+PORTED_DATASETS = ("nvidia_eval", "nvidia_eval_pure_geo", "nvidia_vis", "mono_vis",
+                   "dycheck_iphone_eval")
 
 
 def _check_dataset(name: str) -> None:
     if name not in PORTED_DATASETS:
-        raise ValueError(f"dataset {name!r} is not ported to pgdvs_tpu_torch yet; only "
-                         f"{PORTED_DATASETS} are ({BRANCHES_ITEM})")
+        raise ValueError(f"unknown dataset {name!r}; the readers are {PORTED_DATASETS}")
 
 
 def build_dataset(args, name=None, spec_args=None):
@@ -131,11 +138,10 @@ def build_models_and_params(args, static_mode="gnt"):
 def _lpips(device):
     from pgdvs_tpu_torch.metrics.lpips import load_lpips_weights
 
-    net = load_lpips_weights()
+    net = load_lpips_weights(device=device)
     if net is None:
         LOGGER.warning("LPIPS weights unavailable; reporting PSNR/SSIM only")
-        return None
-    return net.to(device)
+    return net
 
 
 def _evaluate(args, models, cfg, dataset, static_mode, save_vis, tracker=None):
@@ -166,8 +172,31 @@ def cmd_eval(args):
     return _evaluate(args, models, cfg, dataset, args.static_mode, args.save_vis)
 
 
+def _visualize(args, models, cfg, dataset, static_mode):
+    from pgdvs_tpu_torch.engines.visualizer import Visualizer
+
+    if not args.out_dir:
+        raise SystemExit("a visualization needs --out-dir")
+    vis = Visualizer(models, cfg, args.out_dir, static_mode=static_mode, device=args.device)
+    print(f"wrote {vis.run(dataset)}")
+    return vis
+
+
+def cmd_vis(args):
+    """Render a trajectory reader's frames (``--dataset nvidia_vis`` or
+    ``mono_vis``) into ``--out-dir``; returns the Visualizer."""
+    from pgdvs_tpu_torch.renderers.config import check_slice
+
+    cfg = build_render_config(args)
+    check_slice(cfg, args.static_mode)
+    dataset = build_dataset(args)
+    models = build_models_and_params(args, args.static_mode)
+    return _visualize(args, models, cfg, dataset, args.static_mode)
+
+
 def cmd_benchmark(args):
-    """Run a named benchmark_type bundle (the reference's ablation matrix).
+    """Run a named benchmark_type bundle (the reference's ablation matrix):
+    the evaluator, or the Visualizer for the ``engine: "vis"`` bundles.
     Unlike the JAX CLI's, it also applies ``--dataset-arg`` (after the
     bundle's own dataset arguments)."""
     from pgdvs_tpu_torch.configs.benchmarks import make_tracker, resolve_benchmark
@@ -176,9 +205,6 @@ def cmd_benchmark(args):
     cfg, spec = resolve_benchmark(args.benchmark_type, preset=args.perf_preset)
     fields = {f.name for f in dataclasses.fields(RenderConfig)}
     cfg = cfg.replace(**_overrides(args.render_cfg, fields, cfg))
-    if spec.get("engine") == "vis":
-        raise ValueError(f"benchmark {args.benchmark_type!r} runs the vis engine, not ported "
-                         f"yet ({BRANCHES_ITEM}: visualization)")
     check_slice(cfg, spec["static_mode"])
     tracker = make_tracker(spec.get("tracker"), device=args.device)
     name = spec.get("dataset", "nvidia_eval")
@@ -186,6 +212,8 @@ def cmd_benchmark(args):
         name = "dycheck_iphone_eval"
     dataset = build_dataset(args, name, spec.get("dataset_args"))
     models = build_models_and_params(args, spec["static_mode"])
+    if spec.get("engine") == "vis":
+        return _visualize(args, models, cfg, dataset, spec["static_mode"])
     return _evaluate(args, models, cfg, dataset, spec["static_mode"], save_vis=True,
                      tracker=tracker)
 
@@ -222,6 +250,10 @@ def main(argv=None):
     common(pe)
     pe.add_argument("--save-vis", action="store_true")
     pe.set_defaults(fn=cmd_eval)
+
+    pv = sub.add_parser("vis", help="render a visualization trajectory")
+    common(pv)
+    pv.set_defaults(fn=cmd_vis)
 
     pbm = sub.add_parser("benchmark", help="run a named benchmark_type bundle")
     common(pbm)

@@ -342,27 +342,26 @@ def test_unknown_render_cfg_field_exits(field):
 
 @pytest.mark.parametrize("extra,exc,match", [
     (["eval", "--static-mode", "mesh"], SystemExit, None),
-    (["eval", "--dataset", "nvidia_vis"], ValueError, "ROADMAP.md"),
     (["eval", "--render-cfg", "dyn_render_type=splat"], ValueError, "dyn_render_type"),
     (["eval", "--static-mode", "geo"], ValueError, "nvidia_eval_pure_geo"),
     (["benchmark", "--benchmark-type", "st_gnt_masked_attn_dy_cvd_pcl_clean_track_cotracker"],
      ValueError, "ROADMAP.md.*track"),
-    (["benchmark", "--benchmark-type", "visualize_nvidia_max_disp_32"], ValueError,
-     "ROADMAP.md.*visualization"),
     (["benchmark", "--render-cfg", "dyn_render_track_temporal=always"], ValueError,
      "dyn_render_track_temporal"),
-    (["benchmark", "--dataset-family", "dycheck_iphone"], ValueError, "dycheck_iphone_eval"),
+    (["eval", "--dataset", "nvidia_eval_zip"], ValueError, "unknown dataset"),
     (["benchmark", "--render-cfg", "bogus=2"], SystemExit, "unknown render_cfg field"),
 ])
 def test_out_of_port_bundles_raise(tmp_path, extra, exc, match):
     """What the port does not carry (the CoTracker bundle, since the track
-    branch landed; the tapir bundles run below), and what is not a mode at
-    all."""
+    branch landed; the tapir bundles run below), and what is not a mode or a
+    reader at all. The refusals of the vis and DyCheck entry points before
+    their slice are runs in test_torch_port_vis.py and
+    test_torch_port_dycheck.py."""
     with pytest.raises(exc, match=match):
         trun.main([*extra, "--device", "cpu", "--data-root", str(tmp_path)])
 
 
-@pytest.mark.parametrize("cmd", ["vis", "train", "bench"])
+@pytest.mark.parametrize("cmd", ["train", "bench"])
 def test_subcommands_not_ported_exit(cmd, capsys):
     with pytest.raises(SystemExit):
         trun.main([cmd])

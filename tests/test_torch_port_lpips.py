@@ -132,7 +132,7 @@ def clean_env(monkeypatch, tmp_path):
 
 def test_load_lpips_weights_explicit_path_matches_jax(clean_env):
     path = _fake_torchvision_alexnet(clean_env / "alex.pth")
-    net = tl.load_lpips_weights(alexnet_path=str(path))
+    net = tl.load_lpips_weights(alexnet_path=str(path), device="cpu")
     params = lpips_jax.load_torch_weights(alexnet_path=str(path))
     assert net is not None and params is not None and not net.training
     _same_params(net, params)
@@ -145,12 +145,12 @@ def test_load_lpips_weights_search_order(clean_env, monkeypatch):
     ckpt.mkdir()
     _fake_torchvision_alexnet(ckpt / "alexnet.pth", seed=8)
     monkeypatch.setenv("PGDVS_CKPT_DIR", str(ckpt))
-    _same_params(tl.load_lpips_weights(), lpips_jax.load_torch_weights())
+    _same_params(tl.load_lpips_weights(device="cpu"), lpips_jax.load_torch_weights())
 
     heads = torch.load(JAX_HEADS, map_location="cpu", weights_only=True)
     torch.save({k.replace("lin", "lins.", 1): 2.0 * v for k, v in heads.items()},
                ckpt / "lpips_alex_v0.1.pth")
-    net, params = tl.load_lpips_weights(), lpips_jax.load_torch_weights()
+    net, params = tl.load_lpips_weights(device="cpu"), lpips_jax.load_torch_weights()
     _same_params(net, params)
     assert torch.equal(net.lins[0], 2.0 * heads["lin0.model.1.weight"].reshape(-1))
 
@@ -158,13 +158,13 @@ def test_load_lpips_weights_search_order(clean_env, monkeypatch):
     hub = clean_env / "home" / ".cache/torch/hub/checkpoints"
     hub.mkdir(parents=True)
     _fake_torchvision_alexnet(hub / "alexnet-owt-7be5be79.pth", seed=9)
-    _same_params(tl.load_lpips_weights(), lpips_jax.load_torch_weights())
+    _same_params(tl.load_lpips_weights(device="cpu"), lpips_jax.load_torch_weights())
 
 
 def test_load_lpips_weights_none_without_a_backbone(clean_env):
-    assert tl.load_lpips_weights() is None
+    assert tl.load_lpips_weights(device="cpu") is None
     assert lpips_jax.load_torch_weights() is None
-    assert tl.load_lpips_weights(alexnet_path=str(clean_env / "absent.pth")) is None
+    assert tl.load_lpips_weights(alexnet_path=str(clean_env / "absent.pth"), device="cpu") is None
 
 
 def test_load_lpips_weights_none_with_incomplete_heads(clean_env):
@@ -172,7 +172,7 @@ def test_load_lpips_weights_none_with_incomplete_heads(clean_env):
     heads = torch.load(JAX_HEADS, map_location="cpu", weights_only=True)
     heads.pop("lin4.model.1.weight")
     torch.save(heads, clean_env / "heads.pth")
-    assert tl.load_lpips_weights(str(path), str(clean_env / "heads.pth")) is None
+    assert tl.load_lpips_weights(str(path), str(clean_env / "heads.pth"), device="cpu") is None
 
 
 def test_bundled_heads_are_the_jax_package_bytes():

@@ -338,9 +338,15 @@ def test_combined_dataset(scenes):
         combined[-1]
     geo = CombinedDataset([("nvidia_eval_pure_geo", kw)])
     assert type(geo.datasets[0]).__name__ == "NvidiaPureGeoEvalDataset"
-    for name in ("nvidia_vis", "mono_vis", "dycheck_iphone_eval"):
-        with pytest.raises(KeyError, match="not ported"):
-            CombinedDataset([(name, {})])
+    # the readers of the vis and DyCheck slice (tests/test_torch_port_vis.py,
+    # tests/test_torch_port_dycheck.py hold them against JAX's)
+    vis = CombinedDataset([("nvidia_vis", {**kw, "n_render_frames": 3,
+                                          "vis_center_time": 2, "vis_time_interval": 1})])
+    assert type(vis.datasets[0]).__name__ == "NvidiaVisDataset" and len(vis) == 3
+    for name, cls in (("mono_vis", "MonoVisDataset"),
+                      ("dycheck_iphone_eval", "DyCheckIPhoneEvalDataset")):
+        ds = CombinedDataset([(name, {"data_root": str(scenes("eval")), "scene_ids": []})])
+        assert type(ds.datasets[0]).__name__ == cls and len(ds) == 0
     with pytest.raises(KeyError, match="unknown dataset"):
         CombinedDataset([("nope", {})])
 

@@ -214,7 +214,8 @@ def test_haiku_loader_lists_every_unmatched_entry(haiku_ckpt):
 def test_make_tracker_names(monkeypatch, tmp_path, caplog):
     """None / "none" -> no tracker, "lk" -> LK; without a checkpoint TAPIR
     warns and takes the same seeded random weights every time; CoTracker
-    raises naming its ROADMAP item; any other name KeyError."""
+    raises naming its ROADMAP item; any other name KeyError; TAPIR goes
+    on the card unless the CPU is asked for."""
     monkeypatch.setenv("PGDVS_CKPT_DIR", str(tmp_path))
     assert make_tracker(None) is None and make_tracker("none") is None
     assert isinstance(make_tracker("lk"), LucasKanadeTracker)
@@ -224,6 +225,13 @@ def test_make_tracker_names(monkeypatch, tmp_path, caplog):
     assert not a.keep_raw_res
     for (k, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
         assert torch.equal(x, y), k
+    # without a device the trackers are built on the card, as Evaluator's
+    # renders run (an entry point runs on the CPU only when asked)
+    moved = []
+    monkeypatch.setattr(TapirTracker, "to", lambda self, device: moved.append(device) or self)
+    make_tracker("tapir")
+    make_tracker("tapir_raw_res", device="cpu")
+    assert moved == ["cuda", "cpu"]
     with pytest.raises(ValueError, match="ROADMAP.md.*CoTracker"):
         make_tracker("cotracker")
     with pytest.raises(KeyError):
