@@ -118,7 +118,7 @@ exits non-zero without printing a result:
      against the CPU and the rasterizer's device ms;
   14. ``[track-eval]`` (in [eval]'s directory): ``run benchmark
      --benchmark-type st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir``
-     in-process over two of [reader]'s items read with their track sources
+     in-process over one of [reader]'s items read with its track sources
      (TAPIR on seeded random weights): 78 K2 launches per item, checked as
      [eval] checks its runs;
   15. ``[track-lk]``: ``default`` with the track branch and the LK tracker
@@ -131,17 +131,27 @@ exits non-zero without printing a result:
      small clip (grids, heads, tracks, visibility), chunked tracking against
      one call, then both tapir bundles at 288x550 as [track-lk] (the
      ``_raw_res`` one on ±2 track frames since PR 15), with the peak memory;
-  17. ``[vis]`` (in [eval]'s directory): [reader]'s scene written anew with
+  17. ``[track-cotracker]``: CoTracker on seeded, damped random weights:
+     ``CoTrackerTracker`` one set on the card against the CPU on a T = 10
+     64x96 clip at the published 384x512, six refinements (the encoder,
+     the tracks, the visibility); 8192 valid queries in chunks of 4096
+     equal to one-set calls on each chunk, bit for bit; the
+     ``..._track_cotracker`` bundle at 288x550 on ±1 track frames as
+     [track-lk] (78 K2 launches, the tracker's FLOPs, rate and the s/view
+     they predict at ±5); and, in [eval]'s directory after [track-eval],
+     ``run benchmark`` of the bundle over one item with the tracker's
+     ``.pth`` under ``$PGDVS_CKPT_DIR``, checked as [eval] checks its runs;
+  18. ``[vis]`` (in [eval]'s directory): [reader]'s scene written anew with
      flows at its 576x1100 frame size, through ``run benchmark
      --benchmark-type visualize_nvidia_max_disp_32`` in-process, the
-     400-frame trajectory cut to 8 frames by ``--dataset-arg``: K2 masked
+     400-frame trajectory cut to 4 frames by ``--dataset-arg``: K2 masked
      once per 2048-ray tile of each 576x1100 frame, each PNG the frame's
      render truncated, frame 0's static layer held against the CPU on a
      crop, s/frame, host ms per item, the video written or skipped;
-  18. ``[mono-vis]``: a DAVIS-layout scene at 480x854 (``write_mono_scene``,
+  19. ``[mono-vis]``: a DAVIS-layout scene at 480x854 (``write_mono_scene``,
      12 frames) through ``run vis --dataset mono_vis`` for 4 frames on the
      fast preset (K1 patch_rows), checked as [vis];
-  19. ``[dycheck]``: a synthetic iPhone capture (``write_iphone_capture``,
+  20. ``[dycheck]``: a synthetic iPhone capture (``write_iphone_capture``,
      360x480, 24 train frames, one val frame at a train time and one
      between two) through ``run benchmark --benchmark-type default
      --dataset-family dycheck_iphone`` on the fast preset (K2 masked) and on
@@ -151,7 +161,7 @@ exits non-zero without printing a result:
      ms per item and of the KMeans refit, s/item.
 
 The second-to-last line is a JSON object describing each kernel (its times,
-its launches on its path, its launches per frame / item on phases 17-19 and
+its launches on its path, its launches per view / frame / item on phases 17-20 and
 its bound on the card); the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device: without one it exits
 non-zero before doing anything. Imports nothing of JAX.
@@ -2600,7 +2610,9 @@ TRACK_K = 5                 # ±5 track frames: T = 12 slots
 TRACK_K_RAW_RES = 2
 TRACK_BUNDLES = ("st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir",
                  "st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir_raw_res")
-TRACK_EVAL_ITEMS = 2
+# one item: each TAPIR item on ±5 track frames costs ~41 s of the script's
+# time, which [track-cotracker] takes
+TRACK_EVAL_ITEMS = 1
 # the reduced-size branch on the card against the CPU (48x64, k_track=2):
 # LK on both; a query whose visibility flips between the two moves one
 # point, which may change a few pixels of the track layer
@@ -2755,7 +2767,7 @@ def phase_track_lk(models, smi, h=288, w=550, n_samples=256):
     ``dyn_render_track_temporal="no_tgt"`` and ``LucasKanadeTracker()``, at
     288x550 with 10 sources, 256 samples and ±5 track frames through
     ``phase_main_path`` (78 K2 launches, the static crop against the CPU,
-    s/view after a warm-up, peak memory); ``track_breakdown``; then the same
+    s/view of one render after a warm-up, peak memory); ``track_breakdown``; then the same
     branch at TRACK_CPU_HW with ``k_track=2`` held against the port on the
     CPU (``render_dynamic``: masks equal but for TRACK_MASK_FLIPS of the
     pixels, rgb within TRACK_RGB_TOL where they agree)."""
@@ -2768,8 +2780,9 @@ def phase_track_lk(models, smi, h=288, w=550, n_samples=256):
     tracker = LucasKanadeTracker()
     rec = RecordingTracker(tracker)
     data = _track_contract(h, w, TRACK_K, "cuda")
+    # one timed render: a second costs ~7 s of the script's time
     launches, secs, out = phase_main_path(models, bundle="default", data=data, tag=tag,
-                                          n_samples=n_samples, cols=(160, 224),
+                                          n_samples=n_samples, cols=(160, 224), n_timed=1,
                                           tracker=rec, dyn_render_track_temporal="no_tgt")
     if not bool(out["render_dyn_temporal_track_mask"].any()):
         raise AssertionError(f"{tag} the track layer is empty")
@@ -2890,6 +2903,267 @@ def phase_track_tapir(models, smi, h=288, w=550, n_samples=256):
         del out, data
 
 
+# ------------------------------------------------------------- CoTracker
+
+COTRACKER_BUNDLE = "st_gnt_masked_attn_dy_cvd_pcl_clean_track_cotracker"
+# the bundle on ±1 track frames (T = 4: one window each way; ~62k valid
+# queries, 16 chunks of 4096): on ±5 (T = 12: two windows each way; ~310k
+# queries, 76 chunks) CoTracker takes minutes a view by its FLOP count,
+# which the smoke has no room for; [track-cotracker] predicts ±5 from the
+# rate it measures, scripts/profile_port_render.py --tracker cotracker
+# measures it
+TRACK_K_COTRACKER = 1
+# CoTrackerTracker on the card against the CPU: a T = 10 clip (windows at 0
+# and 4, so the carry and the backward merge run) of 64x96 frames at the
+# published 384x512 working size, six refinements, COTRACKER_QUERIES queries
+# whose first frames fall in both windows, then COTRACKER_QUERIES_LARGE on
+# the clip's first four frames (one window; attention and the GEMMs nearer
+# the shapes of a production chunk); both sides float32 with TF32 off.
+# The encoder's features (up to ~3) within COTRACKER_FMAP_TOL; the tracks by
+# median and 90th percentile of |card - CPU| (px) and a share moved by more
+# than 8 px, as [track-tapir] holds TAPIR (six refinements feed the sampled
+# correlation back into the positions); visibility agreeing on
+# COTRACKER_VIS_SHARE. Chunked tracking equals one-set calls bit for bit.
+COTRACKER_CLIP = (10, 64, 96)
+COTRACKER_QUERIES = 64
+COTRACKER_QUERIES_LARGE = 1024
+COTRACKER_FMAP_TOL = 1e-3
+COTRACKER_TRACK_MEDIAN = 0.05
+COTRACKER_TRACK_P90 = 0.5
+COTRACKER_OUTLIERS = 0.05
+COTRACKER_VIS_SHARE = 0.97
+COTRACKER_CHUNK_VALID = 8192
+
+
+def _conv_flops(cin, cout, k, h, w):
+    return 2 * cin * cout * k * k * h * w
+
+
+def cotracker_flops(n_valid, t_frames, iters=6, s=8, grid=36):
+    """FLOPs of one ``make_tracker("cotracker")`` call on ``n_valid`` valid
+    queries over ``t_frames`` frames (what this data needs): the encoder once
+    per frame at 384x512, then per chunk of 4096 (its queries plus the
+    support grid, N tokens), forward and time-flipped, per window and
+    refinement: the dense layers (42.9 MFLOP a token), space attention (1536
+    N^2 a frame and block), time attention and the correlation against the
+    four pyramid levels."""
+    from pgdvs_tpu_torch.models.tracking.cotracker import CHUNK, INTERP_HW
+
+    hi, wi = INTERP_HW
+    h2, w2, h4, w4 = hi // 2, wi // 2, hi // 4, wi // 4
+    h8, w8, h16, w16 = hi // 8, wi // 8, hi // 16, wi // 16
+    enc = (_conv_flops(3, 64, 7, h2, w2) + 4 * _conv_flops(64, 64, 3, h2, w2)
+           + _conv_flops(64, 96, 3, h4, w4) + 3 * _conv_flops(96, 96, 3, h4, w4)
+           + _conv_flops(64, 96, 1, h4, w4)
+           + _conv_flops(96, 128, 3, h8, w8) + 3 * _conv_flops(128, 128, 3, h8, w8)
+           + _conv_flops(96, 128, 1, h8, w8)
+           + 4 * _conv_flops(128, 128, 3, h16, w16) + _conv_flops(128, 128, 1, h16, w16)
+           + _conv_flops(416, 256, 3, h4, w4) + _conv_flops(256, 128, 1, h4, w4))
+    dense = 2 * (456 * 384 + 12 * (384 * 1152 + 384 * 384 + 2 * 384 * 1536) + 384 * 130
+                 + 128 * 128 + 128)
+    levels = sum((h4 >> lvl) * (w4 >> lvl) for lvl in range(4))
+    windows = len(range(0, max(t_frames - s // 2, 1), s // 2))
+    total = enc * t_frames
+    for start in range(0, n_valid, CHUNK):
+        n = min(CHUNK, n_valid - start) + grid
+        per_frame = (n * dense + 6 * 4 * n * n * 384 + 6 * 4 * n * s * 384
+                     + 2 * n * 128 * levels)
+        total += 2 * windows * iters * s * per_frame
+    return total
+
+
+def phase_track_cotracker(models, smi, h=288, w=550, n_samples=256):
+    """[track-cotracker]: CoTracker on seeded, damped random weights
+    (``init_cotracker_weights``: no checkpoint is in the repository). (a)
+    ``CoTrackerTracker(chunk=None)`` on the card against the CPU on
+    COTRACKER_CLIP (the encoder, the tracks, the visibility) and on
+    COTRACKER_QUERIES_LARGE queries over its first four frames; (b)
+    COTRACKER_CHUNK_VALID valid queries among invalid slots with chunks of
+    4096 against one-set calls on each chunk's valid queries, and one set
+    on the compacted valid queries against a single chunk of them: equal;
+    (c) the CoTracker bundle at 288x550 (10 sources, 256 samples, ±1 track
+    frames, make_tracker's chunks of 4096) through ``phase_main_path`` (78
+    K2 launches, the static crop against the CPU, s/view after a warm-up,
+    peak memory) and ``track_breakdown``, the tracker's FLOPs and rate and
+    the s/view they predict at ±5. Returns (c)'s launches."""
+    import copy
+    import math
+
+    import torch
+
+    from pgdvs_tpu_torch.data import synthetic
+    from pgdvs_tpu_torch.models.tracking.cotracker import (CHUNK, CoTrackerModel,
+                                                            CoTrackerTracker,
+                                                            init_cotracker_weights)
+    from pgdvs_tpu_torch.models.tracking.tapir import no_tf32
+    from pgdvs_tpu_torch.renderers.dynamic_track import build_track_stack, select_queries
+
+    tag = "[track-cotracker]"
+    model = init_cotracker_weights(CoTrackerModel(), seed=SEED).eval()
+    cpu = CoTrackerTracker(copy.deepcopy(model))
+    card = CoTrackerTracker(model).to("cuda")
+    t_n, fh, fw = COTRACKER_CLIP
+    frames = np.stack([synthetic.render_frame(fh, fw, synthetic.camera_pose(i + 1, 10),
+                                              0.3 + 0.05 * i)["rgb"] for i in range(t_n)])
+    frames = torch.from_numpy(frames.astype(np.float32))
+    rng = np.random.default_rng(SEED)
+
+    def against_cpu(clip, n):
+        """Tracks and visibility of ``n`` random queries over ``clip`` on the
+        card against the CPU, held to the tolerances above."""
+        t_c = clip.shape[0]
+        qc = torch.from_numpy(np.stack([rng.integers(0, t_c, n), rng.uniform(0, fw - 1, n),
+                                        rng.uniform(0, fh - 1, n)], axis=-1).astype(np.float32))
+        if t_c > 8 and not ((qc[:, 0] < 4).any() and (qc[:, 0] >= 8).any()):
+            raise AssertionError(f"{tag} the queries' first frames miss a window")
+        (tr_card, vis_card), card_ms = _event_ms(lambda: card(clip.cuda(), qc.cuda()))
+        t0 = time.perf_counter()
+        tr_cpu, vis_cpu = cpu(clip, qc)
+        cpu_s = time.perf_counter() - t0
+        d = (tr_card.cpu() - tr_cpu).abs().numpy()
+        med, p90, outl = float(np.median(d)), float(np.quantile(d, 0.9)), float((d > 8.0).mean())
+        vis_share = float((vis_card.cpu() == vis_cpu).float().mean())
+        if not (med <= COTRACKER_TRACK_MEDIAN and p90 <= COTRACKER_TRACK_P90
+                and outl <= COTRACKER_OUTLIERS and vis_share >= COTRACKER_VIS_SHARE):
+            raise AssertionError(f"{tag} card vs CPU at T {t_c}, {n} queries: tracks median "
+                                 f"{med}, p90 {p90}, outliers {outl}, visibility agreeing "
+                                 f"{vis_share}")
+        log(f"{tag} CoTrackerTracker card vs CPU (T {t_c}, {fh}x{fw} -> 384x512, {n} queries "
+            f"+ the 6x6 grid, 6 refinements, TF32 off): tracks |d| median {med:.2e} p90 "
+            f"{p90:.2e} px, share > 8 px {outl:.4f}, visibility agreeing {vis_share:.4f} "
+            f"(visible on the card {float(vis_card.float().mean()):.4f}); card {card_ms:.1f} ms "
+            f"(first call at this size), CPU {cpu_s:.2f} s")
+
+    with torch.no_grad(), no_tf32():
+        fmap_err = float((card.encode(frames.cuda()).cpu() - cpu.encode(frames)).abs().max())
+    if not fmap_err <= COTRACKER_FMAP_TOL:
+        raise AssertionError(f"{tag} card vs CPU: encoder max err {fmap_err}")
+    log(f"{tag} encoder card vs CPU (T {t_n}, {fh}x{fw} -> 384x512): max err {fmap_err:.2e}")
+    against_cpu(frames, COTRACKER_QUERIES)
+    against_cpu(frames[:4], COTRACKER_QUERIES_LARGE)
+    del cpu
+
+    # (b) chunks against one-set calls, on the clip's first four frames
+    t4 = frames[:4].cuda()
+    slots, nv = COTRACKER_CHUNK_VALID * 3 // 2, COTRACKER_CHUNK_VALID
+    qq = torch.from_numpy(np.stack([rng.integers(0, 4, slots), rng.uniform(0, fw - 1, slots),
+                                    rng.uniform(0, fh - 1, slots)],
+                                   axis=-1).astype(np.float32)).cuda()
+    valid = torch.zeros(slots, dtype=torch.bool)
+    valid[torch.from_numpy(rng.choice(slots, nv, replace=False))] = True
+    valid = valid.cuda()
+    rows = torch.nonzero(valid)[:, 0]
+    (tr, vis), chunked_ms = _event_ms(lambda: CoTrackerTracker(model, chunk=CHUNK)(t4, qq,
+                                                                                   valid))
+    same = not bool(tr[~valid].any()) and not bool(vis[~valid].any())
+    one_ms = []
+    for i in range(0, nv, CHUNK):
+        sel = rows[i:i + CHUNK]
+        (ref_tr, ref_vis), ms = _event_ms(lambda: card(t4, qq[sel]))
+        one_ms.append(ms)
+        same &= torch.equal(tr[sel], ref_tr) and torch.equal(vis[sel], ref_vis)
+    (big_tr, big_vis), big_ms = _event_ms(lambda: CoTrackerTracker(model, chunk=nv)(t4, qq,
+                                                                                    valid))
+    (whole_tr, whole_vis), whole_ms = _event_ms(lambda: card(t4, qq[rows]))
+    same_big = torch.equal(big_tr[rows], whole_tr) and torch.equal(big_vis[rows], whole_vis)
+    if not (same and same_big):
+        raise AssertionError(f"{tag} chunked tracking differs from one-set calls: chunks of "
+                             f"{CHUNK} {same}, one chunk of {nv} {same_big}")
+    log(f"{tag} {nv} valid queries of {slots} slots (T 4) in chunks of {CHUNK} == one-set "
+        f"calls on each chunk's valid queries, invalid rows zero and invisible; a chunk of "
+        f"{nv} == one set on the compacted queries; bit for bit. Device ms: chunked "
+        f"{chunked_ms:.1f}, one-set per chunk " + ", ".join(f"{x:.1f}" for x in one_ms)
+        + f", one chunk of {nv} {big_ms:.1f}, one set of {nv} {whole_ms:.1f}")
+    del tr, vis, big_tr, big_vis, whole_tr, whole_vis, qq
+
+    # (c) the bundle at 288x550, make_tracker's chunks
+    btag = f"{tag}[bundle]"
+    data = _track_contract(h, w, TRACK_K_COTRACKER, "cuda")
+    rec = RecordingTracker(CoTrackerTracker(model, chunk=CHUNK))
+    launches, secs, out = phase_main_path(models, bundle=COTRACKER_BUNDLE, data=data, tag=btag,
+                                          n_samples=n_samples, cols=(160, 224), n_timed=1,
+                                          tracker=rec)
+    if not bool(out["render_dyn_temporal_track_mask"].any()):
+        raise AssertionError(f"{btag} the track layer is empty")
+    cfg = slice_config(COTRACKER_BUNDLE, n_samples)
+    stats = track_breakdown(btag, data, cfg, rec, smi, require_points=False)
+    nq = stats["valid_queries"]
+    t_slots = 2 * TRACK_K_COTRACKER + 2
+    flops = cotracker_flops(nq, t_slots)
+    track_s = rec.calls[-1]["ms"] / 1e3
+    rate = flops / track_s
+    far = _track_contract(h, w, TRACK_K, "cuda")
+    nq5 = int(select_queries(build_track_stack(far), h * w)[1].sum())
+    flops5 = cotracker_flops(nq5, 2 * TRACK_K + 2)
+    rest = statistics.mean(secs) - track_s
+    log(f"{btag} K2 launches {launches['gnt_fused_mono3']}; tracker: {nq} valid queries in "
+        f"{math.ceil(nq / CHUNK)} chunks of {CHUNK}, T {t_slots}, "
+        f"{flops / 1e12:.2f} TFLOP in {track_s:.3f} s = {rate / 1e12:.2f} TFLOP/s; track layer "
+        f"covers {float(out['render_dyn_temporal_track_mask'].mean()):.4f} of the view; s/view "
+        f"{statistics.mean(secs):.4f} (the rest of the render {rest:.3f} s); peak device memory "
+        f"of a render {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; on {smi}")
+    log(f"{btag} predicted at ±{TRACK_K} track frames (T {2 * TRACK_K + 2}, {nq5} valid "
+        f"queries, {math.ceil(nq5 / CHUNK)} chunks): {flops5 / 1e12:.1f} TFLOP, "
+        f"{flops5 / rate + rest:.1f} s/view at this rate")
+    return launches
+
+
+def phase_track_cotracker_cli(models, root, smi, eval_hw=READER_EVAL_HW, n_samples=256):
+    """[track-cotracker][cli]: ``run benchmark --benchmark-type
+    st_gnt_masked_attn_dy_cvd_pcl_clean_track_cotracker`` in-process over
+    [reader]'s first item with ±1 track frames (``--dataset-arg
+    n_src_views_temporal_track_one_side=1``), ``$PGDVS_CKPT_DIR`` the [eval]
+    checkpoints plus a seeded, damped CoTracker state dict in the
+    reference's key layout saved as
+    ``cotracker/cotracker_stride_4_wind_8.pth`` (so the card runs the .pth
+    loader and ``make_tracker``): 78 K2 launches, the pickle, summary.json
+    and PNG checked as [eval] checks them. Returns the launches."""
+    import os
+
+    import torch
+
+    from pgdvs_tpu_torch.data.nvidia_eval import NvidiaEvalDataset
+    from pgdvs_tpu_torch.models.tracking.cotracker import CoTrackerModel, init_cotracker_weights
+    from pgdvs_tpu_torch.renderers.static_gnt import resolve_epipolar_cfg
+
+    tag = "[track-cotracker][cli]"
+    scene, ckpts = root / "scene", root / "ckpts"
+    pth = ckpts / "cotracker" / "cotracker_stride_4_wind_8.pth"
+    pth.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(init_cotracker_weights(CoTrackerModel(), seed=SEED).state_dict(), pth)
+    ds = NvidiaEvalDataset(scene, scene_ids=[READER_SCENE], tgt_height=eval_hw[0],
+                           with_track_sources=True,
+                           n_src_views_temporal_track_one_side=TRACK_K_COTRACKER)
+    items = [ds[0]]
+    h, w = items[0]["rgb_tgt"].shape[:2]
+    cfg = resolve_epipolar_cfg(slice_config(COTRACKER_BUNDLE, n_samples), models[1], h, w)[0]
+    want = expected_launches(cfg, h * w)
+    out = root / "cotracker_benchmark"
+    old = os.environ.get("PGDVS_CKPT_DIR")
+    os.environ["PGDVS_CKPT_DIR"] = str(ckpts)
+    try:
+        result, renders, _stages = _run_cli(
+            ["benchmark", "--benchmark-type", COTRACKER_BUNDLE, "--data-root", str(scene),
+             "--scene-ids", READER_SCENE, "--max-items", "1", "--device", "cuda",
+             "--dataset-arg", f"tgt_height={eval_hw[0]}",
+             f"n_src_views_temporal_track_one_side={TRACK_K_COTRACKER}",
+             "--render-cfg", f"n_coarse_samples_per_ray={n_samples}", "--out-dir", str(out)],
+            tag, 1, want)
+    finally:
+        if old is None:
+            os.environ.pop("PGDVS_CKPT_DIR", None)
+        else:
+            os.environ["PGDVS_CKPT_DIR"] = old
+    worst = _check_eval_outputs(out, result, renders, items, random_lpips(), tag)
+    n_track = int(items[0]["n_actual_src_track_fwd"][0] + items[0]["n_actual_src_track_bwd"][0])
+    log(f"{tag} run benchmark --benchmark-type {COTRACKER_BUNDLE} with {pth.name} from "
+        f"$PGDVS_CKPT_DIR: 1 item ({n_track} real track frames), {cfg.epipolar_mode} sampling, "
+        f"launches {_nonzero(want)}; pickle == compute_nvidia_metrics on the CPU (LPIPS rel "
+        f"{worst:.2e}), summary.json, PNG == truncated render; render s/view "
+        f"{renders[0][0]:.4f}; mean " + json.dumps(result["mean"]) + f"; on {smi}")
+    return want
+
+
 def phase_track_eval(models, root, smi, n_items=TRACK_EVAL_ITEMS, eval_hw=READER_EVAL_HW,
                      n_samples=256):
     """[track-eval]: ``python -m pgdvs_tpu_torch.run benchmark --benchmark-type
@@ -2943,7 +3217,7 @@ def phase_track_eval(models, root, smi, n_items=TRACK_EVAL_ITEMS, eval_hw=READER
 VIS_BUNDLE = "visualize_nvidia_max_disp_32"
 # [reader]'s 24-frame scene (flows at the frame size), the bullet-time
 # trajectory cut from 400 frames to VIS_FRAMES around frame 12
-VIS_FRAMES = 8
+VIS_FRAMES = 4               # ~7 s a frame of the script's time
 VIS_ARGS = (f"n_render_frames={VIS_FRAMES}", "vis_center_time=12", "vis_time_interval=6")
 VIS_FLOW_FRAMES = ((6, 20),)
 VIS_ROWS, VIS_COLS = (284, 288), (520, 584)
@@ -3284,14 +3558,17 @@ def main() -> int:
         phase_jpeg(smi)
         phase_geo(root / "geo", smi)
         phase_track_eval(models, root, smi)
-        # the visualization and DyCheck entry points: launches per frame / item
-        paths = {"[vis]": phase_vis(models, root, smi),
+        # launches per frame / item of the CoTracker CLI run and of the
+        # visualization and DyCheck entry points
+        paths = {"[track-cotracker][cli]": phase_track_cotracker_cli(models, root, smi),
+                 "[vis]": phase_vis(models, root, smi),
                  "[mono-vis]": phase_mono_vis(models, root, smi)}
         paths.update({f"[dycheck][{preset}]": want
                       for preset, want in phase_dycheck(models, root, smi).items()})
     phase_point_mesh(models, smi)
     phase_track_lk(models, smi)
     phase_track_tapir(models, smi)
+    paths["[track-cotracker]"] = phase_track_cotracker(models, smi)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     rows = []
@@ -3329,7 +3606,8 @@ def main() -> int:
             "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"],
             "bound_by": times["bound_by"],
-            # launches per frame / item on the vis and DyCheck entry points
+            # launches per view / frame / item on the CoTracker bundle and
+            # the vis and DyCheck entry points
             "launches_by_path": {tag: want[kname] for tag, want in paths.items()},
             # no single PyTorch call computes the GNT forward, a half-block
             # with its weights row, or the prologue (two dense layers, a

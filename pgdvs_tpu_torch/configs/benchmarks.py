@@ -14,8 +14,8 @@ removal, masked_attn / masked_input = GNT dynamic-mask handling, zoed =
 ZoeDepth instead of CVD depth, track_* = occlusion recovery via tracking.
 
 Every name resolves; ``make_tracker`` builds a bundle's tracker
-(Lucas-Kanade or TAPIR) on the card unless asked for the CPU, and raises
-ValueError for CoTracker, which is not ported; the CLI runs the
+(Lucas-Kanade, TAPIR or CoTracker) on the card unless asked for the CPU;
+the CLI runs the
 ``visualize_nvidia_*`` bundles (``engine: "vis"``) through the Visualizer.
 """
 
@@ -179,7 +179,7 @@ BENCHMARK_TYPES: Dict[str, Dict[str, Any]] = {
     },
     "st_gnt_masked_attn_dy_cvd_pcl_clean_track_cotracker": {
         "static_mode": "gnt",
-        "tracker": "cotracker",  # flax CoTracker port (needs the released
+        "tracker": "cotracker",  # the port's CoTracker (needs the released
         #                          checkpoint; tracker='lk' is weight-free)
         "render_cfg": dict(
             gnt_use_dyn_mask=True,
@@ -237,18 +237,16 @@ def resolve_benchmark(name: str, preset: str = "fast"):
     return (apply_perf_preset(cfg) if preset == "fast" else cfg), spec
 
 
-# ROADMAP.md, queue 1, item 4 (the branches slice) carries CoTracker
-COTRACKER_ITEM = "ROADMAP.md queue 1 item 4, the branches slice: track, CoTracker"
-
-
 def make_tracker(name, device="cuda"):
     """The tracker a bundle names (its ``tracker`` entry) on ``device``
     (default the card, as ``Evaluator``'s):
     None for None / "none", ``LucasKanadeTracker()`` for "lk", TAPIR at
     256x256 for "tapir" and at the frames' size for "tapir_raw_res" (the
     released checkpoint under ``$PGDVS_CKPT_DIR``, else seeded random
-    weights with a warning). "cotracker" raises ValueError (not ported);
-    any other name KeyError."""
+    weights with a warning), CoTracker for "cotracker" (the released
+    checkpoint, else FileNotFoundError, as the JAX package's; the valid
+    queries in chunks of 4096, ``cotracker.CHUNK``); any other name
+    KeyError."""
     if name in (None, "none"):
         return None
     if name == "lk":
@@ -260,6 +258,7 @@ def make_tracker(name, device="cuda"):
 
         return make_tapir_tracker(keep_raw_res=name == "tapir_raw_res", device=device)
     if name == "cotracker":
-        raise ValueError(f"the 'cotracker' tracker is not ported yet ({COTRACKER_ITEM}); "
-                         "the ported trackers are 'lk', 'tapir' and 'tapir_raw_res'")
+        from pgdvs_tpu_torch.models.tracking.cotracker import make_cotracker_tracker
+
+        return make_cotracker_tracker(device=device)
     raise KeyError(f"unknown tracker {name!r}")

@@ -31,7 +31,9 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     ``frame`` (integer, broadcast against x), img [T, H, W, C] at those
     frames.
 
-    zero_pad: taps outside the image contribute zero; otherwise the
+    zero_pad: taps outside the image contribute zero (on an axis one pixel
+    wide the second tap always lies outside, as in JAX's narrow-image path;
+    its path for 8 channels and more reads the edge there); otherwise the
     coordinate is edge-clamped.
     """
     h, w = img.shape[-3], img.shape[-2]
@@ -42,6 +44,11 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         wx1 = torch.clamp(1.0 - torch.abs(x - (sx + 1.0)), min=0.0)
         wy0 = torch.clamp(1.0 - torch.abs(y - sy), min=0.0)
         wy1 = torch.clamp(1.0 - torch.abs(y - (sy + 1.0)), min=0.0)
+        # a one-pixel-wide axis has no second tap: it lies outside, so zero
+        if w < 2:
+            wx1 = torch.zeros_like(wx1)
+        if h < 2:
+            wy1 = torch.zeros_like(wy1)
     else:
         fx = torch.clamp(x, 0, w - 1.0) - sx
         fy = torch.clamp(y, 0, h - 1.0) - sy

@@ -9,9 +9,12 @@ The tracker contract, shared by every implementation (the JAX package's,
   * ``lk.LucasKanadeTracker``: pyramidal Lucas-Kanade, no weights;
   * ``tapir.TapirTracker`` (``tapir.make_tapir_tracker``): the TAPIR
     network, its weights from the released haiku checkpoint
-    (``tapir_port``) or from flax (``params_from_jax``).
-
-CoTracker is not ported yet.
+    (``tapir_port``) or from flax (``params_from_jax``);
+  * ``cotracker.CoTrackerTracker`` (``cotracker.make_cotracker_tracker``):
+    the CoTracker transformer, its weights from the released ``.pth``
+    (``cotracker_port``) or from flax (``params_from_jax``); with
+    ``chunk=None`` every query in one set as in the JAX package, else the
+    valid queries in chunks (``one_set`` tells the renderer which).
 """
 
 from pgdvs_tpu_torch.models.tracking.lk import LucasKanadeTracker  # noqa: F401

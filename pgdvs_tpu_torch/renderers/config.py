@@ -50,7 +50,7 @@ removal, ``st_pcl_remove_outlier``); the dynamic layer by softsplat, the
 point rasterizer or the grid mesh (``dyn_render_type``), with or without
 statistical outlier removal (``dyn_pcl_remove_outlier``), with or without
 the track branch (``dyn_render_track_temporal="no_tgt"`` and a tracker of
-``models.tracking``: Lucas-Kanade or TAPIR; CoTracker is not ported).
+``models.tracking``: Lucas-Kanade, TAPIR or CoTracker).
 ``check_slice`` raises ValueError for an unknown mode; nothing falls back
 silently.
 """

@@ -13,10 +13,14 @@ base cloud and z-buffer rasterized.
 The frames are stacked [T = 2K + 2] with a mask of the real track slots, and
 the queries keep the JAX package's slot layout (every pixel of every frame,
 dynamic ones first). The port then tracks only the valid queries: no
-query's track depends on another's, and the invalid ones yield no point, so
-the cloud is built on the compacted set (and the KNN filters compact it
-again); JAX's one call over all T * H * W slots would not fit a card at full
-width.
+Lucas-Kanade or TAPIR track depends on another's, and the invalid ones yield
+no point, so the cloud is built on the compacted set (and the KNN filters
+compact it again); JAX's one call over all T * H * W slots would not fit a
+card at full width. A tracker whose queries do share a call (CoTracker's
+attention couples them) tells the renderer by its ``one_set`` attribute:
+in one-set mode it gets JAX's whole slot layout and the valid mask, as
+JAX's renderer hands them over; otherwise (``make_tracker``'s CoTracker
+chunks the valid queries) the compacted valid queries, as the others.
 """
 
 from __future__ import annotations
@@ -159,21 +163,25 @@ def render_with_track(data, cfg: RenderConfig, tracker, base_pcl: dict):
         (``dynamic.compute_dyn_pointcloud``).
 
     Every dynamic pixel of the real track frames is a query (the JAX
-    package's default capacity, ``track_queries_per_frame=0``).
+    package's default capacity, ``track_queries_per_frame=0``). A tracker
+    with ``one_set`` true gets every slot and the valid mask; any other the
+    valid queries alone.
 
     Returns {'rgb': [H, W, 3], 'mask': [H, W, 1]}.
     """
     h, w = data["rgb_src_temporal"].shape[1:3]
     stack = build_track_stack(data)
     queries, q_valid = select_queries(stack, h * w)
-    queries = queries[q_valid]
-    n_valid = queries.shape[0]
     dev = base_pcl["points"].device
-    if n_valid:
-        tracks, visibles = tracker(stack["rgbs"], queries)
-        ones = torch.ones((n_valid,), dtype=torch.bool, device=dev)
+    if bool(q_valid.any()):
+        if getattr(tracker, "one_set", False):
+            tracks, visibles = tracker(stack["rgbs"], queries, q_valid)
+        else:
+            queries = queries[q_valid]
+            q_valid = torch.ones((queries.shape[0],), dtype=torch.bool, device=dev)
+            tracks, visibles = tracker(stack["rgbs"], queries)
         points, colors, valid = compute_track_pointcloud(
-            stack, tracks, visibles, ones, data["time_tgt"][0], base_pcl["points"],
+            stack, tracks, visibles, q_valid, data["time_tgt"][0], base_pcl["points"],
             base_pcl["colors"], base_pcl["valid"], base_pcl["nn_dist_thres"], cfg)
     else:
         points = colors = torch.zeros((0, 3), device=dev)

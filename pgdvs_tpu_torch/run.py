@@ -12,10 +12,10 @@ readers are the JAX package's five: ``nvidia_eval``,
 ``engines.visualizer.Visualizer`` into ``--out-dir``. The geo static mode
 (``--static-mode geo`` on ``nvidia_eval_pure_geo``, the ``st_cvd_*``
 bundles) renders no network, so it loads no GNT. A bundle's tracker
-(Lucas-Kanade or TAPIR, the ``_track_tapir`` bundles) is built by
-``configs.benchmarks.make_tracker`` on ``--device``. What the port does not
-carry yet raises, naming its ``ROADMAP.md`` item: the CoTracker tracker;
-the train and bench subcommands are not there.
+(Lucas-Kanade, TAPIR for the ``_track_tapir`` bundles, CoTracker for
+``_track_cotracker`` from ``$PGDVS_CKPT_DIR``) is built by
+``configs.benchmarks.make_tracker`` on ``--device``. The train and bench
+subcommands are not there.
 
 Examples:
   python -m pgdvs_tpu_torch.run eval --data-root /data --scene-ids Balloon1 \

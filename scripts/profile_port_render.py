@@ -10,6 +10,8 @@
     python3 scripts/profile_port_render.py --bundle default --tracker lk   # the track branch
     python3 scripts/profile_port_render.py \
         --bundle st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir --tracker tapir
+    python3 scripts/profile_port_render.py \
+        --bundle st_gnt_masked_attn_dy_cvd_pcl_clean_track_cotracker --tracker cotracker
 
 Renders the 288x550, 10-source, 256-sample synthetic scene of
 ``chip_smoke.py`` once as a warm-up, times a second render with the host
@@ -22,15 +24,19 @@ whose complement is the idle share of a view. With ``--tracker`` the scene
 carries ±5 track frames and the render runs the track branch
 (``dyn_render_track_temporal="no_tgt"``) with that tracker
 (``configs.benchmarks.make_tracker``; TAPIR on seeded random weights
-without a checkpoint). Needs a CUDA device.
+without a checkpoint; CoTracker without one on ``init_cotracker_weights``'
+seeded, damped weights, saved as a ``.pth`` in a temporary ``PGDVS_CKPT_DIR``
+and loaded by make_tracker, which tracks in chunks of 4096). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -62,7 +68,8 @@ def main() -> int:
                     "exact (the reference-faithful sampler)")
     ap.add_argument("--fine", type=int, default=0,
                     help="fine samples per ray (a second pass on the merged samples)")
-    ap.add_argument("--tracker", default=None, choices=("lk", "tapir", "tapir_raw_res"),
+    ap.add_argument("--tracker", default=None,
+                    choices=("lk", "tapir", "tapir_raw_res", "cotracker"),
                     help="run the track branch with this tracker (±5 track frames)")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
@@ -78,6 +85,8 @@ def main() -> int:
     import chip_smoke
     from pgdvs_tpu_torch.configs.benchmarks import make_tracker
     from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.models.tracking.cotracker import CoTrackerModel, init_cotracker_weights
+    from pgdvs_tpu_torch.models.tracking.cotracker_port import load_cotracker_checkpoint
     from pgdvs_tpu_torch.renderers.compose import render_novel_view
     from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
 
@@ -89,7 +98,25 @@ def main() -> int:
     models = init_gnt_models(seed=chip_smoke.SEED)
     cfg = chip_smoke.slice_config(args.bundle, preset=args.preset,
                                   n_fine_samples_per_ray=args.fine)
-    tracker = make_tracker(args.tracker, device="cuda")
+    if args.tracker == "cotracker" and load_cotracker_checkpoint() is None:
+        # seeded, damped weights saved where make_tracker's loader reads them
+        print("[profile] no CoTracker checkpoint: seeded, damped random weights")
+        ckpts = tempfile.mkdtemp(prefix="pgdvs_ckpt_")
+        os.makedirs(os.path.join(ckpts, "cotracker"))
+        torch.save(init_cotracker_weights(CoTrackerModel(), chip_smoke.SEED).state_dict(),
+                   os.path.join(ckpts, "cotracker", "cotracker_stride_4_wind_8.pth"))
+        old = os.environ.get("PGDVS_CKPT_DIR")
+        os.environ["PGDVS_CKPT_DIR"] = ckpts
+        try:
+            tracker = make_tracker(args.tracker, device="cuda")
+        finally:
+            if old is None:
+                os.environ.pop("PGDVS_CKPT_DIR")
+            else:
+                os.environ["PGDVS_CKPT_DIR"] = old
+            shutil.rmtree(ckpts)
+    else:
+        tracker = make_tracker(args.tracker, device="cuda")
     if tracker is not None:
         cfg = cfg.replace(dyn_render_track_temporal="no_tgt")
     data_np = make_contract_data(h=288, w=550, n_spatial=10, n_frames=12, tgt_time=0.5,

@@ -10,8 +10,9 @@ dynamic layers run (``--max-items 1``) and their summaries match the JAX
 CLI's (``run.py``) on the same scene, with one reference checkpoint for both
 where a GNT renders (the exact preset; JAX's float32 flax network,
 ``use_pallas_gnt=false``, against the port's float32 network on the CPU);
-what the port does not carry raises, naming its ROADMAP item; ``--device
-cuda`` without a card raises."""
+the CoTracker bundle runs with its tracker's ``.pth`` under
+``$PGDVS_CKPT_DIR`` and renders as ``render_novel_view`` does; what is not a
+mode or a reader raises; ``--device cuda`` without a card raises."""
 
 import argparse
 import dataclasses
@@ -333,6 +334,75 @@ def test_track_bundles_match_the_jax_cli(track_scene, ckpt, tmp_path, monkeypatc
     assert seen and seen[0] > 0
 
 
+COTRACKER_BUNDLE = "st_gnt_masked_attn_dy_cvd_pcl_clean_track_cotracker"
+
+
+def test_cotracker_bundle_runs_from_the_pth(track_scene, ckpt, tmp_path, monkeypatch):
+    """The refusal of the CoTracker bundle before its slice, now a run of
+    one item (the fast preset, ±2 track frames) with the tracker's .pth
+    under $PGDVS_CKPT_DIR (seeded damped weights): the CLI's outputs, and
+    its render equal to render_novel_view's on the same item with the same
+    tracker, GNT and noise. The tracker works at 64x96 with one refinement
+    here (its published 384x512 and six take minutes on the CPU), on one
+    thread, as the suite runs several workers."""
+    import functools
+
+    from pgdvs_tpu_torch.configs.benchmarks import resolve_benchmark
+    from pgdvs_tpu_torch.data.loader import contract_to_device
+    from pgdvs_tpu_torch.data.nvidia_eval import NvidiaEvalDataset
+    from pgdvs_tpu_torch.engines import evaluator as ev
+    from pgdvs_tpu_torch.models.gnt.weight_port import load_gnt_checkpoint
+    from pgdvs_tpu_torch.models.tracking import cotracker as tct
+    from pgdvs_tpu_torch.renderers.config import check_slice
+    from test_torch_port_lk import one_thread
+
+    model = tct.init_cotracker_weights(tct.CoTrackerModel(), seed=0)
+    pth = tmp_path / "ckpts" / "cotracker" / "cotracker_stride_4_wind_8.pth"
+    pth.parent.mkdir(parents=True)
+    torch.save(model.state_dict(), pth)
+    monkeypatch.setenv("PGDVS_CKPT_DIR", str(pth.parent.parent))
+    tracker_cls = tct.CoTrackerTracker
+    monkeypatch.setattr(tct, "CoTrackerTracker", functools.partial(
+        tracker_cls, iters=1, interp_hw=(64, 96)))
+    calls = []
+    real = ev.render_novel_view
+
+    def render(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((kwargs["tracker"], out["combined_rgb"]))
+        return out
+
+    monkeypatch.setattr(ev, "render_novel_view", render)
+    knobs = ["n_coarse_samples_per_ray=8", "ray_tile=256", "st_render_pcl_pt_radius=0.1",
+             "dyn_render_pcl_pt_radius=0.1"]
+    out = tmp_path / "out"
+    with one_thread():
+        result = trun.main(["benchmark", "--benchmark-type", COTRACKER_BUNDLE, "--device",
+                            "cpu", "--data-root", str(track_scene), "--scene-ids",
+                            chip_smoke.READER_SCENE, "--dataset-arg", f"tgt_height={H}",
+                            "n_src_views_spatial=2", "n_src_views_temporal_track_one_side=2",
+                            "--max-items", "1", "--gnt-ckpt", str(ckpt), "--out-dir", str(out),
+                            "--render-cfg", *knobs])
+    _check_outputs(out, result, 1)
+    (tracker, got), = calls
+    assert isinstance(tracker, tracker_cls) and tracker.chunk == 4096
+    for k, v in model.state_dict().items():
+        assert torch.equal(tracker.model.state_dict()[k], v), k
+    item = NvidiaEvalDataset(track_scene, scene_ids=[chip_smoke.READER_SCENE], tgt_height=H,
+                             n_src_views_spatial=2, n_src_views_temporal_track_one_side=2,
+                             with_track_sources=True)[0]
+    assert int(item["n_actual_src_track_bwd"][0]) == 2
+    cfg = resolve_benchmark(COTRACKER_BUNDLE)[0].replace(
+        n_coarse_samples_per_ray=8, ray_tile=256, st_render_pcl_pt_radius=0.1,
+        dyn_render_pcl_pt_radius=0.1)
+    check_slice(cfg, "gnt")
+    with one_thread():
+        ref = real(load_gnt_checkpoint(ckpt, device="cpu"), contract_to_device(item, "cpu"),
+                   cfg, generator=torch.Generator().manual_seed(0), tracker=tracker)
+    assert ref["render_dyn_temporal_track_mask"].any()
+    assert torch.equal(got, ref["combined_rgb"])
+
+
 @pytest.mark.parametrize("field", ["bogus=1", "knn_tile=256"])
 def test_unknown_render_cfg_field_exits(field):
     args = argparse.Namespace(perf_preset="fast", render_cfg=[field])
@@ -344,18 +414,15 @@ def test_unknown_render_cfg_field_exits(field):
     (["eval", "--static-mode", "mesh"], SystemExit, None),
     (["eval", "--render-cfg", "dyn_render_type=splat"], ValueError, "dyn_render_type"),
     (["eval", "--static-mode", "geo"], ValueError, "nvidia_eval_pure_geo"),
-    (["benchmark", "--benchmark-type", "st_gnt_masked_attn_dy_cvd_pcl_clean_track_cotracker"],
-     ValueError, "ROADMAP.md.*track"),
     (["benchmark", "--render-cfg", "dyn_render_track_temporal=always"], ValueError,
      "dyn_render_track_temporal"),
     (["eval", "--dataset", "nvidia_eval_zip"], ValueError, "unknown dataset"),
     (["benchmark", "--render-cfg", "bogus=2"], SystemExit, "unknown render_cfg field"),
 ])
 def test_out_of_port_bundles_raise(tmp_path, extra, exc, match):
-    """What the port does not carry (the CoTracker bundle, since the track
-    branch landed; the tapir bundles run below), and what is not a mode or a
-    reader at all. The refusals of the vis and DyCheck entry points before
-    their slice are runs in test_torch_port_vis.py and
+    """What is not a mode or a reader at all. The refusals of the tapir and
+    CoTracker bundles before their slices are runs below; those of the vis
+    and DyCheck entry points are runs in test_torch_port_vis.py and
     test_torch_port_dycheck.py."""
     with pytest.raises(exc, match=match):
         trun.main([*extra, "--device", "cpu", "--data-root", str(tmp_path)])

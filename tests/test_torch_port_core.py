@@ -116,6 +116,20 @@ def test_bilinear_and_nearest(rig, zero_pad, channels):
     _close(tint.nearest_sample(_t(img), _t(x), _t(y)), jint.nearest_sample(img, x, y))
 
 
+@pytest.mark.parametrize("zero_pad", [True, False])
+@pytest.mark.parametrize("hw", [(1, 13), (11, 1), (1, 1)])
+def test_bilinear_one_pixel_axis(rig, zero_pad, hw):
+    """An axis one pixel wide (CoTracker's coarsest correlation level on
+    small frames): with zero padding its second tap lies outside and adds
+    nothing, as JAX's narrow-image path (C < 8) samples it."""
+    rng = rig["rng"]
+    img = rng.uniform(size=hw + (1,)).astype(np.float32)
+    x = rng.uniform(-1.5, hw[1] + 0.5, (40,)).astype(np.float32)
+    y = rng.uniform(-1.5, hw[0] + 0.5, (40,)).astype(np.float32)
+    _close(tint.bilinear_sample(_t(img), _t(x), _t(y), zero_pad=zero_pad),
+           jint.bilinear_sample(img, x, y, zero_pad=zero_pad))
+
+
 @pytest.mark.parametrize("align_corners", [True, False])
 def test_resize_and_backwarp(rig, align_corners):
     rng = rig["rng"]

@@ -37,6 +37,8 @@ from pgdvs_tpu.models.tracking.tapir_port import remap_haiku_params as j_remap
 from pgdvs_tpu_torch.configs.benchmarks import make_tracker
 from pgdvs_tpu_torch.core.interpolate import resize
 from pgdvs_tpu_torch.models.tracking import LucasKanadeTracker
+from pgdvs_tpu_torch.models.tracking.cotracker import (CoTrackerModel, CoTrackerTracker,
+                                                        init_cotracker_weights)
 from pgdvs_tpu_torch.models.tracking.params_from_jax import tapir_state_dict
 from pgdvs_tpu_torch.models.tracking.tapir import Tapir, TapirTracker
 from pgdvs_tpu_torch.models.tracking.tapir_port import load_tapir_checkpoint, remap_haiku_params
@@ -213,9 +215,11 @@ def test_haiku_loader_lists_every_unmatched_entry(haiku_ckpt):
 
 def test_make_tracker_names(monkeypatch, tmp_path, caplog):
     """None / "none" -> no tracker, "lk" -> LK; without a checkpoint TAPIR
-    warns and takes the same seeded random weights every time; CoTracker
-    raises naming its ROADMAP item; any other name KeyError; TAPIR goes
-    on the card unless the CPU is asked for."""
+    warns and takes the same seeded random weights every time, CoTracker
+    raises FileNotFoundError (no random fallback, as in the JAX package);
+    with its .pth, CoTracker loads it and tracks the valid queries in chunks
+    of 4096; any other name KeyError; TAPIR and CoTracker go on the card
+    unless the CPU is asked for."""
     monkeypatch.setenv("PGDVS_CKPT_DIR", str(tmp_path))
     assert make_tracker(None) is None and make_tracker("none") is None
     assert isinstance(make_tracker("lk"), LucasKanadeTracker)
@@ -232,7 +236,17 @@ def test_make_tracker_names(monkeypatch, tmp_path, caplog):
     make_tracker("tapir")
     make_tracker("tapir_raw_res", device="cpu")
     assert moved == ["cuda", "cpu"]
-    with pytest.raises(ValueError, match="ROADMAP.md.*CoTracker"):
+    with pytest.raises(FileNotFoundError, match="cotracker_stride_4_wind_8.pth"):
         make_tracker("cotracker")
+    model = init_cotracker_weights(CoTrackerModel(), seed=1)
+    (tmp_path / "cotracker").mkdir()
+    torch.save(model.state_dict(), tmp_path / "cotracker" / "cotracker_stride_4_wind_8.pth")
+    monkeypatch.setattr(CoTrackerTracker, "to",
+                        lambda self, device: moved.append(device) or self)
+    tracker = make_tracker("cotracker")
+    assert moved[-1] == "cuda" and make_tracker("cotracker", device="cpu") and moved[-1] == "cpu"
+    assert tracker.chunk == 4096 and not tracker.one_set and not tracker.model.training
+    for k, v in model.state_dict().items():
+        assert torch.equal(tracker.model.state_dict()[k], v), k
     with pytest.raises(KeyError):
         make_tracker("tapir_v2")

@@ -17,6 +17,20 @@ the same numpy inputs.
     (the dynamic layer) and the static layer at the bounds
     tests/test_torch_port_default.py holds the `default` bundle to.
 
+Then ``render_novel_view`` on the CoTracker bundle with the port's
+``CoTrackerTracker(chunk=None)`` (one set: every query slot and the valid
+mask, as JAX's renderer hands them to JAX's CoTracker) against JAX's render
+with JAX's tracker on the same weights (``init_cotracker_weights``, carried
+by ``port_cotracker``), one refinement, a 64x96 working size, on a 17x24
+scene with ``k_track=1`` (T = 4: one window; 1668 tokens): JAX's one set
+couples all T * H * W slots in its space attention, whose [8, 8, N, N]
+scores at 24x32 with ``k_track=2`` (N = 4644) would take 5.5 GB on the CPU
+per tensor, and 1.6 GB at 17x24 (17 is the feature net's smallest
+height) with ``k_track=2``, where the whole test took 8.4 GB and ~2
+minutes. At 17x17 and 18x18 the base dynamic cloud has fewer points than
+the outlier filter's K and the two packages' filters part (ROADMAP.md §3,
+F13), so the scene is 17x24. The same bounds as the LK render.
+
 Point radius 0.1 NDC (1.2 pixels at 24x32) so the clouds cover pixels.
 """
 
@@ -31,6 +45,8 @@ from pgdvs_tpu.data.synthetic import make_contract_data
 from pgdvs_tpu.kernels.knn import knn_mean_sq_dist as j_knn
 from pgdvs_tpu.kernels.knn import statistical_outlier_mask as j_outlier
 from pgdvs_tpu.models.tracking import LucasKanadeTracker as JLucasKanadeTracker
+from pgdvs_tpu.models.tracking.cotracker import CoTrackerTracker as JCoTrackerTracker
+from pgdvs_tpu.models.tracking.cotracker_port import port_cotracker
 from pgdvs_tpu.renderers import dynamic_track as jdt
 from pgdvs_tpu.renderers.compose import render_novel_view as j_render_novel_view
 from pgdvs_tpu.renderers.dynamic import render_dynamic as j_render_dynamic
@@ -41,6 +57,8 @@ from pgdvs_tpu_torch.core.geometry import unproject_depth
 from pgdvs_tpu_torch.kernels.knn import knn_mean_sq_dist, statistical_outlier_mask
 from pgdvs_tpu_torch.models.gnt.params_from_jax import gnt_state_dict, resunet_state_dict
 from pgdvs_tpu_torch.models.tracking import LucasKanadeTracker
+from pgdvs_tpu_torch.models.tracking.cotracker import (CoTrackerModel, CoTrackerTracker,
+                                                        init_cotracker_weights)
 from pgdvs_tpu_torch.renderers import dynamic_track as tdt
 from pgdvs_tpu_torch.renderers.compose import render_novel_view
 from pgdvs_tpu_torch.renderers.dynamic import render_dynamic
@@ -71,9 +89,9 @@ def data():
     return make_contract_data(h=H, w=W, n_spatial=V, n_frames=8, k_track=2)
 
 
-def _cfgs(preset="fast", **over):
-    ours = resolve_benchmark(BUNDLE, preset)[0].replace(dyn_render_pcl_pt_radius=RADIUS, **over)
-    ref = j_resolve_benchmark(BUNDLE, preset)[0].replace(dyn_render_pcl_pt_radius=RADIUS,
+def _cfgs(preset="fast", bundle=BUNDLE, **over):
+    ours = resolve_benchmark(bundle, preset)[0].replace(dyn_render_pcl_pt_radius=RADIUS, **over)
+    ref = j_resolve_benchmark(bundle, preset)[0].replace(dyn_render_pcl_pt_radius=RADIUS,
                                                          knn_tile=256, **over)
     return ours, ref
 
@@ -254,29 +272,40 @@ def test_no_tgt_without_tracker_skips_the_branch(data):
     assert not got["temporal_track_mask"].any()
 
 
-@pytest.fixture(scope="module")
-def novel_views(data):
+def _render_both(data, bundle, tracker, j_tracker, j_tracker_params=None, threads=1):
+    """The bundle's render_novel_view on the port (float32 network on the
+    CPU, on ``threads`` threads) and on JAX (its float32 flax network) from
+    the same GNT weights; JAX's tracker is ``j_tracker(j_tracker_params)``,
+    its weights an argument of the jitted render, not constants of it."""
     models = make_gnt_models(dtype="float32")
     params = init_gnt_params(jax.random.PRNGKey(0), *models, n_src=V)
     key = jax.random.PRNGKey(1)
-    cfg, cfg_j = _cfgs("exact", n_coarse_samples_per_ray=S, ray_tile=256)
+    cfg, cfg_j = _cfgs("exact", bundle, n_coarse_samples_per_ray=S, ray_tile=256)
     jd = _jdata(data)
-    ref = jax.jit(lambda p: j_render_novel_view(
-        models, p, jd, cfg_j.replace(use_pallas_gnt=False), key,
-        tracker=JLucasKanadeTracker()))(params)
+    ref = jax.jit(lambda p, tp: j_render_novel_view(
+        models, p, jd, cfg_j.replace(use_pallas_gnt=False), key, tracker=j_tracker(tp)))(
+            params, j_tracker_params)
     fnet, gnt = init_gnt_models(device="cpu")
     np_params = jax.tree_util.tree_map(np.asarray, params)
     fnet.load_state_dict(resunet_state_dict(np_params["feature_net"]))
     gnt.load_state_dict(gnt_state_dict(np_params["gnt"]))
     noise = np.asarray(jax.random.normal(key, data["rgb_src_temporal"][0].shape, jnp.float32))
-    with one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
         got = render_novel_view((fnet, gnt), _tdata(data), cfg, noise=_t(noise),
-                                tracker=LucasKanadeTracker())
+                                tracker=tracker)
+    finally:
+        torch.set_num_threads(n)
     return got, jax.tree_util.tree_map(np.asarray, ref)
 
 
-def test_render_novel_view_track_bundle_matches_jax(novel_views):
-    got, ref = novel_views
+@pytest.fixture(scope="module")
+def novel_views(data):
+    return _render_both(data, BUNDLE, LucasKanadeTracker(), lambda _: JLucasKanadeTracker())
+
+
+def _check_novel_view(got, ref):
     assert sorted(got) == sorted(ref)
     dyn = [k for k in ref if k.startswith("render_dyn")]
     _compare(got, ref, dyn)
@@ -289,3 +318,42 @@ def test_render_novel_view_track_bundle_matches_jax(novel_views):
         np.testing.assert_allclose(got[key].numpy() * m, ref[key] * m, **TOL, err_msg=key)
     np.testing.assert_array_less(np.abs(got["combined_rgb"].numpy() - ref["combined_rgb"]),
                                  STATIC_TOL["rgb"] + 1e-6)
+
+
+def test_render_novel_view_track_bundle_matches_jax(novel_views):
+    _check_novel_view(*novel_views)
+
+
+COTRACKER_BUNDLE = "st_gnt_masked_attn_dy_cvd_pcl_clean_track_cotracker"
+COTRACKER_HW = (17, 24)
+COTRACKER_K = 1
+# the port's tracker is a few hundred large matmuls, not LK's thousands of
+# small ops: two threads, and no more, as the suite runs several workers
+COTRACKER_THREADS = 2
+
+
+def test_render_novel_view_cotracker_bundle_matches_jax():
+    """The CoTracker bundle with a one-set tracker: JAX's slot layout and
+    valid mask reach the port's tracker as they reach JAX's."""
+    model = init_cotracker_weights(CoTrackerModel(), seed=0).eval()
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    j_params = {"params": jax.tree_util.tree_map(jnp.asarray, port_cotracker(sd))}
+    kw = dict(iters=1, interp_hw=(64, 96))
+    seen = []
+    tracker = CoTrackerTracker(model, chunk=None, **kw)
+
+    class Seen:
+        one_set = True
+
+        def __call__(self, frames, queries, query_valid=None):
+            seen.append((queries.shape[0], int(query_valid.sum())))
+            return tracker(frames, queries, query_valid)
+
+    small = make_contract_data(h=COTRACKER_HW[0], w=COTRACKER_HW[1], n_spatial=V, n_frames=8,
+                               k_track=COTRACKER_K)
+    got, ref = _render_both(small, COTRACKER_BUNDLE, Seen(),
+                            lambda p: JCoTrackerTracker(params=p, **kw), j_params,
+                            threads=COTRACKER_THREADS)
+    _check_novel_view(got, ref)
+    n_slots = (2 * COTRACKER_K + 2) * COTRACKER_HW[0] * COTRACKER_HW[1]
+    assert len(seen) == 1 and seen[0][0] == n_slots and 0 < seen[0][1] < n_slots
