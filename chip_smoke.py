@@ -158,10 +158,19 @@ exits non-zero without printing a result:
      exact (K2 unfolded), 10 KMeans-clustered spatial sources and per-pixel
      depth ranges: each pickle equal to the covisible metrics recomputed on
      the CPU, a crop held against the CPU, the spatial indices chosen, host
-     ms per item and of the KMeans refit, s/item.
+     ms per item and of the KMeans refit, s/item;
+  21. ``[preprocess]``: RAFT on seeded, damped random weights on the card
+     against the CPU at 96x128 (encoders, correlation window, 12-iteration
+     flows); ``python -m pgdvs_tpu_torch.preprocess.compute_flow`` on a
+     24-frame 576x1100 PNG clip at interval 1, 32 iterations, the weights as
+     ``raft-things.pth`` under ``$PGDVS_CKPT_DIR``: the npz files, seconds
+     per pair, FLOPs and TFLOP/s, peak memory, launches per pair and the
+     busy share; then ``epipolar_mask`` and ``combine_masks`` on those
+     flows and the clip's poses, host seconds per frame. No hand kernel
+     launches there (RAFT is torch ops, as it is XLA in the JAX package).
 
 The second-to-last line is a JSON object describing each kernel (its times,
-its launches on its path, its launches per view / frame / item on phases 17-20 and
+its launches on its path, its launches per view / frame / item on phases 17-21 and
 its bound on the card); the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device: without one it exits
 non-zero before doing anything. Imports nothing of JAX.
@@ -2649,20 +2658,33 @@ def _event_ms(fn):
     return out, start.elapsed_time(stop)
 
 
-def _profile_cuda(fn):
-    """(result, device kernel launches, summed kernel ms, elapsed ms) of one
+def _kernel_table(fn, top=5):
+    """(result, device kernel launches, summed kernel ms, elapsed ms,
+    [(name, ms, launches)] of the ``top`` kernels by device time) of one
     call of ``fn`` under ``torch.profiler``; the launches and summed ms are
     None where the profiler sees no device activity."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out, ms = _event_ms(fn)
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        return out, None, None, ms
-    return out, len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, ms
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+            by_name[e.name][1] += 1
+    if not by_name:
+        return out, None, None, ms, []
+    rows = sorted(((n, t, c) for n, (t, c) in by_name.items()), key=lambda r: -r[1])
+    return out, sum(c for _, _, c in rows), sum(t for _, t, _ in rows), ms, rows[:top]
+
+
+def _profile_cuda(fn):
+    """(result, device kernel launches, summed kernel ms, elapsed ms) of one
+    call of ``fn`` under ``torch.profiler`` (``_kernel_table``)."""
+    return _kernel_table(fn)[:4]
 
 
 class RecordingTracker:
@@ -3510,6 +3532,287 @@ def phase_dycheck(models, root, smi, hw=IPHONE_HW, device="cuda", rows=DYCHECK_R
     return launches
 
 
+PRE_CHECK_HW = (96, 128)      # (a): the card against the CPU
+PRE_CHECK_ITERS = 12
+RAFT_ITERS = 32               # the reference's iterations (compute_flow.py:221-238)
+# (a) bounds: encoders and correlation window within 1e-4 of their largest
+# magnitude (float32 with TF32 off on both sides: other convolution and
+# summation orders only); the 12-iteration flows (~0.5 px with the damped
+# weights) within 1e-3 px at every pixel
+RAFT_REL_TOL = 1e-4
+RAFT_FLOW_TOL = 1e-3
+
+
+def raft_flops(h, w, iters):
+    """FLOPs of one ``RAFTFlow`` pair (forward and backward flow) of frames
+    padded to h x w: the feature encoder over both frames and the context
+    encoder over both (each ~86 GFLOP at 576x1104), per direction the
+    correlation product [N, 256] x [256, N] with N = H/8 * W/8 and, per
+    iteration, the update block's convolutions (~62 GFLOP at 576x1104).
+    The lookup's taps, the norms, activations and the upsampling are
+    elementwise and left out."""
+    h2, w2, h4, w4, h8, w8 = h // 2, w // 2, h // 4, w // 4, h // 8, w // 8
+    enc = (_conv_flops(3, 64, 7, h2, w2) + 4 * _conv_flops(64, 64, 3, h2, w2)
+           + _conv_flops(64, 96, 3, h4, w4) + 3 * _conv_flops(96, 96, 3, h4, w4)
+           + _conv_flops(64, 96, 1, h4, w4)
+           + _conv_flops(96, 128, 3, h8, w8) + 3 * _conv_flops(128, 128, 3, h8, w8)
+           + _conv_flops(96, 128, 1, h8, w8) + _conv_flops(128, 256, 1, h8, w8))
+    n = h8 * w8
+    corr = 2 * n * n * 256
+    update = (_conv_flops(324, 256, 1, h8, w8) + _conv_flops(256, 192, 3, h8, w8)
+              + _conv_flops(2, 128, 7, h8, w8) + _conv_flops(128, 64, 3, h8, w8)
+              + _conv_flops(256, 126, 3, h8, w8) + 6 * 2 * 384 * 128 * 5 * n
+              + 2 * _conv_flops(128, 256, 3, h8, w8) + _conv_flops(256, 2, 3, h8, w8)
+              + _conv_flops(256, 576, 1, h8, w8))
+    return 4 * enc + 2 * (corr + iters * update)
+
+
+def write_flow_clip(root, hw=READER_RAW_HW, n_frames=READER_FRAMES):
+    """The synthetic scene as a video under ``root``: ``rgbs/<i:05d>.png``
+    (``write_png``, filter types cycled) seen from the synthetic arc at
+    times i / (n_frames - 1), and ``poses/<i:05d>.npz`` {c2w, K} (the
+    ``depth_converters`` layout). Returns (rgb dir, pose dir)."""
+    from pgdvs_tpu_torch.data import synthetic
+    from pgdvs_tpu_torch.data.image_io import write_png
+
+    rgb_dir, pose_dir = root / "rgbs", root / "poses"
+    rgb_dir.mkdir(parents=True)
+    pose_dir.mkdir()
+    k = synthetic.intrinsics(*hw)
+    for i in range(n_frames):
+        c2w = synthetic.camera_pose(i, n_frames)
+        fr = synthetic.render_frame(hw[0], hw[1], c2w, i / (n_frames - 1))
+        write_png(rgb_dir / f"{i:05d}.png", (fr["rgb"] * 255).astype(np.uint8), "cycle")
+        np.savez(pose_dir / f"{i:05d}.npz", c2w=c2w, K=k)
+    return rgb_dir, pose_dir
+
+
+def _raft_parts(model, frames, device, iters):
+    """The feature and context encoders over both frames, the correlation
+    window at coordinates 1.5 px off the grid, and the pair's flows."""
+    import torch
+
+    from pgdvs_tpu_torch.models.flow import raft
+
+    x = torch.from_numpy(np.stack(frames)).to(device).permute(0, 3, 1, 2) * 2.0 - 1.0
+    with torch.no_grad(), raft.no_tf32():
+        fmaps, ctx = model.fnet(x), model.cnet(x)
+        h8, w8 = fmaps.shape[2:]
+        gy, gx = torch.meshgrid(torch.arange(h8, device=device), torch.arange(w8, device=device),
+                                indexing="ij")
+        coords = torch.stack([gx, gy], -1)[None].float() + 1.5
+        corr = raft.lookup_corr(raft.build_corr_pyramid(fmaps[:1], fmaps[1:]), coords)
+    fwd, bwd = raft.RAFTFlow(model, iters)(frames[0], frames[1])
+    return {"fnet": fmaps, "cnet": ctx, "corr": corr, "flow_fwd": fwd, "flow_bwd": bwd}
+
+
+class RecordingFlow:
+    """Patches ``RAFTFlow.__call__`` while active: every pair is timed by
+    CUDA events (the host clock on the CPU) and by the host clock around
+    the call."""
+
+    def __init__(self, device):
+        self.device = device
+        self.calls = []
+
+    def __enter__(self):
+        from pgdvs_tpu_torch.models.flow import raft
+
+        self.orig = raft.RAFTFlow.__call__
+        rec = self
+
+        def recorded(flow, img1, img2):
+            t0 = time.perf_counter()
+            if rec.device == "cuda":
+                out, ms = _event_ms(lambda: rec.orig(flow, img1, img2))
+            else:
+                out = rec.orig(flow, img1, img2)
+                ms = (time.perf_counter() - t0) * 1e3
+            rec.calls.append({"ms": ms, "wall_ms": (time.perf_counter() - t0) * 1e3})
+            return out
+
+        raft.RAFTFlow.__call__ = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from pgdvs_tpu_torch.models.flow import raft
+
+        raft.RAFTFlow.__call__ = self.orig
+
+
+def phase_preprocess(root, smi, device="cuda", raw_hw=READER_RAW_HW, n_frames=READER_FRAMES,
+                     iters=RAFT_ITERS, check_hw=PRE_CHECK_HW, check_iters=PRE_CHECK_ITERS):
+    """[preprocess]: flow and mask preprocessing (RAFT on seeded, damped
+    random weights; the released checkpoint is not in the repository).
+
+    (a) RAFT on the card against the port on the CPU with the same weights,
+    two synthetic frames at ``check_hw``, ``check_iters`` iterations: both
+    encoders and the correlation window within RAFT_REL_TOL of their
+    largest magnitude, both flows within RAFT_FLOW_TOL px; (b) a
+    ``n_frames`` clip at ``raw_hw`` written as PNGs (``write_flow_clip``),
+    the weights saved as ``raft/models/raft-things.pth`` (the released key
+    layout, ``module.`` prefix) under a ``$PGDVS_CKPT_DIR`` in ``root``, and
+    ``python -m pgdvs_tpu_torch.preprocess.compute_flow --intervals 1`` run
+    in-process (runpy) at ``iters`` iterations: the npz files, finite, one
+    coord_diff against ``flow_roundtrip`` on the CPU; seconds per pair (the
+    CLI's wall clock and RAFT's device time), FLOPs (``raft_flops``) and
+    TFLOP/s, peak memory, RAFT's share of the CLI's time and the host
+    seconds of the frames' reads and of the npz writes, then one more pair
+    (the clip's first two frames) under ``torch.profiler``: kernel launches
+    per pair, the busy share and the five kernels that take the most time;
+    (c) ``epipolar_mask`` on those flows and the clip's poses, then
+    ``combine_masks`` on its masks (as .npy) and the interval-1 flows:
+    host seconds per frame of each, the dynamic share of the masks. Returns
+    the hand kernels' launches over (b) and (c): none."""
+    import copy
+    import os
+    import runpy
+
+    import torch
+
+    from pgdvs_tpu_torch.data import image_io, synthetic
+    from pgdvs_tpu_torch.data.image_io import read_image
+    from pgdvs_tpu_torch.models.flow import raft
+    from pgdvs_tpu_torch.preprocess import combine_masks, epipolar_mask
+    from pgdvs_tpu_torch.preprocess.flow_consistency import flow_roundtrip
+
+    tag = "[preprocess]"
+    cpu_model = raft.init_raft_weights(raft.RAFT(), seed=SEED).eval()
+    card_model = copy.deepcopy(cpu_model).to(device)
+    h, w = check_hw
+    frames = [synthetic.render_frame(h, w, synthetic.camera_pose(i, 8), 0.3 + 0.1 * i)["rgb"]
+              .astype(np.float32) for i in (0, 1)]
+    got = _raft_parts(card_model, frames, device, check_iters)
+    ref = _raft_parts(cpu_model, frames, "cpu", check_iters)
+    errs = {}
+    for key in ref:
+        d = (got[key].float().cpu() - ref[key]).abs()
+        scale = float(ref[key].abs().max())
+        errs[key] = (float(d.max()), float(d.median()), scale)
+        bound = RAFT_FLOW_TOL if key.startswith("flow") else RAFT_REL_TOL * scale
+        if not (bool(torch.isfinite(got[key]).all()) and errs[key][0] <= bound):
+            raise AssertionError(f"{tag} (a) {key}: max |card - cpu| {errs[key][0]:.3e} "
+                                 f"over the bound {bound:.3e}")
+    log(f"{tag} (a) RAFT card vs CPU at {h}x{w}, {check_iters} iterations: " + ", ".join(
+        f"{k} max {e[0]:.3e} median {e[1]:.3e} (scale {e[2]:.3f})" for k, e in errs.items())
+        + f"; bounds {RAFT_REL_TOL} x scale (encoders, correlation), {RAFT_FLOW_TOL} px (flows)")
+
+    t0 = time.perf_counter()
+    rgb_dir, pose_dir = write_flow_clip(root / "clip", raw_hw, n_frames)
+    write_s = time.perf_counter() - t0
+    pth = root / "ckpts" / "raft" / "models" / "raft-things.pth"
+    pth.parent.mkdir(parents=True)
+    torch.save({f"module.{k}": v for k, v in cpu_model.state_dict().items()}, pth)
+    flows = root / "flows"
+    old_env, old_argv = os.environ.get("PGDVS_CKPT_DIR"), sys.argv
+    os.environ["PGDVS_CKPT_DIR"] = str(root / "ckpts")
+    sys.argv = ["compute_flow", "--rgb-dir", str(rgb_dir), "--save-dir", str(flows),
+                "--intervals", "1", "--iters", str(iters), "--device", device]
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    host = {"read_rgb": 0.0, "savez": 0.0}
+    orig_read, orig_savez = image_io.read_rgb, np.savez
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                host[key] += time.perf_counter() - t
+        return run
+
+    image_io.read_rgb, np.savez = timed("read_rgb", orig_read), timed("savez", orig_savez)
+    try:
+        with RecordingFlow(device) as rec:
+            t0 = time.perf_counter()
+            runpy.run_module("pgdvs_tpu_torch.preprocess.compute_flow", run_name="__main__")
+            cli_s = time.perf_counter() - t0
+    finally:
+        image_io.read_rgb, np.savez = orig_read, orig_savez
+        sys.argv = old_argv
+        if old_env is None:
+            os.environ.pop("PGDVS_CKPT_DIR", None)
+        else:
+            os.environ["PGDVS_CKPT_DIR"] = old_env
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
+    n_pairs = n_frames - 1
+    files = sorted((flows / "interval_1").glob("*.npz"))
+    if len(files) != 2 * n_pairs or len(rec.calls) != n_pairs:
+        raise AssertionError(f"{tag} (b) {len(files)} npz files from {len(rec.calls)} pairs, "
+                             f"expected {2 * n_pairs} from {n_pairs}")
+    for f in files:
+        z = np.load(f)
+        for key in ("flow", "coord_diff"):
+            if z[key].shape != raw_hw + (2,) or not np.isfinite(z[key]).all():
+                raise AssertionError(f"{tag} (b) {f.name}:{key} {z[key].shape} or not finite")
+    z01, z10 = (np.load(flows / "interval_1" / n) for n in ("00000_00001.npz", "00001_00000.npz"))
+    cd = flow_roundtrip(torch.from_numpy(z01["flow"]), torch.from_numpy(z10["flow"]))[0]
+    cd_err = float(np.abs(cd.numpy() - z01["coord_diff"]).max())
+    if cd_err > 1e-4:
+        raise AssertionError(f"{tag} (b) coord_diff off the CPU round trip by {cd_err:.3e}")
+    ph, pw = -(-raw_hw[0] // 8) * 8, -(-raw_hw[1] // 8) * 8
+    flops = raft_flops(ph, pw, iters)
+    timed = [c["ms"] for c in rec.calls]
+    ms = statistics.median(timed)
+    raft_s = sum(timed) / 1e3
+    wall_s = sum(c["wall_ms"] for c in rec.calls) / 1e3
+    busy = "no device activity seen by the profiler"
+    if device == "cuda":
+        pair = [image_io.read_rgb(rgb_dir / f"{i:05d}.png").astype(np.float32) / 255.0
+                for i in (0, 1)]
+        _, launches, busy_ms, prof_ms, top = _kernel_table(
+            lambda: raft.RAFTFlow(card_model, iters)(pair[0], pair[1]))
+        if launches:
+            busy = (f"{launches} launches, {busy_ms:.2f} ms of kernels in {prof_ms:.2f} ms: "
+                    f"busy {100 * busy_ms / prof_ms:.2f} %; top kernels " + "; ".join(
+                        f"{name[:70]} {t:.2f} ms x{c}" for name, t, c in top))
+    log(f"{tag} (b) python -m pgdvs_tpu_torch.preprocess.compute_flow on a {n_frames}-frame "
+        f"{raw_hw[0]}x{raw_hw[1]} PNG clip (written in {write_s:.2f} s), --intervals 1, "
+        f"{iters} iterations, {pth.name} from $PGDVS_CKPT_DIR: {len(files)} npz files, finite, "
+        f"coord_diff vs the CPU round trip {cd_err:.2e}; CLI {cli_s:.3f} s = "
+        f"{cli_s / n_pairs:.4f} s per pair; RAFT per pair (forward + backward, padded "
+        f"{ph}x{pw}) median {ms:.2f} ms (first {timed[0]:.2f}, min {min(timed):.2f}, max "
+        f"{max(timed):.2f}), {flops / 1e12:.3f} TFLOP = {flops / ms / 1e9:.2f} TFLOP/s; one pair "
+        f"profiled after the CLI: {busy}; of the CLI's wall time RAFT {raft_s:.3f} s on the card "
+        f"({wall_s:.3f} s on the host clock around its calls), the frames' reads "
+        f"{host['read_rgb']:.3f} s, the npz writes {host['savez']:.3f} s "
+        f"({2 * raw_hw[0] * raw_hw[1] * 2 * 4 * len(files) / 1e6 / max(host['savez'], 1e-9):.1f} "
+        f"MB/s); peak memory {peak_gb:.2f} GB; on {smi}")
+
+    masks = root / "masks"
+    t0 = time.perf_counter()
+    epipolar_mask.main(["--rgb-dir", str(rgb_dir), "--flow-dir", str(flows),
+                        "--save-dir", str(masks), "--pose-dir", str(pose_dir)])
+    epi_s = time.perf_counter() - t0
+    raw_dir = root / "raw_masks"
+    raw_dir.mkdir()
+    dyn = []
+    for i in range(n_frames):
+        m = read_image(masks / "final" / f"{i:05d}_final.png") > 0
+        if m.shape != raw_hw:
+            raise AssertionError(f"{tag} (c) mask {i} has shape {m.shape}")
+        dyn.append(float(m.mean()))
+        np.save(raw_dir / f"{i:05d}.npy", m)
+    t0 = time.perf_counter()
+    combine_masks.main(["--mask_dir", str(raw_dir), "--flow_dir", str(flows / "interval_1"),
+                        "--out_dir", str(root / "combined")])
+    comb_s = time.perf_counter() - t0
+    final = [np.load(root / "combined" / f"{i:05d}_final.npy") for i in range(n_frames)]
+    if any(f.shape != raw_hw or f.dtype != bool for f in final):
+        raise AssertionError(f"{tag} (c) combined masks of the wrong shape or type")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"{tag} hand kernels launched: {_nonzero(launches)}")
+    log(f"{tag} (c) epipolar_mask {epi_s / n_frames:.4f} s per frame (host), dynamic share "
+        f"{100 * statistics.mean(dyn):.2f} %; combine_masks {comb_s / n_frames:.4f} s per frame "
+        f"(host), dynamic share {100 * statistics.mean(float(f.mean()) for f in final):.2f} %; "
+        f"hand kernel launches 0; on {smi}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3565,6 +3868,7 @@ def main() -> int:
                  "[mono-vis]": phase_mono_vis(models, root, smi)}
         paths.update({f"[dycheck][{preset}]": want
                       for preset, want in phase_dycheck(models, root, smi).items()})
+        paths["[preprocess]"] = phase_preprocess(root / "preprocess", smi)
     phase_point_mesh(models, smi)
     phase_track_lk(models, smi)
     phase_track_tapir(models, smi)

@@ -5,7 +5,8 @@ the GPU machine has neither. This module carries what they use:
 
 ``read_image`` decodes a PNG or a JPEG file (told apart by their first
 bytes) into exactly the array ``np.array(PIL.Image.open(f))`` gives;
-``image_hw`` reads its (height, width) from the header alone.
+``image_hw`` reads its (height, width) from the header alone; ``read_rgb``
+gives it as ``PIL.Image.open(f).convert("RGB")`` does.
 
 ``read_png``: (H, W) uint8 for 8-bit grey, (H, W) bool for 1-bit grey,
 (H, W) uint8 palette indices for a palette image, (H, W, 2 / 3 / 4) uint8
@@ -193,6 +194,25 @@ def read_image(source, name=None) -> np.ndarray:
     if data[:8] == PNG_SIGNATURE:
         return read_png(data, name=name)
     raise ValueError(f"{name}: neither a PNG nor a JPEG file")
+
+
+def read_rgb(source, name=None) -> np.ndarray:
+    """``read_image`` as ``np.asarray(PIL.Image.open(f).convert("RGB"))``
+    gives it for 8-bit grey, grey + alpha, RGB and RGBA files: uint8
+    [H, W, 3], alpha dropped, grey repeated (a 1-bit grey image as 0 /
+    255). Palette images are refused: their palette is not decoded."""
+    src_name, data = _read(source)
+    name = name or src_name
+    if data[:8] == PNG_SIGNATURE and data[12:16] == b"IHDR" and data[25] == 3:
+        raise NotImplementedError(f"{name}: a palette PNG has no RGB decode here")
+    img = read_image(data, name=name)
+    if img.dtype == bool:
+        img = img.astype(np.uint8) * 255
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[-1] in (1, 2):
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return img[..., :3]
 
 
 def image_hw(source, name=None):

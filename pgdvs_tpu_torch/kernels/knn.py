@@ -18,6 +18,14 @@ one [query tile, candidate tile] block of squared distances at a time, so
 memory is bounded by the tiles. Distances use the JAX package's formula
 ``|q|^2 - 2 q.c + |c|^2`` (clamped at 0), so both give the same neighbours
 and near-equal means.
+
+A cloud with fewer candidates than K is the exception: every mean then
+carries the 1e30 stand-in of the missing neighbours, and whether the
+filter keeps all points or none turns on the last bit of float32 sums of
+those stand-ins (the std of equal means is 0, or inf once one sum rounds
+away). There the per-point mean and ``masked_std`` sum in the order of the
+JAX package's XLA CPU reductions (``xla_order_sum``), a fixed sequence of
+float32 adds that the card repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +35,27 @@ import torch
 _BIG = 1e30
 QUERY_TILE = 8192
 CAND_TILE = 2048
+XLA_REDUCE_WINDOW = 32
+
+
+def _sequential_sum(x: torch.Tensor) -> torch.Tensor:
+    s = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-1]):
+        s = s + x[..., j]
+    return s
+
+
+def xla_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in the order of XLA's CPU reduce: up to 32
+    elements left to right from 0; a longer dim is zero-padded to a multiple
+    of 32 (the lower half of the pad in front), each window of 32 summed
+    left to right, and the window sums reduced again the same way."""
+    n = x.shape[-1]
+    if n <= XLA_REDUCE_WINDOW:
+        return _sequential_sum(x)
+    pad = -n % XLA_REDUCE_WINDOW
+    x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+    return xla_order_sum(_sequential_sum(x.reshape(*x.shape[:-1], -1, XLA_REDUCE_WINDOW)))
 
 
 def knn_mean_sq_dist(points: torch.Tensor, valid=None, k: int = 50,
@@ -65,6 +94,10 @@ def knn_mean_sq_dist(points: torch.Tensor, valid=None, k: int = 50,
         cands = candidates.float()
         c_sq = torch.sum(cands * cands, dim=-1)
     m = pts.shape[0]
+    # Fewer candidates than K: each mean carries the 1e30 stand-in, so take
+    # it as XLA does (its sum times the float32 reciprocal of K).
+    xla_mean = (m - 1 if same_set else cands.shape[0]) < k
+    inv_k = torch.full((), 1.0 / k, dtype=torch.float32, device=dev)
     means = torch.empty((m,), dtype=torch.float32, device=dev)
     for q0 in range(0, m, query_tile):
         q = pts[q0:q0 + query_tile]
@@ -82,7 +115,7 @@ def knn_mean_sq_dist(points: torch.Tensor, valid=None, k: int = 50,
                                  torch.full_like(d2, _BIG), d2)
             merged = torch.cat([best, d2], dim=1)
             best = torch.topk(merged, k, dim=1, largest=False, sorted=True).values
-        means[q0:q0 + query_tile] = best.mean(dim=1)
+        means[q0:q0 + query_tile] = xla_order_sum(best) * inv_k if xla_mean else best.mean(dim=1)
     out = torch.full((n,), _BIG, dtype=torch.float32, device=dev)
     out[idx] = means
     return out
@@ -97,12 +130,15 @@ def masked_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return srt[min(max((cnt - 1) // 2, 0), n - 1)]
 
 
-def masked_std(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Unbiased (n - 1) standard deviation over the valid entries."""
+def masked_std(x: torch.Tensor, valid: torch.Tensor, xla_order: bool = False) -> torch.Tensor:
+    """Unbiased (n - 1) standard deviation over the valid entries; with
+    ``xla_order`` both sums run in the order of XLA's CPU reduce over the
+    whole (padded) vector."""
     cnt = max(int(valid.sum()), 1)
     zero = torch.zeros_like(x)
-    mean = torch.sum(torch.where(valid, x, zero)) / cnt
-    var = torch.sum(torch.where(valid, (x - mean) ** 2, zero)) / max(cnt - 1, 1)
+    total = xla_order_sum if xla_order else torch.sum
+    mean = total(torch.where(valid, x, zero)) / cnt
+    var = total(torch.where(valid, (x - mean) ** 2, zero)) / max(cnt - 1, 1)
     return torch.sqrt(var)
 
 
@@ -114,13 +150,15 @@ def statistical_outlier_mask(points: torch.Tensor, valid=None, k: int = 50,
     Returns keep [N] bool (valid and mean-KNN squared distance below the
     threshold) and the threshold: ``dist_thres`` where given (the track
     renderer reuses the base cloud's, ``pgdvs_renderer_dyn_track.py:355-362``),
-    else median + std_thres * std over the valid points' means.
+    else median + std_thres * std over the valid points' means (with fewer
+    than K + 1 valid points, the std in XLA's order: see the module's note).
     """
     if valid is None:
         valid = torch.ones((points.shape[0],), dtype=torch.bool, device=points.device)
     mean_d2 = knn_mean_sq_dist(points, valid, k=k, tile=tile)
     if dist_thres is None:
-        thres = masked_median(mean_d2, valid) + masked_std(mean_d2, valid) * std_thres
+        std = masked_std(mean_d2, valid, xla_order=int(valid.sum()) <= k)
+        thres = masked_median(mean_d2, valid) + std * std_thres
     else:
         thres = dist_thres
     return valid & (mean_d2 < thres), thres

@@ -28,8 +28,8 @@ scores at 24x32 with ``k_track=2`` (N = 4644) would take 5.5 GB on the CPU
 per tensor, and 1.6 GB at 17x24 (17 is the feature net's smallest
 height) with ``k_track=2``, where the whole test took 8.4 GB and ~2
 minutes. At 17x17 and 18x18 the base dynamic cloud has fewer points than
-the outlier filter's K and the two packages' filters part (ROADMAP.md §3,
-F13), so the scene is 17x24. The same bounds as the LK render.
+the outlier filter's K (ROADMAP.md §3, F13; tests/test_torch_port_knn_small.py
+holds that case), so the scene is 17x24. The same bounds as the LK render.
 
 Point radius 0.1 NDC (1.2 pixels at 24x32) so the clouds cover pixels.
 """
