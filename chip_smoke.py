@@ -129,8 +129,9 @@ exits non-zero without printing a result:
      rasterizer's ms); the branch at 48x64 held against the CPU;
   16. ``[track-tapir]``: TapirTracker on the card against the CPU on a
      small clip (grids, heads, tracks, visibility), chunked tracking against
-     one call, then both tapir bundles at 288x550 as [track-lk] (the
-     ``_raw_res`` one on ±2 track frames since PR 15), with the peak memory;
+     one call, then both tapir bundles at 288x550 as [track-lk] on ±2 track
+     frames (``_raw_res`` since PR 15, the other since PR 18), with the peak
+     memory;
   17. ``[track-cotracker]``: CoTracker on seeded, damped random weights:
      ``CoTrackerTracker`` one set on the card against the CPU on a T = 10
      64x96 clip at the published 384x512, six refinements (the encoder,
@@ -167,10 +168,22 @@ exits non-zero without printing a result:
      per pair, FLOPs and TFLOP/s, peak memory, launches per pair and the
      busy share; then ``epipolar_mask`` and ``combine_masks`` on those
      flows and the clip's poses, host seconds per frame. No hand kernel
-     launches there (RAFT is torch ops, as it is XLA in the JAX package).
+     launches there (RAFT is torch ops, as it is XLA in the JAX package);
+  22. ``[depth]``: ZoeDepth (DPT-BEiT-L, 24 blocks, published widths) on
+     seeded, damped random weights on the card against the CPU at 128x192
+     (an 8x12 token grid: the position tables resized), single and NK
+     heads; ``python -m pgdvs_tpu_torch.preprocess.compute_zoedepth`` on 8
+     frames of [preprocess]'s clip with the weights written as
+     ``ZoeD_M12_N.pt`` and seeded sparse MVS depth: the npz files, the net
+     size (384x704), s per frame, the network's device ms, FLOPs and
+     TFLOP/s, launches and busy share of one profiled frame, peak memory,
+     the checkpoint's load time, the NVIDIA reader on the files; the
+     semantic aggregation card against CPU at OneFormer's output shapes
+     (equal seg maps and union); ``semantic_masks``' refusal without
+     OneFormer. No hand kernel launches there.
 
 The second-to-last line is a JSON object describing each kernel (its times,
-its launches on its path, its launches per view / frame / item on phases 17-21 and
+its launches on its path, its launches per view / frame / item on phases 17-22 and
 its bound on the card); the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device: without one it exits
 non-zero before doing anything. Imports nothing of JAX.
@@ -2613,10 +2626,13 @@ def phase_point_mesh(models, smi, device="cuda", h=288, w=550, n_samples=256,
 # ------------------------------------------------- the track branch
 
 TRACK_K = 5                 # ±5 track frames: T = 12 slots
-# the _raw_res bundle's run of [track-tapir] on ±2 track frames (T = 6): its
-# TAPIR at the frames' size took ~160 s of the script on ±5, which with
-# the vis and DyCheck phases pushed it past 1050 s of its 1200
-TRACK_K_RAW_RES = 2
+# both [track-tapir] bundles render on ±2 track frames (T = 6): the _raw_res
+# one since PR 15 (its TAPIR at the frames' size took ~160 s of the script on
+# ±5), the 256x256 one since PR 18 (its profiled first render and timed
+# render took 112 s on ±5, which with [depth] brought the script to 1124 s
+# of its 1200 on one host); [track-lk], [track-eval] and the CoTracker
+# prediction keep ±5
+TRACK_K_TAPIR = 2
 TRACK_BUNDLES = ("st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir",
                  "st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir_raw_res")
 # one item: each TAPIR item on ±5 track frames costs ~41 s of the script's
@@ -2837,9 +2853,8 @@ def phase_track_tapir(models, smi, h=288, w=550, n_samples=256):
     card against the CPU on a small clip (T = 4, 64x64, 64 queries): the
     grids, the cost-volume heads, the tracks, the visibility; chunked
     tracking against one call on 4096 queries; then each of TRACK_BUNDLES at
-    288x550 (10 sources, 256 samples, ±5 track frames, the ``_raw_res``
-    bundle ±2 (TRACK_K_RAW_RES), every dynamic pixel of the real track
-    frames a query) through ``phase_main_path`` (78 K2
+    288x550 (10 sources, 256 samples, ±2 track frames (TRACK_K_TAPIR),
+    every dynamic pixel of the real track frames a query) through ``phase_main_path`` (78 K2
     launches, the static crop against the CPU, s/view after a warm-up, peak
     memory) and ``track_breakdown``."""
     import copy
@@ -2908,7 +2923,7 @@ def phase_track_tapir(models, smi, h=288, w=550, n_samples=256):
     for bundle in TRACK_BUNDLES:
         raw_res = bundle.endswith("raw_res")
         btag = f"{tag}[{'raw_res' if raw_res else '256'}]"
-        data = _track_contract(h, w, TRACK_K_RAW_RES if raw_res else TRACK_K, "cuda")
+        data = _track_contract(h, w, TRACK_K_TAPIR, "cuda")
         rec = RecordingTracker(make_tracker("tapir_raw_res" if raw_res else "tapir",
                                             device="cuda"))
         launches, secs, out = phase_main_path(models, bundle=bundle, data=data, tag=btag,
@@ -3813,6 +3828,430 @@ def phase_preprocess(root, smi, device="cuda", raw_hw=READER_RAW_HW, n_frames=RE
     return launches
 
 
+DEPTH_CHECK_HW = (128, 192)   # (a): an 8x12 token grid against the 24x24 table
+DEPTH_FRAMES = 8              # (b): frames of [preprocess]'s clip through the CLI
+# (a) bound: every output within 1e-3 of its largest magnitude (float32 with
+# TF32 off on both sides: other convolution and summation orders only)
+DEPTH_REL_TOL = 1e-3
+SEM_QUERIES = 250             # OneFormer DiNAT-L's queries
+SEM_CLASSES = (150, 133)      # ADE20K, COCO panoptic (plus the null class)
+# (c) the upsampled maps: float32 scores resized on each device; a pixel may
+# differ only where the CPU's top two scores are within this of each other
+SEM_UP_TIE = 1e-6
+
+
+def zoe_flops(h, w, depth=24, dim=1024, grid=None):
+    """FLOPs of one ``ZoeDepthDPT`` forward (the single head) at h x w:
+    the patch embedding, per BEiT block the qkv / proj / MLP products over
+    T = h/16 * w/16 + 1 tokens and the two attention products (~31 GFLOP a
+    block at 384x704), the readouts and the reassemble convolutions, the
+    fusion's 3x3 convolutions, the relative-depth head and the metric
+    head's 1x1 convolutions. Elementwise work (norms, softmax, resizes, the
+    attractors' pulls, the log-binomial) is left out."""
+    gh, gw = h // 16, w // 16
+    n = gh * gw
+    t = n + 1
+    beit = _conv_flops(3, dim, 16, gh, gw) + depth * (
+        2 * t * dim * (3 * dim + dim + 8 * dim) + 4 * t * t * dim)
+    rc, f = (256, 512, 1024, 1024), 256
+    reassemble = sum(2 * n * 2 * dim * dim + 2 * n * dim * c for c in rc)
+    reassemble += (2 * n * rc[0] * rc[0] * 16 + 2 * n * rc[1] * rc[1] * 4
+                   + _conv_flops(rc[3], rc[3], 3, gh // 2, gw // 2))
+    sizes = [(h // s, w // s) for s in (4, 8, 16, 32)]
+    fusion = sum(_conv_flops(c, f, 3, *hw) for c, hw in zip(rc, sizes))
+    for i, (rh, rw) in enumerate(sizes):     # refinenet1..4: 2 units, one for refinenet4
+        units = 1 if i == 3 else 2
+        fusion += units * 2 * _conv_flops(f, f, 3, rh, rw) + _conv_flops(f, f, 1, 2 * rh, 2 * rw)
+    head = (_conv_flops(f, 128, 3, h // 2, w // 2) + _conv_flops(128, 32, 3, h, w)
+            + _conv_flops(32, 1, 1, h, w))
+    b = sizes[3]
+    metric = (_conv_flops(f, f, 1, *b) + _conv_flops(f, 256, 1, *b) + _conv_flops(256, 64, 1, *b)
+              + 2 * _conv_flops(f, 128, 1, *b) + _conv_flops(128, 128, 1, *b))
+    for s, n_attr in zip((16, 8, 4, 2), (16, 8, 4, 1)):
+        hw = (h // s, w // s)
+        metric += (_conv_flops(f, 128, 1, *hw) + _conv_flops(128, 128, 1, *hw)
+                   + _conv_flops(128, 128, 1, *hw) + _conv_flops(128, n_attr, 1, *hw))
+    metric += _conv_flops(161, 80, 1, h, w) + _conv_flops(80, 4, 1, h, w)
+    return beit + reassemble + fusion + head + metric
+
+
+def write_zoe_checkpoint(model, path):
+    """A ``ZoeDepthDPT``'s weights as a ``ZoeD_M12_*.pt`` in the published
+    key layout: the backbone under ``core.core.`` with the buffers and
+    unused modules released files carry (each block's
+    ``relative_position_index``, timm's final norm, refinenet4's dead
+    ``resConfUnit1``), the head's keys bare, in ``{"model": ...}``."""
+    import torch
+
+    from pgdvs_tpu_torch.models.depth.dpt_beit import gen_relative_position_index
+
+    sd = {f"core.core.{k}": v for k, v in model.midas.state_dict().items()}
+    sd.update(model.head.state_dict())
+    grid = model.midas.pretrained.model.blocks[0].attn.pretrained_grid
+    index = torch.from_numpy(gen_relative_position_index(*grid))
+    pm = "core.core.pretrained.model."
+    for i in range(len(model.midas.pretrained.model.blocks)):
+        sd[f"{pm}blocks.{i}.attn.relative_position_index"] = index
+    dim = model.midas.embed_dim
+    sd[pm + "norm.weight"], sd[pm + "norm.bias"] = torch.ones(dim), torch.zeros(dim)
+    for k, v in model.midas.scratch.refinenet3.resConfUnit1.state_dict().items():
+        sd[f"core.core.scratch.refinenet4.resConfUnit1.{k}"] = torch.zeros_like(v)
+    torch.save({"model": sd}, path)
+
+
+def write_mvs_depths(rgb_dir, mvs_dir, hw, n_clip, seed=SEED, keep=0.05):
+    """Seeded sparse MVS depth for each frame of ``rgb_dir`` (frame i of an
+    ``n_clip``-frame ``write_flow_clip`` clip): the synthetic scene's
+    z-depth from that frame's camera at a random ``keep`` share of the
+    pixels, 0 elsewhere."""
+    from pgdvs_tpu_torch.data import synthetic
+
+    rng = np.random.default_rng(seed)
+    mvs_dir.mkdir(parents=True)
+    for f in sorted(rgb_dir.glob("*.png")):
+        i = int(f.stem)
+        fr = synthetic.render_frame(hw[0], hw[1], synthetic.camera_pose(i, n_clip),
+                                    i / (n_clip - 1))
+        depth = fr["depth"][..., 0].astype(np.float32)
+        np.savez(mvs_dir / f"{f.stem}.npz",
+                 depth=np.where(rng.random(hw) < keep, depth, 0.0).astype(np.float32))
+
+
+class RecordingZoe:
+    """Patches ``ZoeDepthDPT.forward`` and ``zoe_port.load_zoe_model``
+    while active: each forward timed by CUDA events (the host clock on the
+    CPU) with its input's shape, the checkpoint load timed on the host."""
+
+    def __init__(self, device):
+        self.device = device
+        self.calls = []
+        self.load_s = None
+
+    def __enter__(self):
+        from pgdvs_tpu_torch.models.depth import dpt_beit, zoe_port
+
+        self.orig, self.orig_load = dpt_beit.ZoeDepthDPT.forward, zoe_port.load_zoe_model
+        rec = self
+
+        def forward(model, img):
+            if rec.device == "cuda":
+                out, ms = _event_ms(lambda: rec.orig(model, img))
+            else:
+                t0 = time.perf_counter()
+                out = rec.orig(model, img)
+                ms = (time.perf_counter() - t0) * 1e3
+            rec.calls.append({"ms": ms, "shape": tuple(img.shape)})
+            return out
+
+        def load(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return rec.orig_load(*args, **kwargs)
+            finally:
+                rec.load_s = time.perf_counter() - t0
+
+        dpt_beit.ZoeDepthDPT.forward, zoe_port.load_zoe_model = forward, load
+        return self
+
+    def __exit__(self, *exc):
+        from pgdvs_tpu_torch.models.depth import dpt_beit, zoe_port
+
+        dpt_beit.ZoeDepthDPT.forward, zoe_port.load_zoe_model = self.orig, self.orig_load
+
+
+def _zoe_parts(model, img):
+    """The backbone's outputs (relative depth, the head activation, the
+    bottleneck, r4..r1), the metric depth and, for the NK head, the domain
+    logits, of ``model`` on ``img`` [1, 3, H, W] in [0, 1]."""
+    import torch
+
+    from pgdvs_tpu_torch.models.depth.dpt_beit import IMAGENET_MEAN, IMAGENET_STD
+    from pgdvs_tpu_torch.models.tracking.tapir import no_tf32
+
+    mean = torch.tensor(IMAGENET_MEAN, device=img.device)[:, None, None]
+    std = torch.tensor(IMAGENET_STD, device=img.device)[:, None, None]
+    with torch.no_grad(), no_tf32():
+        rel, outconv, l4, pyr = model.midas((img - mean) / std)
+        parts = {"rel": rel, "out_conv": outconv, "l4_rn": l4,
+                 **{f"r{4 - i}": r for i, r in enumerate(pyr)}}
+        head = model.head(outconv, l4, pyr, rel)
+        if model.variant == "nk":
+            parts["logits"] = head[1]
+        parts["depth"] = model(img)
+    return parts
+
+
+def _semantic_case(seed, q, c, hw, device):
+    """Seeded OneFormer-like class logits [Q, C + 1] and mask logits
+    [Q, H, W] on ``device``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    cls = torch.randn(q, c + 1, generator=gen) * 2.0
+    # mostly negative mask logits, as a query covers a small region: some
+    # pixels fall under the 0.1 threshold
+    msk = torch.randn(q, *hw, generator=gen) * 3.0 - 8.0
+    return cls.to(device), msk.to(device)
+
+
+def phase_depth(root, smi, clip_dir, device="cuda", n_frames=DEPTH_FRAMES,
+                check_hw=DEPTH_CHECK_HW, depth=24, sem_hw=None, sem_queries=SEM_QUERIES):
+    """[depth]: ZoeDepth and the semantic aggregation (ZoeDepth on seeded,
+    damped random weights, ``init_zoe_weights``: the released checkpoint is
+    not in the repository).
+
+    (a) ``ZoeDepthDPT`` at the published widths (DPT-BEiT-L, ``depth``
+    blocks) on the card against the port on the CPU with the same weights,
+    single and NK heads, one synthetic frame at ``check_hw`` (an 8x12 token
+    grid: the relative-position tables resized): the relative depth, the
+    head activation, the bottleneck, r4..r1, the NK logits and the metric
+    depth within DEPTH_REL_TOL of their largest magnitude; (b) the single
+    model written as ``ZoeD_M12_N.pt`` in the published key layout
+    (``write_zoe_checkpoint``), ``python -m
+    pgdvs_tpu_torch.preprocess.compute_zoedepth --zoe-ckpt ... --device``
+    run in-process (runpy) on the first ``n_frames`` frames of
+    ``clip_dir`` ([preprocess]'s 576x1100 clip) with seeded sparse MVS
+    depth (``write_mvs_depths``) into ``<root>/zoe/<scene>/dense``: the npz
+    files (keys, shapes, finite, positive), the net size, seconds per frame
+    (the CLI's wall clock), the network's device ms per forward, FLOPs
+    (``zoe_flops``) and TFLOP/s, the checkpoint's write and load seconds,
+    peak memory, then one more frame under ``torch.profiler`` (launches,
+    busy share, top kernels) and the port's NVIDIA reader on the written
+    files for every ZOE_PRINCIPLES key; (c) ``semantic_seg_from_queries``
+    on the card against the CPU at OneFormer's output shapes (``sem_queries``
+    queries, 150 / 133 classes plus the null class, masks at a quarter of
+    the frame): the quarter-size maps equal but where the CPU's float64
+    scores tie within 1e-9, the frame-size maps but where the CPU's float32
+    top two lie within SEM_UP_TIE, the union equal; device ms of each; then
+    the semantic_masks CLI, which must refuse (no OneFormer checkpoint in
+    the local cache, or no ``transformers``) and write no mask. Returns the
+    hand kernels' launches over (b): none."""
+    import copy
+    import runpy
+    import shutil
+
+    import torch
+
+    from pgdvs_tpu_torch.data import synthetic
+    from pgdvs_tpu_torch.data.image_io import read_rgb
+    from pgdvs_tpu_torch.data.nvidia_eval import ZOE_PRINCIPLES, NvidiaEvalDataset
+    from pgdvs_tpu_torch.models.depth.dpt_beit import ZoeDepthDPT, init_zoe_weights
+    from pgdvs_tpu_torch.models.depth.zoe_infer import resize_output_size, zoe_infer
+    from pgdvs_tpu_torch.preprocess import semantic_masks as sem
+
+    tag = "[depth]"
+    t0 = time.perf_counter()
+    cpu = {}
+    for variant in ("single", "nk"):
+        with torch.device("meta"):
+            cpu[variant] = ZoeDepthDPT(variant=variant, backbone_kwargs={"depth": depth})
+    cpu["single"] = init_zoe_weights(cpu["single"].to_empty(device="cpu"), seed=SEED).eval()
+    cpu["nk"].midas = cpu["single"].midas
+    cpu["nk"].head = init_zoe_weights(cpu["nk"].head.to_empty(device="cpu"), seed=SEED + 1)
+    cpu["nk"].eval()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in cpu["single"].parameters())
+    h, w = check_hw
+    frame = synthetic.render_frame(h, w, synthetic.camera_pose(3, 8), 0.4)["rgb"]
+    img = torch.from_numpy(np.ascontiguousarray(frame, np.float32)).permute(2, 0, 1)[None]
+    for variant, cpu_model in cpu.items():
+        card = copy.deepcopy(cpu_model).to(device)
+        got, ref = _zoe_parts(card, img.to(device)), _zoe_parts(cpu_model, img)
+        del card
+        errs = {}
+        for key in ref:
+            d = (got[key].float().cpu() - ref[key]).abs()
+            scale = float(ref[key].abs().max())
+            errs[key] = (float(d.max()), scale)
+            if not (bool(torch.isfinite(got[key]).all()) and scale > 0
+                    and errs[key][0] <= DEPTH_REL_TOL * scale):
+                raise AssertionError(f"{tag} (a) {variant} {key}: max |card - cpu| "
+                                     f"{errs[key][0]:.3e} of scale {scale:.3e}, bound "
+                                     f"{DEPTH_REL_TOL} x scale")
+        pick = ""
+        if variant == "nk":
+            pick = f", domain picked {int(torch.argmax(ref['logits'][0]))} on both"
+            if int(torch.argmax(ref["logits"][0])) != int(torch.argmax(got["logits"][0])):
+                raise AssertionError(f"{tag} (a) nk: the card and the CPU pick other domains")
+        log(f"{tag} (a) ZoeDepthDPT {variant} ({n_params / 1e6:.1f} M parameters, {depth} BEiT "
+            f"blocks, seeded weights in {init_s:.2f} s) card vs CPU at {h}x{w} "
+            f"({h // 16}x{w // 16} tokens against the 24x24 table): " + ", ".join(
+                f"{k} {e[0]:.2e} of {e[1]:.3g} ({e[0] / e[1]:.1e})" for k, e in errs.items())
+            + f"; bound {DEPTH_REL_TOL} x scale{pick}")
+
+    # (b) the CLI on the clip's first frames
+    raw_hw = read_rgb(sorted(clip_dir.glob("*.png"))[0]).shape[:2]
+    rgb_dir = root / "rgbs"
+    rgb_dir.mkdir(parents=True)
+    for f in sorted(clip_dir.glob("*.png"))[:n_frames]:
+        shutil.copyfile(f, rgb_dir / f.name)
+    write_mvs_depths(rgb_dir, root / "mvs", raw_hw, len(list(clip_dir.glob("*.png"))))
+    pt = root / "ckpts" / "ZoeD_M12_N.pt"
+    pt.parent.mkdir()
+    t0 = time.perf_counter()
+    write_zoe_checkpoint(cpu["single"], pt)
+    write_s = time.perf_counter() - t0
+    dense = root / "zoe" / READER_SCENE / "dense"
+    old_argv = sys.argv
+    sys.argv = ["compute_zoedepth", "--rgb-dir", str(rgb_dir), "--mvs-depth-dir",
+                str(root / "mvs"), "--save-dir", str(dense), "--zoe-ckpt", str(pt),
+                "--zoe-type", "n", "--device", device]
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        with RecordingZoe(device) as rec:
+            t0 = time.perf_counter()
+            runpy.run_module("pgdvs_tpu_torch.preprocess.compute_zoedepth", run_name="__main__")
+            cli_s = time.perf_counter() - t0
+    finally:
+        sys.argv = old_argv
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
+    files = sorted((dense / "zoe_depths_n").glob("*.npz"))
+    keys = {"depth_pred"} | set(ZOE_PRINCIPLES) | {k for pair in ZOE_PRINCIPLES.values()
+                                                    for k in pair}
+    if len(files) != n_frames or len(rec.calls) != n_frames:
+        raise AssertionError(f"{tag} (b) {len(files)} npz files from {len(rec.calls)} forwards, "
+                             f"expected {n_frames} of each")
+    spread = []
+    for f in files:
+        z = np.load(f)
+        d = z["depth_pred"]
+        if set(z.files) != keys or d.shape != raw_hw or not np.isfinite(d).all() or d.min() <= 0:
+            raise AssertionError(f"{tag} (b) {f.name}: keys {sorted(z.files)}, depth {d.shape}")
+        if not all(np.isfinite(float(z[k])) for k in keys - {"depth_pred"}):
+            raise AssertionError(f"{tag} (b) {f.name}: a non-finite alignment value")
+        spread.append(float(d.std() / d.mean()))
+    net = rec.calls[0]["shape"]
+    pad = [n + 2 * int(np.sqrt(n / 2) * 3) for n in raw_hw]
+    want = (2, 3, *resize_output_size(*pad, 384, 512))  # the reference's 384x512 target
+    if any(c["shape"] != want for c in rec.calls):
+        raise AssertionError(f"{tag} (b) forwards at {[c['shape'] for c in rec.calls]}")
+    flops = zoe_flops(net[2], net[3], depth)
+    timed = [c["ms"] for c in rec.calls]
+    ms = statistics.median(timed)
+    zoe_s = sum(timed) / 1e3
+    busy = "no device activity seen by the profiler"
+    if device == "cuda":
+        card = copy.deepcopy(cpu["single"]).to(device)
+        x = torch.from_numpy(read_rgb(sorted(rgb_dir.glob("*.png"))[0]).astype(np.float32)
+                             / 255.0).to(device)
+        with torch.no_grad():
+            zoe_infer(card, x)
+            _, launches, busy_ms, prof_ms, top = _kernel_table(lambda: zoe_infer(card, x))
+        del card
+        if launches:
+            busy = (f"{launches} launches, {busy_ms:.2f} ms of kernels in {prof_ms:.2f} ms: "
+                    f"busy {100 * busy_ms / prof_ms:.2f} %; top kernels " + "; ".join(
+                        f"{name[:70]} {t:.2f} ms x{c}" for name, t, c in top))
+    reader = NvidiaEvalDataset(root, use_zoe_depth="none", zoe_depth_data_path="zoe")
+    read = []
+    for zp in ZOE_PRINCIPLES:
+        reader.use_zoe_depth = f"n_{zp}"
+        for i in range(n_frames):
+            d = reader._read_depth(READER_SCENE, i, *READER_EVAL_HW)
+            if d.shape != READER_EVAL_HW or not np.isfinite(d).all():
+                raise AssertionError(f"{tag} (b) the reader's n_{zp} depth of frame {i}")
+            read.append(float(np.median(d)))
+    log(f"{tag} (b) python -m pgdvs_tpu_torch.preprocess.compute_zoedepth --zoe-ckpt "
+        f"{pt.name} ({pt.stat().st_size / 1e9:.2f} GB, written in {write_s:.2f} s, loaded in "
+        f"{rec.load_s:.2f} s) --device {device} on {n_frames} {raw_hw[0]}x{raw_hw[1]} PNG frames "
+        f"with seeded sparse MVS depth: {len(files)} npz files, keys as the JAX package writes "
+        f"them, depth finite and positive (std / mean {min(spread):.2e}-{max(spread):.2e}); net "
+        f"{net[2]}x{net[3]} ({net[2] // 16}x{net[3] // 16} tokens), the flip in one batch of "
+        f"{net[0]}; CLI {cli_s:.3f} s = {cli_s / n_frames:.4f} s per frame (with the load); "
+        f"ZoeDepthDPT per forward (2 images) median {ms:.2f} ms (first {timed[0]:.2f}, min "
+        f"{min(timed):.2f}, max {max(timed):.2f}), {2 * flops / 1e12:.3f} TFLOP = "
+        f"{2 * flops / ms / 1e9:.2f} TFLOP/s, {zoe_s:.3f} s of the CLI; one frame profiled "
+        f"after the CLI: {busy}; peak memory {peak_gb:.2f} GB; the port's NVIDIA reader takes "
+        f"the files for {', '.join(ZOE_PRINCIPLES)} (median depth {min(read):.3f}-"
+        f"{max(read):.3f}); on {smi}")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"{tag} hand kernels launched: {_nonzero(launches)}")
+
+    # (c) the semantic aggregation at OneFormer's output shapes
+    if sem_hw is None:
+        sem_hw = raw_hw
+    quarter = (sem_hw[0] // 4, sem_hw[1] // 4)
+    reset_launches()
+    maps = {}
+    for seed, c in enumerate(SEM_CLASSES):
+        cls, msk = _semantic_case(SEED + seed, sem_queries, c, quarter, "cpu")
+        s_cpu = sem.semantic_scores_from_queries(cls, msk)
+        m_cpu = sem.semantic_map_from_scores(s_cpu)
+        up_cpu = sem.semantic_seg_from_queries(cls, msk, sem_hw)
+        cls_d, msk_d = cls.to(device), msk.to(device)
+        sem.semantic_seg_from_queries(cls_d, msk_d, sem_hw)  # warm-up
+
+        def quarter_map():
+            s = sem.semantic_scores_from_queries(cls_d, msk_d)
+            return s, sem.semantic_map_from_scores(s)
+
+        (s_card, m_card), ms_q = _timed(quarter_map, device)
+        up_card, ms_up = _timed(lambda: sem.semantic_seg_from_queries(cls_d, msk_d, sem_hw),
+                                device)
+        s64 = torch.einsum("qc,qhw->chw", torch.softmax(cls.double(), -1)[:, :-1],
+                           torch.sigmoid(msk.double()))
+        top2 = torch.topk(s64, 2, dim=0).values
+        excused = ((top2[0] - top2[1]) <= 1e-9) | ((top2[0] - sem.SEM_SEG_PROB_THRES).abs() <= 1e-9)
+        diff = (m_card.cpu() != m_cpu) & ~excused
+        up_scores = torch.nn.functional.interpolate(s_cpu[None], size=tuple(sem_hw),
+                                                    mode="bilinear", align_corners=False)[0]
+        up_top2 = torch.topk(up_scores, 2, dim=0).values
+        up_excused = (((up_top2[0] - up_top2[1]) <= SEM_UP_TIE)
+                      | ((up_top2[0] - sem.SEM_SEG_PROB_THRES).abs() <= SEM_UP_TIE))
+        up_diff = up_card.cpu() != up_cpu
+        if bool(diff.any()) or bool((up_diff & ~up_excused).any()):
+            raise AssertionError(f"{tag} (c) {c} classes: {int(diff.sum())} quarter-size and "
+                                 f"{int((up_diff & ~up_excused).sum())} frame-size pixels differ")
+        maps[c] = (m_card, up_card, up_cpu)
+        log(f"{tag} (c) {c} + 1 classes, {sem_queries} queries at {quarter[0]}x{quarter[1]}: "
+            f"scores card vs CPU max {float((s_card.cpu() - s_cpu).abs().max()):.2e}, the "
+            f"quarter-size maps equal ({int(excused.sum())} float64 ties excused), the "
+            f"{sem_hw[0]}x{sem_hw[1]} maps differ at {int(up_diff.sum())} pixels (each within "
+            f"{SEM_UP_TIE} of a tie); low-confidence share "
+            f"{float((up_cpu == -1).float().mean()):.4f}; device ms: scores + map {ms_q:.2f}, "
+            f"with the resize {ms_up:.2f}; on {smi}")
+    (_, up_ade, cpu_ade), (_, up_coco, cpu_coco) = maps[SEM_CLASSES[0]], maps[SEM_CLASSES[1]]
+    union = sem.semantic_dynamic_union(up_ade, up_coco)
+    ref_union = sem.semantic_dynamic_union(cpu_ade, cpu_coco)
+    flips = union.cpu() != ref_union
+    either = (up_ade.cpu() != cpu_ade) | (up_coco.cpu() != cpu_coco)
+    if bool((flips & ~either).any()):
+        raise AssertionError(f"{tag} (c) the union differs at {int((flips & ~either).sum())} "
+                             "pixels where both maps agree")
+    flips = int(flips.sum())
+    log(f"{tag} (c) the movable-class union: share {float(union.float().mean()):.4f}, "
+        f"card vs CPU {flips} pixels apart (only where a map's pixel was excused)")
+    masks = root / "semantic"
+    try:
+        sem.main(["--image-dir", str(rgb_dir), "--out-dir", str(masks), "--device", device])
+    except SystemExit as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"{tag} (c) semantic_masks ran without OneFormer weights")
+    if masks.exists() and any(masks.iterdir()):
+        raise AssertionError(f"{tag} (c) semantic_masks wrote masks before refusing")
+    log(f"{tag} (c) python -m pgdvs_tpu_torch.preprocess.semantic_masks refuses here, no mask "
+        f"written: {refusal[:160]}")
+    launches_c = read_launches()
+    if any(launches_c.values()):
+        raise AssertionError(f"{tag} hand kernels launched: {_nonzero(launches_c)}")
+    return launches
+
+
+def _timed(fn, device):
+    """(result, ms) of ``fn``: CUDA events on the card, the host clock on
+    the CPU."""
+    if device == "cuda":
+        return _event_ms(fn)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -3869,6 +4308,7 @@ def main() -> int:
         paths.update({f"[dycheck][{preset}]": want
                       for preset, want in phase_dycheck(models, root, smi).items()})
         paths["[preprocess]"] = phase_preprocess(root / "preprocess", smi)
+        paths["[depth]"] = phase_depth(root / "depth", smi, root / "preprocess" / "clip" / "rgbs")
     phase_point_mesh(models, smi)
     phase_track_lk(models, smi)
     phase_track_tapir(models, smi)

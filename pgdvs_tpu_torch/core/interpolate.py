@@ -4,7 +4,8 @@ Counterpart of ``pgdvs_tpu.core.interpolate``: ``bilinear_sample`` is torch
 ``grid_sample(align_corners=True, padding_mode='zeros')`` once coordinates
 are in pixels (or edge-clamped with ``zero_pad=False``); callers that need
 the ``align_corners=False`` convention subtract half a pixel themselves.
-``resize`` is ``jax.image.resize`` for the cubic, linear and nearest methods.
+``resize`` is ``jax.image.resize`` for the cubic, linear and nearest methods;
+``resize_axes`` is its cubic and linear methods on every axis of any rank.
 """
 
 from __future__ import annotations
@@ -183,3 +184,20 @@ def resize(img: torch.Tensor, out_h: int, out_w: int, method: str) -> torch.Tens
     if out_w != w:
         img = torch.einsum("hwc,wp->hpc", img, _resize_weights(w, out_w, kernel, img.device))
     return img
+
+
+def resize_axes(x: torch.Tensor, shape, method: str = "linear") -> torch.Tensor:
+    """``jax.image.resize(x, shape, method)`` for float32 tensors of any
+    rank, ``method`` "cubic" or "linear": every axis whose size changes is
+    resized with ``resize``'s weight matrices, the channel axis as well
+    (JAX resizes whichever axes ``shape`` changes)."""
+    kernels = {"cubic": _keys_cubic, "linear": _triangle}
+    if method not in kernels:
+        raise ValueError(f"unknown resize method {method!r}; valid: cubic | linear")
+    x = x.float()
+    for axis, n_out in enumerate(shape):
+        n_in = x.shape[axis]
+        if n_in != n_out:
+            w = _resize_weights(n_in, n_out, kernels[method], x.device)
+            x = torch.movedim(torch.tensordot(x, w, dims=([axis], [0])), -1, axis)
+    return x

@@ -52,7 +52,7 @@ def _vector(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.float32).reshape(-1))
 
 
-def _state_dict(flax_params, module_name: Callable, what: str) -> Dict[str, torch.Tensor]:
+def flax_state_dict(flax_params, module_name: Callable, what: str) -> Dict[str, torch.Tensor]:
     """Walk a flax param tree; ``module_name(path)`` names a leaf's torch
     module from its flax scopes."""
     tree = flax_params["params"] if "params" in flax_params else flax_params
@@ -80,7 +80,7 @@ def _state_dict(flax_params, module_name: Callable, what: str) -> Dict[str, torc
 
 def tapir_state_dict(flax_params) -> Dict[str, torch.Tensor]:
     """flax Tapir params -> the port's Tapir state dict."""
-    return _state_dict(
+    return flax_state_dict(
         flax_params, lambda path: ".".join(HEADS.get(p, p) for p in path if p != "GroupNorm_0"),
         "TAPIR")
 
@@ -106,6 +106,6 @@ def _cotracker_scope(p: str) -> str:
 def cotracker_state_dict(flax_params) -> Dict[str, torch.Tensor]:
     """flax CoTrackerModel params -> the port's CoTrackerModel state dict
     (the reference's key layout)."""
-    return _state_dict(
+    return flax_state_dict(
         flax_params, lambda path: ".".join(_cotracker_scope(p) for p in path if p != "conv"),
         "CoTracker")
