@@ -98,6 +98,29 @@ exits non-zero without printing a result:
      ``benchmark --benchmark-type default`` over the same items: 78 K2
      launches per item; (e) host ms per item by scoring stage, render and
      loop s/view, and whether scoring stays under the render;
+  10b. ``[train]`` (in [eval]'s directory): fine-tuning through
+     ``parallel.sharded.make_train_step`` (the plain network under
+     autograd, no hand kernel): (a) at full width on the 288x550 synthetic
+     scene, 9 of 10 sources, 256 exact samples, 512 rays, Adam, float32
+     with TF32 off, then the GNT under bf16 autocast: ms per step (CUDA
+     events), rays/s, peak memory, the losses of a warm-up and 5 steps on one
+     batch falling, 0 kernel launches, ``utils.tracing.StageTimer`` around
+     the sampler and the steps, one step under ``profile_trace`` (top
+     kernels, trace size); (b) one SGD step at 48x64 on the card against the
+     CPU, in float32 (loss, the gradient in L2 norm) and in float64 (loss and
+     every gradient leaf); (c) torchrun of one rank on NCCL: ``run train
+     --distributed`` over [reader]'s first 3 items for 2 epochs, then
+     ``--resume`` for a third (the result lines, the checkpoints, the saved
+     config);
+  10c. ``[parallel]``: one torchrun of two ranks sharing the card
+     over gloo (``chip_smoke.py --rank parallel``): ``sharded_render_rays``
+     of the fast preset at 288x550 against the one-rank render (rays
+     differing, rgb within the kernel's tolerance); a float64 train step
+     at dp = 2 against one rank with both views; ``run eval --distributed
+     --devices 2`` over [eval]'s 3 items (strided over the ranks: two on
+     rank 0, one on rank 1) with its checkpoint, its summary.json against [eval] (a)'s; launches
+     summed over the ranks, each phase's seconds. No speed-up is claimed:
+     the ranks share one card;
   11. ``[jpeg]``: the C JPEG decoder built, the committed fixtures of
      tests/data/jpeg decoded to the sha256 and shape recorded from Pillow
      when they were made (the card's machine has no Pillow), the
@@ -129,9 +152,9 @@ exits non-zero without printing a result:
      rasterizer's ms); the branch at 48x64 held against the CPU;
   16. ``[track-tapir]``: TapirTracker on the card against the CPU on a
      small clip (grids, heads, tracks, visibility), chunked tracking against
-     one call, then both tapir bundles at 288x550 as [track-lk] on ±2 track
-     frames (``_raw_res`` since PR 15, the other since PR 18), with the peak
-     memory;
+     one call, then the ``_raw_res`` tapir bundle at 288x550 as [track-lk]
+     on ±2 track frames (since PR 15), with the peak memory (the 256x256
+     bundle runs in [track-eval] only);
   17. ``[track-cotracker]``: CoTracker on seeded, damped random weights:
      ``CoTrackerTracker`` one set on the card against the CPU on a T = 10
      64x96 clip at the published 384x512, six refinements (the encoder,
@@ -145,12 +168,12 @@ exits non-zero without printing a result:
   18. ``[vis]`` (in [eval]'s directory): [reader]'s scene written anew with
      flows at its 576x1100 frame size, through ``run benchmark
      --benchmark-type visualize_nvidia_max_disp_32`` in-process, the
-     400-frame trajectory cut to 4 frames by ``--dataset-arg``: K2 masked
+     400-frame trajectory cut to 2 frames by ``--dataset-arg``: K2 masked
      once per 2048-ray tile of each 576x1100 frame, each PNG the frame's
      render truncated, frame 0's static layer held against the CPU on a
      crop, s/frame, host ms per item, the video written or skipped;
   19. ``[mono-vis]``: a DAVIS-layout scene at 480x854 (``write_mono_scene``,
-     12 frames) through ``run vis --dataset mono_vis`` for 4 frames on the
+     12 frames) through ``run vis --dataset mono_vis`` for 2 frames on the
      fast preset (K1 patch_rows), checked as [vis];
   20. ``[dycheck]``: a synthetic iPhone capture (``write_iphone_capture``,
      360x480, 24 train frames, one val frame at a train time and one
@@ -163,7 +186,7 @@ exits non-zero without printing a result:
   21. ``[preprocess]``: RAFT on seeded, damped random weights on the card
      against the CPU at 96x128 (encoders, correlation window, 12-iteration
      flows); ``python -m pgdvs_tpu_torch.preprocess.compute_flow`` on a
-     24-frame 576x1100 PNG clip at interval 1, 32 iterations, the weights as
+     8-frame 576x1100 PNG clip at interval 1, 32 iterations, the weights as
      ``raft-things.pth`` under ``$PGDVS_CKPT_DIR``: the npz files, seconds
      per pair, FLOPs and TFLOP/s, peak memory, launches per pair and the
      busy share; then ``epipolar_mask`` and ``combine_masks`` on those
@@ -183,10 +206,12 @@ exits non-zero without printing a result:
      OneFormer. No hand kernel launches there.
 
 The second-to-last line is a JSON object describing each kernel (its times,
-its launches on its path, its launches per view / frame / item on phases 17-22 and
-its bound on the card); the last line is
+its launches on its path, its launches per view / frame / item on phases 10b-10c and
+17-22 and its bound on the card); the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device: without one it exits
-non-zero before doing anything. Imports nothing of JAX.
+non-zero before doing anything. Imports nothing of JAX, nor do the ranks it
+starts under torchrun (``chip_smoke.py --rank parallel | cli``, each
+checking ``sys.modules`` before it returns).
 """
 
 from __future__ import annotations
@@ -1442,9 +1467,10 @@ def phase_new_modes(models, quad_img):
     the plain network on the card, no kernel launch) at 64x96."""
     from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
 
-    phase_main_path(models, n_fine_samples_per_ray=64, tag="[fine]")
+    # one timed render each (a second took ~10 s of the script's time)
+    phase_main_path(models, n_fine_samples_per_ray=64, tag="[fine]", n_timed=1)
     phase_main_path(models, bundle="default", preset="exact", cols=(160, 224),
-                    n_fine_samples_per_ray=64, tag="[fine-exact]")
+                    n_fine_samples_per_ray=64, tag="[fine-exact]", n_timed=1)
     phase_main_path(models, bundle="default", rows=(70, 74), cols=(80, 144), render_stride=2,
                     tag="[stride2]")
     for mode in ("fused", "quad_i8"):
@@ -2635,6 +2661,10 @@ TRACK_K = 5                 # ±5 track frames: T = 12 slots
 TRACK_K_TAPIR = 2
 TRACK_BUNDLES = ("st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir",
                  "st_gnt_masked_attn_dy_cvd_pcl_clean_track_tapir_raw_res")
+# rendered by [track-tapir]: the _raw_res bundle alone (the
+# 256x256 one's first and timed renders took ~25 s of the script; it still
+# runs on the card through [track-eval]'s `run benchmark`)
+TRACK_TAPIR_RENDERED = TRACK_BUNDLES[1:]
 # one item: each TAPIR item on ±5 track frames costs ~41 s of the script's
 # time, which [track-cotracker] takes
 TRACK_EVAL_ITEMS = 1
@@ -2920,7 +2950,7 @@ def phase_track_tapir(models, smi, h=288, w=550, n_samples=256):
         + ", ".join(f"{float(e.max()):.2e}" for e in errs)
         + f" (tracks, occlusion, expected distance); share over {TAPIR_CHUNK_TOL}: {flips:.5f}")
     del g_card, g_cpu, one, chunked, errs, cpu_tracker
-    for bundle in TRACK_BUNDLES:
+    for bundle in TRACK_TAPIR_RENDERED:
         raw_res = bundle.endswith("raw_res")
         btag = f"{tag}[{'raw_res' if raw_res else '256'}]"
         data = _track_contract(h, w, TRACK_K_TAPIR, "cuda")
@@ -3254,14 +3284,15 @@ def phase_track_eval(models, root, smi, n_items=TRACK_EVAL_ITEMS, eval_hw=READER
 VIS_BUNDLE = "visualize_nvidia_max_disp_32"
 # [reader]'s 24-frame scene (flows at the frame size), the bullet-time
 # trajectory cut from 400 frames to VIS_FRAMES around frame 12
-VIS_FRAMES = 4               # ~7 s a frame of the script's time
+# cut from 4 (~14 s of the script's time) to make room for [train] / [parallel]
+VIS_FRAMES = 2               # ~7 s a frame of the script's time
 VIS_ARGS = (f"n_render_frames={VIS_FRAMES}", "vis_center_time=12", "vis_time_interval=6")
 VIS_FLOW_FRAMES = ((6, 20),)
 VIS_ROWS, VIS_COLS = (284, 288), (520, 584)
 MONO_SCENE = "lady-running"
 MONO_HW = (480, 854)          # DAVIS 480p
 MONO_FRAMES = 12
-MONO_VIS_FRAMES = 4
+MONO_VIS_FRAMES = 2          # cut from 4 (~3.5 s a frame)
 MONO_ARGS = (f"n_render_frames={MONO_VIS_FRAMES}", "vis_center_time=5", "vis_time_interval=1.5")
 MONO_ROWS, MONO_COLS = (236, 244), (400, 464)
 DYCHECK_ROWS, DYCHECK_COLS = (176, 180), (200, 264)
@@ -3550,6 +3581,9 @@ def phase_dycheck(models, root, smi, hw=IPHONE_HW, device="cuda", rows=DYCHECK_R
 PRE_CHECK_HW = (96, 128)      # (a): the card against the CPU
 PRE_CHECK_ITERS = 12
 RAFT_ITERS = 32               # the reference's iterations (compute_flow.py:221-238)
+# the clip's frames: cut from 24 (~27 s of the script's time, the
+# host mask tools ~0.8 s a frame); [depth] reads DEPTH_FRAMES of them
+PRE_FRAMES = 8
 # (a) bounds: encoders and correlation window within 1e-4 of their largest
 # magnitude (float32 with TF32 off on both sides: other convolution and
 # summation orders only); the 12-iteration flows (~0.5 px with the damped
@@ -4242,6 +4276,463 @@ def phase_depth(root, smi, clip_dir, device="cuda", n_frames=DEPTH_FRAMES,
     return launches
 
 
+# ------------------------------------------------- fine-tuning and ranks
+
+TRAIN_HW = (288, 550)
+TRAIN_SOURCES = 10           # one held out per batch: 9 render it
+TRAIN_SAMPLES = 256
+TRAIN_RAYS = 512
+TRAIN_STEPS = 5              # timed, after one warm-up, on one fixed batch
+TRAIN_LR = 1e-4
+# (b): one float32 step on the card against the CPU
+TRAIN_CHECK = {"hw": (48, 64), "n_spatial": 3, "samples": 16, "rays": 64}
+# The step's float32 gradient is ill-conditioned at these sizes: the
+# ResUNet's InstanceNorm over a few-pixel bottleneck amplifies rounding, and
+# a ReLU or a view mask that rounding flips moves a whole term. On the CPU
+# at 32x40 (tests/test_torch_port_trainer.py) JAX's float32 step lies 2.2e-5
+# (loss) and up to 1.2e-2 of a leaf's largest gradient from its float64
+# step, the port's 1.1e-5 and 4.6e-3; more where cuDNN's FFT convolutions
+# take part (one card-vs-CPU float32 reading: loss 2.9e-5, worst leaf
+# 0.177, the whole gradient 9.3e-3 in L2 norm). So the card is held to the CPU
+# strictly in float64 (both models and batches float64; the exact
+# sampler's backward is a scatter-add, atomic on CUDA, which reorders sums
+# at 1e-16), and in float32 on the loss and on the median leaf, the worst
+# leaf reported (the gradient as a whole held in L2 norm). A leaf's error is
+# taken against its largest entry, or
+# against FLOOR x the largest gradient of any leaf where that is larger: the
+# biases ahead of a softmax over views or an InstanceNorm have an exact
+# gradient of 0 (shift invariance), so their entries are rounding noise.
+TRAIN_LOSS_RTOL = 5e-5       # float32
+# float32, the gradient of every leaf as one vector, relative L2 norm (the
+# JAX package's float32 step and the port's on the CPU: 2.9e-3 to 1.5e-2)
+TRAIN_GRAD_L2 = 3e-2
+TRAIN_F64_LOSS_RTOL = 1e-9
+TRAIN_F64_GRAD_TOL = 1e-6    # float64, every leaf
+GRAD_FLOOR = 1e-6
+# (c): run train over [reader]'s first items through torchrun, on NCCL
+TRAIN_CLI_ITEMS = 3
+TRAIN_CLI_RAYS = 128
+TRAIN_CLI_SAMPLES = 64
+# [parallel]: two ranks sharing the card over gloo
+PARALLEL_RANKS = 2
+# dp = 2 against one rank with both views, float64: the order of the sums
+PARALLEL_CHECK = {"hw": (32, 40), "n_spatial": 3, "samples": 8, "rays": 64}
+PARALLEL_LOSS_RTOL = 1e-9
+PARALLEL_GRAD_TOL = 1e-6
+PARALLEL_SUMMARY_RTOL = 1e-4  # softsplat's index_add_ is atomic on CUDA (F3)
+RANK_TIMEOUT_S = 420
+
+
+def _train_batch(data, n_rays, seed=SEED):
+    """One view of ``sample_ray_batch_src`` (one source held out), as a
+    batch of one."""
+    from pgdvs_tpu_torch.engines.trainer import sample_ray_batch_src
+
+    b = sample_ray_batch_src(np.random.default_rng(seed), data, n_rays)
+    return {k: v[None] for k, v in b.items()}
+
+
+def _grads(models) -> dict:
+    return {f"{i}.{k}": p.grad.detach().double().cpu().numpy()
+            for i, m in enumerate(models) for k, p in m.named_parameters()}
+
+
+def one_step(mesh_kw, batch, cfg, n_rays, device, dtype):
+    """(loss, {leaf: gradient}) of one ``make_train_step`` step with
+    ``torch.optim.SGD(lr=1)`` from the seed's weights on ``device``, in
+    float32 or float64 (models, batch and torch's default dtype)."""
+    import torch
+
+    from pgdvs_tpu_torch.parallel.mesh import make_mesh
+    from pgdvs_tpu_torch.parallel.sharded import make_train_step
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models
+
+    models = init_gnt_models(seed=SEED, device=device)
+    if dtype == torch.float64:
+        models = tuple(m.double() for m in models)
+        batch = {k: v.astype(np.float64) for k, v in batch.items()}
+    opt = torch.optim.SGD([p for m in models for p in m.parameters()], lr=1.0)
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        loss = make_train_step(make_mesh(device=device, **mesh_kw), models, cfg, opt, n_rays,
+                               dtype=dtype)(batch)
+    finally:
+        torch.set_default_dtype(default)
+    return loss, _grads(models)
+
+
+def grad_l2(got: dict, want: dict) -> float:
+    """The relative L2 error of the gradient, every leaf as one vector."""
+    diff = sum(float(((got[k] - g) ** 2).sum()) for k, g in want.items())
+    return (diff / sum(float((g ** 2).sum()) for g in want.values())) ** 0.5
+
+
+def grad_errors(got: dict, want: dict, floor=GRAD_FLOOR):
+    """{leaf: max |got - want| / max(leaf's largest |want|, floor x the
+    largest of every leaf)}."""
+    top = max(float(np.abs(g).max()) for g in want.values())
+    return {k: float(np.abs(got[k] - g).max()) / max(float(np.abs(g).max()), floor * top)
+            for k, g in want.items()}
+
+
+def _device_kernels(prof, top=5):
+    """(launches, summed ms, [(name, ms, launches)] of the ``top`` kernels)
+    of a profiler's CUDA events."""
+    import collections
+
+    import torch
+
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+            by_name[e.name][1] += 1
+    rows = sorted(((n, t, c) for n, (t, c) in by_name.items()), key=lambda r: -r[1])
+    return sum(c for *_, c in rows), sum(t for _, t, _ in rows), rows[:top]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(n, rank_args, tag, env=None, timeout=RANK_TIMEOUT_S):
+    """``python -m torch.distributed.run --nproc-per-node n chip_smoke.py
+    --rank ...`` on this host, a free port; its output logged line by line
+    under ``tag``; raises on a non-zero exit or a timeout (the launcher and
+    its ranks killed). Returns (output, seconds)."""
+    import os
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
+           "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+           str(pathlib.Path(__file__).resolve()), "--rank", *rank_args]
+    root = str(pathlib.Path(__file__).resolve().parent)
+    full_env = {**os.environ, **(env or {}), "SMOKE_LAUNCH_T": repr(time.time()),
+                "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=full_env, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise AssertionError(f"{tag} torchrun ran past {timeout} s")
+    secs = time.perf_counter() - t0
+    for line in out.splitlines():
+        if line.startswith("[") or line.startswith("{"):
+            log(f"{tag} | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} torchrun exited {proc.returncode}:\n{out[-6000:]}")
+    return out, secs
+
+
+def phase_train(models, root, smi, device="cuda", hw=TRAIN_HW, n_spatial=TRAIN_SOURCES,
+                n_samples=TRAIN_SAMPLES, n_rays=TRAIN_RAYS, steps=TRAIN_STEPS,
+                check=TRAIN_CHECK, eval_h=READER_EVAL_HW[0], cli_samples=TRAIN_CLI_SAMPLES):
+    """[train]: per-scene fine-tuning (``parallel.sharded.make_train_step``,
+    the plain network under autograd: no hand kernel has a backward).
+
+    (a) At full width: ``models`` copied (GNT width 64, depth 8, ResUNet),
+    one batch of ``sample_ray_batch_src`` on the synthetic scene at ``hw``
+    with ``n_spatial`` sources (one held out), ``n_rays`` rays of
+    ``n_samples`` exact samples, ``torch.optim.Adam``; float32 with TF32
+    off, then the GNT under bf16 autocast: a warm-up step, then ``steps``
+    timed ones (CUDA events; ``utils.tracing.StageTimer`` around the sampler
+    and each step) on the fixed batch, whose losses must fall; ms per step,
+    rays/s, peak memory; K1 / K2 launch 0 times. One more step under
+    ``utils.tracing.profile_trace``: its top kernels and the trace's size.
+    (b) One SGD(lr=1) step at ``check``'s small size on the card and on the
+    CPU from the same weights, in float32 (the loss and the median gradient
+    leaf) and in float64 (the loss and every leaf). (c) ``run train
+    --distributed`` under torchrun, one rank on NCCL, over [reader]'s first
+    items for 2 epochs, then ``--resume`` for a third: the result lines,
+    the checkpoints and the run config. Returns the launches of (a)."""
+    import copy
+
+    import torch
+
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.parallel.mesh import make_mesh
+    from pgdvs_tpu_torch.parallel.sharded import make_train_step
+    from pgdvs_tpu_torch.renderers.config import RenderConfig
+    from pgdvs_tpu_torch.utils.tracing import StageTimer as TraceTimer
+    from pgdvs_tpu_torch.utils.tracing import profile_trace
+
+    t_phase = time.perf_counter()
+    timer = TraceTimer()
+    h, w = hw
+    data = make_contract_data(h=h, w=w, n_spatial=n_spatial, n_frames=12, tgt_time=0.5)
+    with timer.stage("sampler"):
+        batch = _train_batch(data, n_rays)
+    cfg = RenderConfig(n_coarse_samples_per_ray=n_samples)
+    launches = None
+    for name, dtype in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        ms_ = copy.deepcopy(models)
+        opt = torch.optim.Adam([p for m in ms_ for p in m.parameters()], lr=TRAIN_LR)
+        step = make_train_step(make_mesh(device=device), ms_, cfg, opt, n_rays, dtype=dtype)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses = [step(batch)]  # warm-up
+        times = []
+        for _ in range(steps):
+            with timer.stage(f"step_{name}", sync=[p for m in ms_ for p in m.parameters()]):
+                loss, ms = _timed(lambda: step(batch), device)
+            losses.append(loss)
+            times.append(ms)
+        got = read_launches()
+        launches = got if launches is None else {k: launches[k] + v for k, v in got.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"[train] (a) {name}: losses do not fall: {losses}")
+        mean_ms = statistics.mean(times)
+        log(f"[train] (a) {name}{' (TF32 off)' if name == 'float32' else ' autocast'}: "
+            f"{h}x{w}, {n_spatial - 1} of {n_spatial} sources, {n_samples} exact samples, "
+            f"{n_rays} rays: ms/step {mean_ms:.2f} (" + " ".join(f"{t:.2f}" for t in times)
+            + f"), {n_rays / mean_ms * 1e3:.0f} rays/s, peak {peak:.2f} GB; losses "
+            + " ".join(f"{x:.6f}" for x in losses) + f"; launches {_nonzero(got) or 0}; {smi}")
+        if name == "bf16":
+            with profile_trace(root / "train_trace") as prof:
+                step(batch)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+            n_k, k_ms, top = _device_kernels(prof)
+            size = (root / "train_trace" / "trace.json").stat().st_size
+            log(f"[train] (a) profile_trace of one bf16 step: {n_k} kernel launches, "
+                f"{k_ms:.2f} ms of kernels; trace {size / 1e6:.1f} MB; top: " + "; ".join(
+                    f"{n[:60]} {t:.2f} ms x{c}" for n, t, c in top))
+        del ms_, opt, step
+    if any(launches.values()):
+        raise AssertionError(f"[train] (a) hand kernels launched: {_nonzero(launches)}")
+    log(f"[train] (a) StageTimer: {json.dumps(timer.summary())}")
+
+    # (b) the card against the CPU, one SGD step in float32 and in float64
+    ch, cw = check["hw"]
+    small = make_contract_data(h=ch, w=cw, n_spatial=check["n_spatial"], n_frames=6)
+    sb = _train_batch(small, check["rays"])
+    cfg_b = RenderConfig(n_coarse_samples_per_ray=check["samples"])
+    for prec, dtype, loss_tol in (("float32", torch.float32, TRAIN_LOSS_RTOL),
+                                  ("float64", torch.float64, TRAIN_F64_LOSS_RTOL)):
+        t_b = time.perf_counter()
+        res = {dev: one_step({}, sb, cfg_b, check["rays"], dev, dtype) for dev in (device, "cpu")}
+        errs = grad_errors(res[device][1], res["cpu"][1])
+        worst = max(errs, key=errs.get)
+        median = statistics.median(errs.values())
+        l2 = grad_l2(res[device][1], res["cpu"][1])
+        rel = abs(res[device][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        ok = rel <= loss_tol and (l2 <= TRAIN_GRAD_L2 if prec == "float32"
+                                  else errs[worst] <= TRAIN_F64_GRAD_TOL)
+        log(f"[train] (b) one {prec} SGD(lr=1) step at {ch}x{cw}, {check['n_spatial']} sources, "
+            f"{check['samples']} samples, {check['rays']} rays, card vs CPU: loss "
+            f"{res[device][0]:.10f} / {res['cpu'][0]:.10f} (rel {rel:.2e}, bound {loss_tol}); "
+            f"the gradient's relative L2 error {l2:.2e}; {len(errs)} leaves: median "
+            f"{median:.2e}, worst {worst} {errs[worst]:.2e} of its largest (bound: "
+            + (f"L2 {TRAIN_GRAD_L2}" if prec == "float32"
+               else f"every leaf {TRAIN_F64_GRAD_TOL}") + f", floor {GRAD_FLOOR}); "
+            f"{time.perf_counter() - t_b:.1f} s")
+        if not ok:
+            raise AssertionError(f"[train] (b) {prec} card vs CPU out of bounds")
+
+    # (c) run train under torchrun, one rank, NCCL
+    if cli_samples:
+        out = root / "train"
+        argv = ["train", "--distributed", "--device", device, "--data-root", str(root / "scene"),
+                "--scene-ids", READER_SCENE, "--dataset-arg", f"tgt_height={eval_h}", "--max-items",
+                str(TRAIN_CLI_ITEMS), "--out-dir", str(out), "--n-rays", str(TRAIN_CLI_RAYS),
+                "--render-cfg", f"n_coarse_samples_per_ray={cli_samples}"]
+        # both runs in one rank process: a launch costs ~15 s before the rank starts
+        text, secs = torchrun(1, ["cli", *argv, "--epochs", "2", "--then", *argv, "--epochs",
+                                  "1", "--resume"], "[train] (c)")
+        results = [json.loads(x) for x in text.splitlines() if x.startswith('{"epochs"')]
+        if len(results) != 2:
+            raise AssertionError(f"[train] (c) {len(results)} result lines")
+        from pgdvs_tpu_torch.engines.checkpoint import list_checkpoints
+
+        n = TRAIN_CLI_ITEMS
+        ckpts = [(e, s) for e, s, _ in list_checkpoints(out)]
+        want = [(e, n * e) for e in (1, 2, 3)]
+        saved = json.loads((out / "config.json").read_text())["render_cfg"]
+        if ([r["epochs"] for r in results] != [2, 3]
+                or [r["steps"] for r in results] != [2 * n, 3 * n] or ckpts != want
+                or saved["n_coarse_samples_per_ray"] != cli_samples
+                or not all(np.isfinite(r["final_epoch_loss"]) for r in results)):
+            raise AssertionError(f"[train] (c) results {results}, checkpoints {ckpts}")
+        log(f"[train] (c) torchrun --nproc-per-node 1, one rank on NCCL: run train "
+            f"--distributed (bf16) over {n} items x 2 epochs, then --resume x 1: "
+            + "; ".join(json.dumps(r) for r in results)
+            + f"; checkpoints {ckpts}, config.json keeps the render config; {secs:.1f} s")
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_parallel(root, smi, eval_items=EVAL_ITEMS, ranks=PARALLEL_RANKS, device="cuda",
+                   hw=READER_EVAL_HW, n_samples=256):
+    """[parallel]: ``ranks`` ranks sharing the one card over gloo
+    (``--dist-backend gloo``; NCCL refuses two ranks on one card), one
+    torchrun of ``chip_smoke.py --rank parallel`` (``rank_parallel``): the
+    sharded render against one rank, the DP train step against one rank
+    with both views, then ``run eval --distributed --devices 2`` over
+    [eval]'s items with its checkpoint; its summary.json against [eval]
+    (a)'s one-rank run (``hw`` / ``n_samples``: its render size and
+    samples, the sharded render's too). Returns {path: the kernels'
+    launches summed over the ranks}."""
+    t0 = time.perf_counter()
+    cfg = {"root": str(root), "eval_items": eval_items, "device": device, "hw": list(hw),
+           "n_samples": n_samples}
+    (root / "parallel.json").write_text(json.dumps(cfg))
+    _, secs = torchrun(ranks, ["parallel", str(root / "parallel.json")], "[parallel]",
+                       env={"PGDVS_CKPT_DIR": str(root / "ckpts")})
+    recs = [json.loads((root / f"parallel_rank{r}.json").read_text()) for r in range(ranks)]
+    want = json.loads((root / "eval" / "summary.json").read_text())
+    got = json.loads((root / "parallel_eval" / "summary.json").read_text())
+    rel = {k: abs(got["mean"][k] - v) / max(abs(v), 1e-12) for k, v in want["mean"].items()
+           if k != "render_wall_s"}
+    if got["count"] != want["count"] or sorted(got["mean"]) != sorted(want["mean"]) or max(
+            rel.values()) > PARALLEL_SUMMARY_RTOL:
+        raise AssertionError(f"[parallel] (c) summary {got} vs [eval] (a) {want}")
+    paths = {}
+    for key in ("sharded", "eval"):
+        tag = "[parallel]" if key == "sharded" else "[parallel][eval]"
+        paths[tag] = {k: sum(r[f"launches_{key}"][k] for r in recs) for k in recs[0][
+            f"launches_{key}"]}
+    log(f"[parallel] (c) run eval --distributed --devices {ranks} over {want['count']} items "
+        f"(strided over the ranks): summary.json == [eval] (a)'s "
+        f"(count {got['count']}, worst mean rel {max(rel.values()):.2e}, bound "
+        f"{PARALLEL_SUMMARY_RTOL}); launches over the ranks {_nonzero(paths['[parallel][eval]'])}")
+    log(f"[parallel] torchrun of {ranks} ranks {secs:.1f} s, phase "
+        f"{time.perf_counter() - t0:.1f} s (ranks: " + "; ".join(json.dumps(r["seconds"]) for r in recs) + f"); {smi}; no "
+        "speed-up is claimed: both ranks share one card")
+    return paths
+
+
+def rank_parallel(cfg_path):
+    """One rank of [parallel] (under torchrun): gloo on the card."""
+    import torch
+
+    from pgdvs_tpu_torch import run as cli
+    from pgdvs_tpu_torch.data.loader import contract_to_device
+    from pgdvs_tpu_torch.data.synthetic import make_contract_data
+    from pgdvs_tpu_torch.parallel.mesh import init_distributed, make_mesh, world
+    from pgdvs_tpu_torch.parallel.sharded import sharded_render_rays
+    from pgdvs_tpu_torch.renderers.config import RenderConfig
+    from pgdvs_tpu_torch.renderers.static_gnt import init_gnt_models, render_image_gnt
+
+    cfg = json.loads(pathlib.Path(cfg_path).read_text())
+    root = pathlib.Path(cfg["root"])
+    import os
+
+    launched = float(os.environ.get("SMOKE_LAUNCH_T", time.time()))
+    device = init_distributed("gloo", cfg["device"])
+    rank, size = world()
+    if rank == 0:
+        log(f"[rank] joined the group {time.time() - launched:.1f} s after the launch")
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    rec, seconds = {"rank": rank}, {}
+    models = init_gnt_models(seed=SEED, device=device)
+    mesh = make_mesh(device=device)
+
+    # (a) one 288x550 view's rays over the ranks, the fast preset (K1 patch_rows)
+    t0 = time.perf_counter()
+    h, w = cfg["hw"]
+    d = contract_to_device(make_contract_data(h=h, w=w, n_spatial=10, n_frames=12,
+                                              tgt_time=0.5), device)
+    args = (d["flat_cam_tgt"], d["flat_cam_src_spatial"], d["static_rgb_src_spatial"], (h, w),
+            d["depth_range"], slice_config(None, cfg["n_samples"]))
+    ref = render_image_gnt(models, *args) if rank == 0 else None
+    sync()
+    reset_launches()
+    t1 = time.perf_counter()
+    out = sharded_render_rays(mesh, models, *args)
+    sync()
+    shard_s = time.perf_counter() - t1
+    rec["launches_sharded"] = read_launches()
+    if rank == 0:
+        diff = (out["rgb"] - ref["rgb"]).abs()
+        n_diff = int((diff.amax(-1) > 0).sum())
+        worst = float(diff.max())
+        if worst > KERNEL_TOL["rgb"] or not torch.isfinite(out["rgb"]).all():
+            raise AssertionError(f"[parallel] (a) sharded render rgb {worst}")
+        log(f"[parallel] (a) sharded_render_rays over {size} ranks (gloo, one card), {h}x{w} "
+            f"fast preset: rgb vs the one-rank render max {worst:.3e} (bound "
+            f"{KERNEL_TOL['rgb']}), {n_diff} of {h * w} rays differ at all; depth max "
+            f"{float((out['depth'] - ref['depth']).abs().max()):.3e}; {shard_s:.3f} s; this "
+            f"rank's launches {_nonzero(rec['launches_sharded'])}")
+    del ref, out
+    seconds["render"] = time.perf_counter() - t0
+
+    # (b) the DP step in float64: dp = 2 against one rank with both views
+    t0 = time.perf_counter()
+    ch, cw = PARALLEL_CHECK["hw"]
+    items = [make_contract_data(h=ch, w=cw, n_spatial=PARALLEL_CHECK["n_spatial"], n_frames=6,
+                                tgt_time=t) for t in (0.5, 0.35)]
+    views = [_train_batch(x, PARALLEL_CHECK["rays"], seed=SEED + i) for i, x in enumerate(items)]
+    batch = {k: np.concatenate([v[k] for v in views]) for k in views[0]}
+    cfg_b = RenderConfig(n_coarse_samples_per_ray=PARALLEL_CHECK["samples"])
+    res = {name: one_step(kw, batch, cfg_b, PARALLEL_CHECK["rays"], device, torch.float64)
+           for name, kw in (("one", {"n_devices": 1}), ("dp", {}))}
+    errs = grad_errors(res["dp"][1], res["one"][1])
+    worst = max(errs, key=errs.get)
+    rel = abs(res["dp"][0] - res["one"][0]) / abs(res["one"][0])
+    if rank == 0:
+        log(f"[parallel] (b) one float64 step of 2 views at {ch}x{cw}, dp = {size} against one "
+            f"rank with both: loss rel {rel:.2e} (bound {PARALLEL_LOSS_RTOL}), worst gradient "
+            f"leaf {worst} {errs[worst]:.2e} of its largest (bound {PARALLEL_GRAD_TOL}, floor "
+            f"{GRAD_FLOOR}), median {statistics.median(errs.values()):.2e}")
+    if not (rel <= PARALLEL_LOSS_RTOL and errs[worst] <= PARALLEL_GRAD_TOL):
+        raise AssertionError(f"[parallel] (b) rank {rank}: loss rel {rel}, {worst} {errs[worst]}")
+    seconds["train_step"] = time.perf_counter() - t0
+
+    # (c) run eval --distributed --devices 2 (the CLI finishes the process group)
+    t0 = time.perf_counter()
+    reset_launches()
+    cli.main(["eval", "--distributed", "--devices", str(size), "--dist-backend", "gloo",
+              "--device", device.type, "--data-root", str(root / "scene"), "--scene-ids",
+              READER_SCENE, "--max-items", str(cfg["eval_items"]), "--dataset-arg",
+              f"tgt_height={h}", "--render-cfg", f"n_coarse_samples_per_ray={cfg['n_samples']}",
+              "--out-dir", str(root / "parallel_eval")])
+    rec["launches_eval"] = read_launches()
+    seconds["eval"] = time.perf_counter() - t0
+    rec["seconds"] = {k: round(v, 2) for k, v in seconds.items()}
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    (root / f"parallel_rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def rank_cli(argv):
+    """One rank of ``python -m pgdvs_tpu_torch.run`` under torchrun: each
+    ``--then``-separated argument list in turn, in this process (each run
+    joins the process group and leaves it)."""
+    import os
+
+    from pgdvs_tpu_torch import run as cli
+
+    t0 = float(os.environ.get("SMOKE_LAUNCH_T", time.time()))
+    runs = [[]]
+    for a in argv:
+        if a == "--then":
+            runs.append([])
+        else:
+            runs[-1].append(a)
+    for run in runs:
+        log(f"[rank] {run[0]} started {time.time() - t0:.1f} s after the launch")
+        cli.main(run)
+    log(f"[rank] returned {time.time() - t0:.1f} s after the launch")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    return 0
+
+
 def _timed(fn, device):
     """(result, ms) of ``fn``: CUDA events on the card, the host clock on
     the CPU."""
@@ -4297,17 +4788,20 @@ def main() -> int:
         root = pathlib.Path(tmp)
         phase_reader(models, root / "scene")
         phase_eval(models, root)
+        # launches of fine-tuning (none: no hand kernel has a backward) and
+        # over the ranks of [parallel]
+        paths = {"[train]": phase_train(models, root, smi), **phase_parallel(root, smi)}
         phase_jpeg(smi)
         phase_geo(root / "geo", smi)
         phase_track_eval(models, root, smi)
         # launches per frame / item of the CoTracker CLI run and of the
         # visualization and DyCheck entry points
-        paths = {"[track-cotracker][cli]": phase_track_cotracker_cli(models, root, smi),
-                 "[vis]": phase_vis(models, root, smi),
-                 "[mono-vis]": phase_mono_vis(models, root, smi)}
+        paths.update({"[track-cotracker][cli]": phase_track_cotracker_cli(models, root, smi),
+                      "[vis]": phase_vis(models, root, smi),
+                      "[mono-vis]": phase_mono_vis(models, root, smi)})
         paths.update({f"[dycheck][{preset}]": want
                       for preset, want in phase_dycheck(models, root, smi).items()})
-        paths["[preprocess]"] = phase_preprocess(root / "preprocess", smi)
+        paths["[preprocess]"] = phase_preprocess(root / "preprocess", smi, n_frames=PRE_FRAMES)
         paths["[depth]"] = phase_depth(root / "depth", smi, root / "preprocess" / "clip" / "rgbs")
     phase_point_mesh(models, smi)
     phase_track_lk(models, smi)
@@ -4365,4 +4859,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit({"parallel": rank_parallel, "cli": rank_cli}[sys.argv[2]](
+            *([sys.argv[3]] if sys.argv[2] == "parallel" else [sys.argv[3:]])))
     sys.exit(main())

@@ -9,14 +9,16 @@ per-image records and dataset means. Items are strided across processes
 
 Renders run on the data's device (the card unless the caller asks for the
 CPU); the scores run on the host in numpy, LPIPS on its module's device.
-Not ported yet: the JAX package's mesh batch mode and its cross-process
-sum, which wait for ``parallel/``; a process of the port returns the sums
-and means of its own shard.
+With a ``mesh`` of N ranks (``parallel.mesh.make_mesh``) the process's
+items are strided once more over the mesh's ranks, so each rank renders
+one view of every N. Under an initialised process group the counts and
+metric sums of every rank are summed, so every rank returns the dataset's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import logging
 import pathlib
@@ -38,6 +40,7 @@ from pgdvs_tpu_torch.metrics.psnr_ssim import (
     quantize_uint8,
     ssim_map,
 )
+from pgdvs_tpu_torch.parallel.mesh import all_reduce_sum, broadcast_object, world
 from pgdvs_tpu_torch.renderers.compose import render_novel_view
 from pgdvs_tpu_torch.renderers.config import RenderConfig, check_slice
 
@@ -158,11 +161,14 @@ class Evaluator:
         else the models' device.
       tracker: optional point tracker (``configs.benchmarks.make_tracker``)
         on that device, passed to every render (the track bundles).
+      mesh: optional ``parallel.mesh.Mesh``: its ranks share each
+        process's items, one of every ``mesh.size`` each (every rank of the
+        mesh runs ``run`` with the same arguments).
     """
 
     def __init__(self, models, cfg: RenderConfig, static_mode: str = "gnt",
                  out_dir: Optional[str] = None, lpips_net=None, save_vis: bool = False,
-                 device="cuda", tracker=None):
+                 device="cuda", tracker=None, mesh=None):
         check_slice(cfg, static_mode)
         if models is None and static_mode != "geo":
             raise ValueError(f"static_mode {static_mode!r} renders the GNT: models needed")
@@ -178,6 +184,7 @@ class Evaluator:
         self._lpips = None
         if lpips_net is not None:
             self._lpips = lambda a, b, m: lpips_on_host_arrays(lpips_net, a, b, m)
+        self.mesh = mesh
 
     def eval_item(self, data, item_id: str = "item", seed: int = 0) -> EvalRecord:
         """Render one contract (tensors on their device, or numpy arrays,
@@ -245,34 +252,53 @@ class Evaluator:
     def run(self, dataset: Iterable, process_index: int = 0, process_count: int = 1,
             max_items: int = -1) -> dict:
         """Evaluate this process's items (every process_count-th from
-        process_index), at most ``max_items`` of them (-1: all).
+        process_index), at most ``max_items`` of them (-1: all); with a
+        mesh, the process is the mesh and its rank r takes the r-th of
+        every ``mesh.size`` of those items.
 
         An indexable dataset is read through ``PrefetchLoader`` (item
         assembly overlaps the renders, the reference's DataLoader workers)
         and ``to_device_prefetch`` (the next item's copies started before the
         current one renders). Returns {count, sum, mean} over the metrics,
-        or {count: 0}.
+        or {count: 0}; under an initialised process group, those of every
+        rank's items (the reference's ``torch.distributed.reduce``), on
+        every rank.
         """
+        rank, n = (self.mesh.rank, self.mesh.size) if self.mesh is not None else (0, 1)
         records = []
         if hasattr(dataset, "__getitem__") and hasattr(dataset, "__len__"):
             idxs = [i for i in range(len(dataset))
                     if process_count <= 1 or i % process_count == process_index]
             if max_items >= 0:
                 idxs = idxs[:max_items]
+            idxs = idxs[rank::n]
             stream = zip(idxs, to_device_prefetch(PrefetchLoader(dataset, indices=idxs),
                                                   self.device))
         else:
-            stream = ((i, contract_to_device(d, self.device)) for i, d in enumerate(dataset)
-                      if process_count <= 1 or i % process_count == process_index)
+            items = ((i, d) for i, d in enumerate(dataset)
+                     if process_count <= 1 or i % process_count == process_index)
+            if max_items >= 0:
+                items = itertools.islice(items, max_items)
+            stream = ((i, contract_to_device(d, self.device))
+                      for k, (i, d) in enumerate(items) if k % n == rank)
         for i, data in stream:
-            if 0 <= max_items <= len(records):
-                break
             rec = self.eval_item(data, item_id=f"{i:06d}", seed=i)
             records.append(rec)
             LOGGER.info("eval %s: %s", rec.item_id, json.dumps(rec.metrics))
-        if not records:
-            return {"count": 0}
-        keys = sorted(records[0].metrics)
+        keys = sorted(records[0].metrics) if records else []
         sums = {k: float(sum(r.metrics[k] for r in records)) for k in keys}
         count = len(records)
+        if world()[1] > 1:
+            # the cross-process sum. The key list must agree across ranks (a
+            # rank whose shard is empty has none); rank 0 renders item 0
+            # under the striding, so its list is broadcast and empty shards
+            # add zeros
+            keys = broadcast_object(keys, src=0)
+            vec = torch.tensor([float(count)] + [sums.get(k, 0.0) for k in keys],
+                               dtype=torch.float64)
+            total = all_reduce_sum(vec).tolist()
+            count = int(total[0])
+            sums = {k: total[1 + i] for i, k in enumerate(keys)}
+        if count == 0:
+            return {"count": 0}
         return {"count": count, "sum": sums, "mean": {k: v / count for k, v in sums.items()}}

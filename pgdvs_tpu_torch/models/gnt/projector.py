@@ -498,18 +498,23 @@ class ExactMaps(NamedTuple):
 
 def epipolar_sample(pts: torch.Tensor, tgt_cam: torch.Tensor, src_cams: torch.Tensor,
                     src_rgbs: torch.Tensor, src_feats: torch.Tensor,
-                    src_invalid_masks=None):
+                    src_invalid_masks=None, out_dtype=torch.bfloat16,
+                    lerp_dtype=torch.float32):
     """Reference-exact epipolar sampling, views outer (JAX's
     ``epipolar_sample(views_outer=True)``).
 
     Args: pts [R, S, 3]; tgt_cam [34]; src_cams [V, 34]; src_rgbs
     [V, H, W, 3] and src_feats [V, Hf, Wf, F] in the dtype to gather in
     (the renderer passes bf16, JAX's ``sample_dtype``); src_invalid_masks
-    optional [V, H, W, 1], 1 = dynamic.
+    optional [V, H, W, 1], 1 = dynamic; out_dtype / lerp_dtype: the
+    samples' dtype and the one they are lerped in (``multiview_bilinear``;
+    the training path passes its network's dtype for both, as JAX's flax
+    path samples).
 
     Returns a dict, every entry [V, R, S, *]:
-      rgb_feat [V, R, S, 3+F] bf16: rgb at the projection (x, y), features
-        at (x (Wf-1)/(W-1), y (Hf-1)/(H-1)) on the feature map itself;
+      rgb_feat [V, R, S, 3+F] in out_dtype: rgb at the projection (x, y),
+        features at (x (Wf-1)/(W-1), y (Hf-1)/(H-1)) on the feature map
+        itself;
       ray_diff [V, R, S, 4] float32;
       mask_inbound bool: in front and inside [0, W-1] x [0, H-1];
       mask_invalid bool: the float32 lerp of the dynamic mask > 1e-3
@@ -520,9 +525,9 @@ def epipolar_sample(pts: torch.Tensor, tgt_cam: torch.Tensor, src_cams: torch.Te
     hf, wf = src_feats.shape[1], src_feats.shape[2]
     uv, _z, in_front = project_all_views(pts, flat_cam_projection(src_cams))
     x, y = uv[..., 0], uv[..., 1]
-    rgb = multiview_bilinear(src_rgbs, x, y, torch.bfloat16)
+    rgb = multiview_bilinear(src_rgbs, x, y, out_dtype, lerp_dtype)
     feat = multiview_bilinear(src_feats, x * ((wf - 1.0) / (w - 1.0)),
-                              y * ((hf - 1.0) / (h - 1.0)), torch.bfloat16)
+                              y * ((hf - 1.0) / (h - 1.0)), out_dtype, lerp_dtype)
     diff = ray_diff_features(pts[None], flat_cam_c2w(tgt_cam)[:3, 3],
                              flat_cam_c2w(src_cams)[:, None, None, :3, 3])
     inbound = pixel_inbound(uv, float(h), float(w)) & in_front

@@ -39,6 +39,10 @@ sampler and kernel) on the merged coarse + fine samples; a ``render_stride``
 puts the rays on every stride-th pixel. A GNT made with ``ret_view_std``
 runs the plain versions of these kernels (the module itself) on any device,
 and the fast preset's patch falls back to quad for it, as in JAX.
+
+Training renders through ``render_rays_plain``: the exact sampler and the
+plain network under autograd, as the JAX package's train step turns its
+kernels off and differentiates its flax network.
 """
 
 from __future__ import annotations
@@ -307,6 +311,48 @@ def render_rays_tiled(gnt_params, rays_o, rays_d, dr, tgt_cam, src_cams,
         for i in range(0, n_rays, cfg.ray_tile)
     ]
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def render_rays_plain(gnt: GNT, rays_o, rays_d, depth_range, tgt_cam, src_cams, src_rgbs,
+                      src_feats, cfg: RenderConfig, sample_dtype=None) -> Dict[str, torch.Tensor]:
+    """Render a batch of rays on the plain network, under autograd: the
+    program the JAX package's train step differentiates (``render_rays_gnt``
+    with ``use_pallas_gnt`` off and no maps). No hand kernel has a backward,
+    so none runs here, on any device.
+
+    Samples as ``render_rays_gnt`` places them (coarse, then with
+    ``cfg.n_fine_samples_per_ray`` a second pass on the merged samples);
+    each pass samples the source rgbs and ``src_feats`` exactly
+    (``epipolar_sample``, whatever ``cfg.epipolar_mode``: JAX's step hands
+    its renderer no maps), gathered and lerped in ``sample_dtype`` (None:
+    float32, the dtype of JAX's float32 GNT; bf16 for its bf16 GNT), then
+    ``GNT.forward`` on [R, S, V, *].
+
+    Returns rgb [R, 3], depth [R] and weights [R, S].
+    """
+    dtype = sample_dtype or torch.float32
+    rgbs, feats = src_rgbs.to(dtype), src_feats.to(dtype)
+
+    def one_pass(pts, z_vals):
+        smp = epipolar_sample(pts, tgt_cam, src_cams, rgbs, feats, out_dtype=dtype,
+                              lerp_dtype=dtype)
+        out = gnt(smp["rgb_feat"].movedim(0, 2), smp["ray_diff"].movedim(0, 2),
+                  smp["mask"][..., None].float().movedim(0, 2), pts, rays_d)
+        return {"rgb": out["rgb"], "depth": torch.sum(out["weights"] * z_vals, dim=-1),
+                "weights": out["weights"]}
+
+    pts, z_vals = sampling.sample_along_rays(
+        rays_o, rays_d, depth_range, cfg.n_coarse_samples_per_ray,
+        inv_uniform=cfg.sample_inv_uniform,
+    )
+    out = one_pass(pts, z_vals)
+    if cfg.n_fine_samples_per_ray > 0:
+        z_vals = sampling.sample_fine_z_vals(z_vals, out["weights"],
+                                             cfg.n_fine_samples_per_ray,
+                                             inv_uniform=cfg.sample_inv_uniform)
+        pts = rays_o[:, None, :] + z_vals[..., None] * rays_d[:, None, :]
+        out = one_pass(pts, z_vals)
+    return out
 
 
 @torch.no_grad()

@@ -1,10 +1,22 @@
-"""pgdvs_tpu_torch CLI: evaluate and visualize novel-view synthesis with the
-PyTorch port.
+"""pgdvs_tpu_torch CLI: evaluate, visualize and fine-tune novel-view
+synthesis with the PyTorch port.
 
 The port's counterpart of the repository's ``run.py`` (the JAX CLI), with
-its ``eval``, ``vis`` and ``benchmark`` subcommands and the same flags, less
-the JAX-only ones (``--distributed``, ``--devices``, ``--gnt-dtype``), plus
-``--device {cuda,cpu}`` (default cuda; without a card, cuda raises). The
+its ``eval``, ``vis``, ``benchmark`` and ``train`` subcommands and the same
+flags, plus ``--device {cuda,cpu}`` (default cuda; without a card, cuda
+raises) and ``--dist-backend``. ``--distributed`` joins the process group
+that ``torchrun`` (``python -m torch.distributed.run``) describes, one rank
+per GPU (``parallel.mesh.init_distributed``: nccl on the card, gloo on the
+CPU; ``--dist-backend gloo`` lets ranks share one card, which NCCL
+refuses), and defaults ``--process-index`` / ``--process-count`` to the
+rank and the world size. ``--devices N`` (0: every rank, 1: none) lays the
+evaluator's mesh over N ranks, which render one view each; the items are
+then strided over the meshes. Under a process group every rank returns the
+dataset's summary and only rank 0 writes ``summary.json``. ``train``
+fine-tunes the GNT and its ResUNet (``engines.trainer.Trainer``) over a
+``(dp, rp)`` mesh of every rank, with checkpoints in ``--out-dir``; its
+``--gnt-dtype bfloat16`` (the default, as in JAX) runs the GNT under
+``torch.autocast``, ``float32`` keeps TF32 off. The
 readers are the JAX package's five: ``nvidia_eval``,
 ``nvidia_eval_pure_geo``, ``nvidia_vis``, ``mono_vis`` and
 ``dycheck_iphone_eval`` (``benchmark --dataset-family dycheck_iphone``).
@@ -14,8 +26,8 @@ readers are the JAX package's five: ``nvidia_eval``,
 bundles) renders no network, so it loads no GNT. A bundle's tracker
 (Lucas-Kanade, TAPIR for the ``_track_tapir`` bundles, CoTracker for
 ``_track_cotracker`` from ``$PGDVS_CKPT_DIR``) is built by
-``configs.benchmarks.make_tracker`` on ``--device``. The train and bench
-subcommands are not there.
+``configs.benchmarks.make_tracker`` on ``--device``. The bench subcommand,
+which runs the JAX package's benchmark, is not there.
 
 Examples:
   python -m pgdvs_tpu_torch.run eval --data-root /data --scene-ids Balloon1 \
@@ -30,6 +42,12 @@ Examples:
       --data-root /data --scene-ids Balloon1 --out-dir experiments/bt32
   python -m pgdvs_tpu_torch.run benchmark --dataset-family dycheck_iphone \
       --data-root /iphone --scene-ids paper-windmill --out-dir experiments/iphone
+  python -m pgdvs_tpu_torch.run train --data-root /data --scene-ids Balloon1 \
+      --out-dir experiments/ft_balloon1 --epochs 4 [--resume]
+  python -m torch.distributed.run --nproc-per-node 8 -m pgdvs_tpu_torch.run train \
+      --distributed --data-root /data --scene-ids Balloon1 --out-dir experiments/ft
+  python -m torch.distributed.run --nproc-per-node 8 -m pgdvs_tpu_torch.run eval \
+      --distributed --data-root /data --out-dir experiments/eval8
 """
 
 from __future__ import annotations
@@ -144,18 +162,60 @@ def _lpips(device):
     return net
 
 
+def _device(args) -> torch.device:
+    """This rank's device for ``--device``: the current card (the rank's
+    own under ``--distributed``) or the CPU."""
+    if args.device == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _summary_name(args) -> str:
+    """``summary.json``, or ``summary_<index>.json`` for a process that
+    evaluates one of ``--process-count`` shards with no process group to
+    sum them: its count, sums and means are its shard's (the dataset's
+    mean is the shards' summed sums over their summed counts)."""
+    from pgdvs_tpu_torch.parallel.mesh import world
+
+    if args.process_count > 1 and world()[1] == 1:
+        return f"summary_{args.process_index}.json"
+    return "summary.json"
+
+
+def build_eval_mesh(args):
+    """The evaluator's mesh over ``--devices`` ranks (0: every rank of the
+    world), or None for one. Where ``--distributed`` set the process grid,
+    the items are strided over the meshes instead of the ranks."""
+    from pgdvs_tpu_torch.parallel.mesh import make_mesh, world
+
+    n = args.devices if args.devices > 0 else world()[1]
+    if n <= 1:
+        return None
+    mesh = make_mesh(n_devices=n, device=_device(args))
+    if mesh.size > 1 and getattr(args, "grid_from_world", False):
+        args.process_index, args.process_count = mesh.index, mesh.count
+    return mesh
+
+
 def _evaluate(args, models, cfg, dataset, static_mode, save_vis, tracker=None):
     from pgdvs_tpu_torch.engines.evaluator import Evaluator
+    from pgdvs_tpu_torch.parallel.mesh import world
 
     ev = Evaluator(models, cfg, static_mode=static_mode, out_dir=args.out_dir,
                    lpips_net=_lpips(args.device), save_vis=save_vis, device=args.device,
-                   tracker=tracker)
+                   tracker=tracker, mesh=build_eval_mesh(args))
     result = ev.run(dataset, process_index=args.process_index,
                     process_count=args.process_count, max_items=args.max_items)
-    print(json.dumps(result, indent=2))
-    if args.out_dir:
-        with open(pathlib.Path(args.out_dir) / "summary.json", "w") as f:
-            json.dump(result, f, indent=2)
+    if world()[0] == 0:
+        print(json.dumps(result, indent=2))
+        if args.out_dir:
+            name = _summary_name(args)
+            if name != "summary.json":
+                LOGGER.warning("process %d of %d without a process group: %s holds this "
+                               "shard's sums only", args.process_index, args.process_count,
+                               name)
+            with open(pathlib.Path(args.out_dir) / name, "w") as f:
+                json.dump(result, f, indent=2)
     return result
 
 
@@ -218,6 +278,60 @@ def cmd_benchmark(args):
                      tracker=tracker)
 
 
+class _FirstItems:
+    """The first ``n`` items of an indexable dataset, read anew on each
+    pass (``train --max-items``)."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n = dataset, min(n, len(dataset))
+
+    def __iter__(self):
+        return (self.dataset[i] for i in range(self.n))
+
+
+def cmd_train(args):
+    """Per-scene GNT fine-tuning (the capability the reference scaffolds but
+    leaves unimplemented, ``trainer_pgdvs.py:246-247``) over a (dp, rp)
+    mesh of every rank, on the dataset's first ``--max-items`` items where
+    given (all by default); returns {epochs, steps, final_epoch_loss}."""
+    from pgdvs_tpu_torch.engines.checkpoint import load_run_config, save_run_config
+    from pgdvs_tpu_torch.engines.trainer import Trainer
+    from pgdvs_tpu_torch.parallel.mesh import make_mesh, world
+    from pgdvs_tpu_torch.renderers.config import check_slice
+
+    if args.resume and not args.out_dir:
+        raise SystemExit("--resume needs --out-dir (the checkpoint directory)")
+    saved = load_run_config(args.out_dir) if args.resume else None
+    # resume recompose: the restored config is the base, new CLI overrides win
+    cfg = build_render_config(args, base=(saved or {}).get("render_cfg"))
+    check_slice(cfg)
+    rank = world()[0]
+    if args.out_dir and rank == 0:
+        save_run_config(args.out_dir, {"render_cfg": dataclasses.asdict(cfg)})
+    dataset = build_dataset(args)
+    if args.max_items >= 0:
+        dataset = _FirstItems(dataset, args.max_items)
+    models = build_models_and_params(args)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.gnt_dtype]
+    if dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(rp=args.rp, device=next(models[0].parameters()).device)
+    trainer = Trainer(models, cfg, lr=args.lr, n_rays_per_view=args.n_rays,
+                      mesh=mesh, ckpt_dir=args.out_dir,
+                      n_ckpts_keep=args.n_ckpts_keep, train_on=args.train_on, dtype=dtype)
+    if args.resume:
+        trainer.resume()
+    loss = float("nan")
+    for _ in range(args.epochs):
+        loss = trainer.train_epoch(dataset, seed=args.seed)
+        LOGGER.info("epoch %d mean loss %.5f", trainer.epoch, loss)
+    result = {"epochs": trainer.epoch, "steps": trainer.step, "final_epoch_loss": loss}
+    if rank == 0:
+        print(json.dumps(result))
+    return result
+
+
 def main(argv=None):
     """Parse ``argv`` and run the subcommand; returns its result."""
     logging.basicConfig(level=logging.INFO,
@@ -246,8 +360,21 @@ def main(argv=None):
         p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                        help="where the renders run (default cuda; raises without a card)")
 
+    def distributed(p, evaluates=True):
+        p.add_argument("--distributed", action="store_true",
+                       help="join the torchrun process group, one rank per GPU, and default "
+                       "--process-index/count to this rank and the world size")
+        p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                       help="the process group's backend (default: nccl on the card, gloo "
+                       "on the CPU); gloo lets ranks share one card")
+        if evaluates:
+            p.add_argument("--devices", type=int, default=0,
+                           help="ranks of the evaluator's mesh, one view each (0 = every "
+                           "rank, 1 = none)")
+
     pe = sub.add_parser("eval", help="evaluate on a dataset")
     common(pe)
+    distributed(pe)
     pe.add_argument("--save-vis", action="store_true")
     pe.set_defaults(fn=cmd_eval)
 
@@ -255,8 +382,31 @@ def main(argv=None):
     common(pv)
     pv.set_defaults(fn=cmd_vis)
 
+    pt = sub.add_parser("train", help="per-scene GNT fine-tuning")
+    common(pt)
+    distributed(pt, evaluates=False)
+    pt.add_argument("--epochs", type=int, default=1)
+    pt.add_argument("--lr", type=float, default=5e-4)
+    pt.add_argument("--n-rays", type=int, default=512)
+    pt.add_argument("--rp", type=int, default=1,
+                    help="ray-parallel mesh axis size (dp = ranks // rp)")
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--train-on", default="src", choices=["src", "tgt"],
+                    help="src: hold one source view out as the photometric target (honest). "
+                    "tgt: supervise on the item's target view; on eval datasets that is the "
+                    "held-out ground truth (test leakage); debugging only")
+    pt.add_argument("--resume", action="store_true")
+    pt.add_argument("--n-ckpts-keep", type=int, default=3)
+    pt.add_argument("--gnt-dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                    help="bfloat16: the GNT under torch.autocast (parameters and Adam state "
+                    "float32); float32: TF32 off")
+    # training differentiates the plain network on the exact sampler, so the
+    # render-speed preset would only put inert knobs into the saved config
+    pt.set_defaults(fn=cmd_train, perf_preset="exact")
+
     pbm = sub.add_parser("benchmark", help="run a named benchmark_type bundle")
     common(pbm)
+    distributed(pbm)
     pbm.add_argument("--benchmark-type", default="default")
     pbm.add_argument("--dataset-family", default="nvidia")
     pbm.set_defaults(fn=cmd_benchmark)
@@ -265,7 +415,21 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but torch.cuda.is_available() is false "
                            "(pass --device cpu to run on the CPU)")
-    return args.fn(args)
+    dist_run = getattr(args, "distributed", False)
+    if dist_run:
+        from pgdvs_tpu_torch.parallel.mesh import init_distributed, world
+
+        init_distributed(args.dist_backend, args.device)
+        # DistributedSampler-style item striding follows the process grid
+        # unless the user pinned it
+        if args.process_count == 1:
+            args.process_index, args.process_count = world()
+            args.grid_from_world = True
+    try:
+        return args.fn(args)
+    finally:
+        if dist_run:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

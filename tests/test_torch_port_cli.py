@@ -74,7 +74,26 @@ def test_eval_without_save_vis_strided(scene_root, tmp_path):
     result = trun.main(_argv("eval", scene_root, out, "--process-index", "1",
                              "--process-count", "2"))
     assert result["count"] == 1
-    assert [p.name for p in sorted(out.iterdir())] == ["000001.pkl", "summary.json"]
+    # a shard with no process group to sum it writes its own summary
+    assert [p.name for p in sorted(out.iterdir())] == ["000001.pkl", "summary_1.json"]
+
+
+def test_eval_shards_without_a_process_group_sum_to_one_run(scene_root, tmp_path):
+    """Two --process-count 2 runs into one directory leave no summary.json
+    (neither holds the dataset's mean); their summary_<index>.json counts
+    and sums (all but the render times) add up to the one-process run's."""
+    out = tmp_path / "eval"
+    shards = [trun.main(_argv("eval", scene_root, out, "--process-index", str(i),
+                              "--process-count", "2")) for i in range(2)]
+    whole = trun.main(_argv("eval", scene_root, tmp_path / "one"))
+    assert not (out / "summary.json").exists()
+    for i, res in enumerate(shards):
+        assert json.loads((out / f"summary_{i}.json").read_text()) == json.loads(json.dumps(res))
+    assert [r["count"] for r in shards] == [2, 1] and whole["count"] == 3
+    assert sorted(shards[0]["sum"]) == sorted(shards[1]["sum"]) == sorted(whole["sum"])
+    for k, v in whole["sum"].items():
+        if k != "render_wall_s":
+            assert sum(r["sum"][k] for r in shards) == pytest.approx(v, rel=1e-12, abs=1e-12), k
 
 
 @pytest.mark.parametrize("preset", ["fast", "exact"])
@@ -429,7 +448,16 @@ def test_out_of_port_bundles_raise(tmp_path, extra, exc, match):
 
 
 @pytest.mark.parametrize("cmd", ["train", "bench"])
-def test_subcommands_not_ported_exit(cmd, capsys):
+def test_subcommands_not_ported_exit(cmd, capsys, tmp_path):
+    """bench (the JAX package's benchmark) is not a subcommand of the port;
+    train is since the trainer was ported, and on the card by default it
+    refuses to carry on without one, as eval does."""
+    if cmd == "train":
+        if torch.cuda.is_available():
+            pytest.skip("a card is present: --device cuda is valid here")
+        with pytest.raises(RuntimeError, match="cuda"):
+            trun.main(["train", "--data-root", str(tmp_path)])
+        return
     with pytest.raises(SystemExit):
         trun.main([cmd])
     assert "invalid choice" in capsys.readouterr().err
