@@ -104,7 +104,7 @@ exits non-zero without printing a result:
      scene, 9 of 10 sources, 256 exact samples, 512 rays, Adam, float32
      with TF32 off, then the GNT under bf16 autocast: ms per step (CUDA
      events), rays/s, peak memory, the losses of a warm-up and 5 steps on one
-     batch falling, 0 kernel launches, ``utils.tracing.StageTimer`` around
+     batch falling, 0 kernel launches, ``utils.tracing`` spans around
      the sampler and the steps, one step under ``profile_trace`` (top
      kernels, trace size); (b) one SGD step at 48x64 on the card against the
      CPU, in float32 (loss, the gradient in L2 norm) and in float64 (loss and
@@ -4442,8 +4442,8 @@ def phase_train(models, root, smi, device="cuda", hw=TRAIN_HW, n_spatial=TRAIN_S
     with ``n_spatial`` sources (one held out), ``n_rays`` rays of
     ``n_samples`` exact samples, ``torch.optim.Adam``; float32 with TF32
     off, then the GNT under bf16 autocast: a warm-up step, then ``steps``
-    timed ones (CUDA events; ``utils.tracing.StageTimer`` around the sampler
-    and each step) on the fixed batch, whose losses must fall; ms per step,
+    timed ones (CUDA events; ``utils.tracing`` spans around the sampler
+    and each step, host and device ms) on the fixed batch, whose losses must fall; ms per step,
     rays/s, peak memory; K1 / K2 launch 0 times. One more step under
     ``utils.tracing.profile_trace``: its top kernels and the trace's size.
     (b) One SGD(lr=1) step at ``check``'s small size on the card and on the
@@ -4460,14 +4460,13 @@ def phase_train(models, root, smi, device="cuda", hw=TRAIN_HW, n_spatial=TRAIN_S
     from pgdvs_tpu_torch.parallel.mesh import make_mesh
     from pgdvs_tpu_torch.parallel.sharded import make_train_step
     from pgdvs_tpu_torch.renderers.config import RenderConfig
-    from pgdvs_tpu_torch.utils.tracing import StageTimer as TraceTimer
-    from pgdvs_tpu_torch.utils.tracing import profile_trace
+    from pgdvs_tpu_torch.utils import tracing
 
     t_phase = time.perf_counter()
-    timer = TraceTimer()
+    tracing.enable()
     h, w = hw
     data = make_contract_data(h=h, w=w, n_spatial=n_spatial, n_frames=12, tgt_time=0.5)
-    with timer.stage("sampler"):
+    with tracing.span("train.sampler"):
         batch = _train_batch(data, n_rays)
     cfg = RenderConfig(n_coarse_samples_per_ray=n_samples)
     launches = None
@@ -4482,7 +4481,7 @@ def phase_train(models, root, smi, device="cuda", hw=TRAIN_HW, n_spatial=TRAIN_S
         losses = [step(batch)]  # warm-up
         times = []
         for _ in range(steps):
-            with timer.stage(f"step_{name}", sync=[p for m in ms_ for p in m.parameters()]):
+            with tracing.span(f"train.step_{name}", device=torch.device(device)):
                 loss, ms = _timed(lambda: step(batch), device)
             losses.append(loss)
             times.append(ms)
@@ -4498,7 +4497,7 @@ def phase_train(models, root, smi, device="cuda", hw=TRAIN_HW, n_spatial=TRAIN_S
             + f"), {n_rays / mean_ms * 1e3:.0f} rays/s, peak {peak:.2f} GB; losses "
             + " ".join(f"{x:.6f}" for x in losses) + f"; launches {_nonzero(got) or 0}; {smi}")
         if name == "bf16":
-            with profile_trace(root / "train_trace") as prof:
+            with tracing.profile_trace(root / "train_trace") as prof:
                 step(batch)
                 if device == "cuda":
                     torch.cuda.synchronize()
@@ -4510,7 +4509,13 @@ def phase_train(models, root, smi, device="cuda", hw=TRAIN_HW, n_spatial=TRAIN_S
         del ms_, opt, step
     if any(launches.values()):
         raise AssertionError(f"[train] (a) hand kernels launched: {_nonzero(launches)}")
-    log(f"[train] (a) StageTimer: {json.dumps(timer.summary())}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    spans = tracing.summary()["spans"]
+    log("[train] (a) spans: " + json.dumps(
+        {k: {f: v[f] for f in ("count", "host_ms", "device_ms")} for k, v in spans.items()
+         if k.startswith("train.")}))
+    tracing.disable()
 
     # (b) the card against the CPU, one SGD step in float32 and in float64
     ch, cw = check["hw"]

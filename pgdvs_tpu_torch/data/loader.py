@@ -24,6 +24,8 @@ from typing import Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from pgdvs_tpu_torch.utils import tracing
+
 
 class PrefetchLoader:
     """Ordered prefetching iterator over an indexable dataset.
@@ -72,7 +74,12 @@ class PrefetchLoader:
                         pending.append(pool.submit(self.dataset.__getitem__, next(it)))
                     except StopIteration:
                         it = None
-                yield fut.result()
+                tracing.count("loader.items")
+                if fut.done():
+                    tracing.count("loader.ready")
+                with tracing.span("loader.wait"):
+                    item = fut.result()
+                yield item
 
     def _iter_iterable(self, it):
         q: "queue.Queue" = queue.Queue(maxsize=self.lookahead)
@@ -136,18 +143,18 @@ def to_device_prefetch(loader: Iterable, device="cuda") -> Iterator[dict]:
     in_flight = collections.deque()  # (event, pinned host tensors)
 
     def stage(item):
-        pinned, out = [], {}
-        with torch.cuda.stream(copy_stream):
-            for k, v in item.items():
-                if isinstance(v, np.ndarray):
-                    host = torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                    pinned.append(host)
-                    out[k] = host.to(device, non_blocking=True)
-                else:
-                    out[k] = v
+        # every array pinned first, then the copies issued back to back, so
+        # the span ``loader.stage`` times the copies on the card alone
+        with tracing.span("loader.pin"):
+            pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                      for k, v in item.items() if isinstance(v, np.ndarray)}
+        with torch.cuda.stream(copy_stream), tracing.span("loader.stage", device=device,
+                                                          stream=copy_stream):
+            out = {k: pinned[k].to(device, non_blocking=True) if k in pinned else v
+                   for k, v in item.items()}
             event = torch.cuda.Event()
             event.record(copy_stream)
-        in_flight.append((event, pinned))
+        in_flight.append((event, list(pinned.values())))
         return out, event
 
     def release_done():
@@ -156,12 +163,13 @@ def to_device_prefetch(loader: Iterable, device="cuda") -> Iterator[dict]:
 
     def hand_over(staged):
         out, event = staged
-        consumer = torch.cuda.current_stream(device)
-        consumer.wait_event(event)
-        for v in out.values():
-            if torch.is_tensor(v):
-                v.record_stream(consumer)
-        release_done()
+        with tracing.span("loader.hand"):
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(event)
+            for v in out.values():
+                if torch.is_tensor(v):
+                    v.record_stream(consumer)
+            release_done()
         return out
 
     it = iter(loader)

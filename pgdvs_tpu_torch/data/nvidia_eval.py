@@ -42,6 +42,7 @@ from pgdvs_tpu_torch.data.image_io import (
     resize_nearest_pil,
 )
 from pgdvs_tpu_torch.data.llff import hwf_to_intrinsics4, load_poses_bounds
+from pgdvs_tpu_torch.utils import tracing
 
 N_CAMS = 12
 TGT_HEIGHT = 288
@@ -266,6 +267,11 @@ class NvidiaEvalDataset:
             np.float32)
 
     def __getitem__(self, index):
+        """The contract of item ``index``; traced as ``reader.item``."""
+        with tracing.span("reader.item"):
+            return self._assemble(index)
+
+    def _assemble(self, index):
         scene, tgt_frame, tgt_cam_id, img_f = self.items[index]
         all_hwf, all_c2w, _ = self._cams(scene)
         n_frames = all_hwf.shape[0]

@@ -43,6 +43,7 @@ from pgdvs_tpu_torch.metrics.psnr_ssim import (
 from pgdvs_tpu_torch.parallel.mesh import all_reduce_sum, broadcast_object, world
 from pgdvs_tpu_torch.renderers.compose import render_novel_view
 from pgdvs_tpu_torch.renderers.config import RenderConfig, check_slice
+from pgdvs_tpu_torch.utils import tracing
 
 LOGGER = logging.getLogger(__name__)
 
@@ -59,7 +60,10 @@ def _to_numpy_img(x):
 
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    if not torch.is_tensor(x):
+        return np.asarray(x)
+    with tracing.span("sync"):
+        return x.detach().cpu().numpy()
 
 
 def resize_gt_to_render(rgb_gt, eval_mask, render_hw):
@@ -140,9 +144,13 @@ def lpips_on_host_arrays(net, img0, img1, mask):
     dev = next(net.parameters()).device
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+        host = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        with tracing.span("sync"):
+            return host.to(dev)
 
-    return float(lpips_distance(net, t(img0), t(img1), mask=t(mask)))
+    d = lpips_distance(net, t(img0), t(img1), mask=t(mask))
+    with tracing.span("sync"):
+        return float(d)
 
 
 class Evaluator:
@@ -198,42 +206,45 @@ class Evaluator:
         out = render_novel_view(self.models, data, self.cfg, generator=gen,
                                 static_mode=self.static_mode, tracker=self.tracker)
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        pred = out["combined_rgb"].float().cpu().numpy()
+            with tracing.span("sync"):
+                torch.cuda.synchronize(device)
+        with tracing.span("sync"):
+            pred = out["combined_rgb"].float().cpu().numpy()
         wall = time.perf_counter() - t0
         return self._score(pred, data, item_id, wall)
 
     def _score(self, pred, data, item_id: str, wall: float) -> EvalRecord:
-        # NaN guard (evaluator_pgdvs.py:56-68): log + zero-fill, never crash
-        if not np.isfinite(pred).all():
-            LOGGER.warning("non-finite render for %s; zero-filling", item_id)
-            pred = np.nan_to_num(pred, nan=0.0, posinf=1.0, neginf=0.0)
+        with tracing.span("eval.score"):
+            # NaN guard (evaluator_pgdvs.py:56-68): log + zero-fill, never crash
+            if not np.isfinite(pred).all():
+                LOGGER.warning("non-finite render for %s; zero-filling", item_id)
+                pred = np.nan_to_num(pred, nan=0.0, posinf=1.0, neginf=0.0)
 
-        metrics = {}
-        misc = data.get("misc") if isinstance(data.get("misc"), dict) else {}
-        if "rgb_tgt" in data:
-            gt = _host(data["rgb_tgt"])
-            if misc.get("quant_type") == "dycheck":
-                covisible = (misc["covisible_mask"] if "covisible_mask" in misc
-                             else _host(data["eval_mask"])[..., :1])
-                metrics = compute_dycheck_metrics(pred, gt, covisible,
-                                                  lpips_net=self.lpips_net)
-            else:
-                dyn_mask = (misc["tgt_dyn_mask"] if "tgt_dyn_mask" in misc
-                            else _host(data["eval_mask"])[..., :1])
-                quantize_gt = True
-                if gt.shape[:2] != pred.shape[:2]:
-                    # render_stride > 1: quantize first, then resize GT and
-                    # the mask (evaluator_pgdvs.py:73-92), no re-quantization
-                    gt = quantize_uint8(_to_numpy_img(gt))
-                    gt, dyn_mask = resize_gt_to_render(gt, dyn_mask, pred.shape[:2])
-                    quantize_gt = False
-                metrics = compute_nvidia_metrics(pred, gt, dyn_mask, lpips_fn=self._lpips,
-                                                 quantize_gt=quantize_gt)
-        metrics["render_wall_s"] = wall
-        if self.out_dir is not None:
-            self._write_outputs(item_id, metrics, misc, pred)
-        return EvalRecord(item_id, metrics, wall)
+            metrics = {}
+            misc = data.get("misc") if isinstance(data.get("misc"), dict) else {}
+            if "rgb_tgt" in data:
+                gt = _host(data["rgb_tgt"])
+                if misc.get("quant_type") == "dycheck":
+                    covisible = (misc["covisible_mask"] if "covisible_mask" in misc
+                                 else _host(data["eval_mask"])[..., :1])
+                    metrics = compute_dycheck_metrics(pred, gt, covisible,
+                                                      lpips_net=self.lpips_net)
+                else:
+                    dyn_mask = (misc["tgt_dyn_mask"] if "tgt_dyn_mask" in misc
+                                else _host(data["eval_mask"])[..., :1])
+                    quantize_gt = True
+                    if gt.shape[:2] != pred.shape[:2]:
+                        # render_stride > 1: quantize first, then resize GT and
+                        # the mask (evaluator_pgdvs.py:73-92), no re-quantization
+                        gt = quantize_uint8(_to_numpy_img(gt))
+                        gt, dyn_mask = resize_gt_to_render(gt, dyn_mask, pred.shape[:2])
+                        quantize_gt = False
+                    metrics = compute_nvidia_metrics(pred, gt, dyn_mask, lpips_fn=self._lpips,
+                                                     quantize_gt=quantize_gt)
+            metrics["render_wall_s"] = wall
+            if self.out_dir is not None:
+                self._write_outputs(item_id, metrics, misc, pred)
+            return EvalRecord(item_id, metrics, wall)
 
     def _write_outputs(self, item_id: str, metrics: dict, misc: dict, pred) -> None:
         """The item's pickle and, with save_vis, its PNG. The pickle carries
@@ -282,9 +293,10 @@ class Evaluator:
             stream = ((i, contract_to_device(d, self.device))
                       for k, (i, d) in enumerate(items) if k % n == rank)
         for i, data in stream:
-            rec = self.eval_item(data, item_id=f"{i:06d}", seed=i)
-            records.append(rec)
-            LOGGER.info("eval %s: %s", rec.item_id, json.dumps(rec.metrics))
+            with tracing.span("eval.item", root_id=i):
+                rec = self.eval_item(data, item_id=f"{i:06d}", seed=i)
+                records.append(rec)
+                LOGGER.info("eval %s: %s", rec.item_id, json.dumps(rec.metrics))
         keys = sorted(records[0].metrics) if records else []
         sums = {k: float(sum(r.metrics[k] for r in records)) for k in keys}
         count = len(records)

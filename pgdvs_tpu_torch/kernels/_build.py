@@ -16,8 +16,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
+
+from pgdvs_tpu_torch.utils import tracing
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -109,11 +110,19 @@ def source_digest() -> str:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> "KernelLibrary":
-    """Build (if needed) and load the kernels; cached for the process."""
+    """Build (if needed) and load the kernels; cached for the process. Its
+    span ``setup.kernels`` and the counter ``kernels.built`` (1 where nvcc
+    ran) are recorded whether tracing is on or not."""
+    with tracing.span("setup.kernels", always=True):
+        lib = _load_library()
+    tracing.count("kernels.built", int(lib.built), always=True)
+    return lib
+
+
+def _load_library() -> "KernelLibrary":
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libpgdvs_kernels_{source_digest()}.so"
     log = ""
-    t0 = time.perf_counter()
     built = not so.exists()
     if built:
         nvcc = _nvcc()
@@ -132,12 +141,11 @@ def load_library() -> "KernelLibrary":
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = res
-    return KernelLibrary(lib, so, built, time.perf_counter() - t0, log)
+    return KernelLibrary(lib, so, built, log)
 
 
 class KernelLibrary:
     """The loaded library plus how it was obtained (for reports)."""
 
-    def __init__(self, lib, path, built, seconds, log):
-        self.lib, self.path, self.built = lib, path, built
-        self.build_seconds, self.build_log = seconds, log
+    def __init__(self, lib, path, built, log):
+        self.lib, self.path, self.built, self.build_log = lib, path, built, log

@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import torch
 
+from pgdvs_tpu_torch.utils import tracing
+
 _BIG = 1e30
 QUERY_TILE = 8192
 CAND_TILE = 2048
@@ -81,7 +83,8 @@ def knn_mean_sq_dist(points: torch.Tensor, valid=None, k: int = 50,
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=dev)
     same_set = candidates is None
-    idx = torch.nonzero(valid, as_tuple=True)[0]
+    with tracing.span("sync"):
+        idx = torch.nonzero(valid, as_tuple=True)[0]
     pts = points[idx].float()
     sq = torch.sum(pts * pts, dim=-1)
     if same_set:
@@ -125,7 +128,8 @@ def masked_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Median over the valid entries; the lower middle element for an even
     count (as torch.median)."""
     n = x.shape[0]
-    cnt = int(valid.sum())
+    with tracing.span("sync"):
+        cnt = int(valid.sum())
     srt = torch.sort(torch.where(valid, x, torch.full_like(x, float("inf")))).values
     return srt[min(max((cnt - 1) // 2, 0), n - 1)]
 
@@ -134,7 +138,8 @@ def masked_std(x: torch.Tensor, valid: torch.Tensor, xla_order: bool = False) ->
     """Unbiased (n - 1) standard deviation over the valid entries; with
     ``xla_order`` both sums run in the order of XLA's CPU reduce over the
     whole (padded) vector."""
-    cnt = max(int(valid.sum()), 1)
+    with tracing.span("sync"):
+        cnt = max(int(valid.sum()), 1)
     zero = torch.zeros_like(x)
     total = xla_order_sum if xla_order else torch.sum
     mean = total(torch.where(valid, x, zero)) / cnt
@@ -153,12 +158,15 @@ def statistical_outlier_mask(points: torch.Tensor, valid=None, k: int = 50,
     else median + std_thres * std over the valid points' means (with fewer
     than K + 1 valid points, the std in XLA's order: see the module's note).
     """
-    if valid is None:
-        valid = torch.ones((points.shape[0],), dtype=torch.bool, device=points.device)
-    mean_d2 = knn_mean_sq_dist(points, valid, k=k, tile=tile)
-    if dist_thres is None:
-        std = masked_std(mean_d2, valid, xla_order=int(valid.sum()) <= k)
-        thres = masked_median(mean_d2, valid) + std * std_thres
-    else:
-        thres = dist_thres
-    return valid & (mean_d2 < thres), thres
+    with tracing.span("dynamic.knn", device=points.device):
+        if valid is None:
+            valid = torch.ones((points.shape[0],), dtype=torch.bool, device=points.device)
+        mean_d2 = knn_mean_sq_dist(points, valid, k=k, tile=tile)
+        if dist_thres is None:
+            with tracing.span("sync"):
+                n_valid = int(valid.sum())
+            std = masked_std(mean_d2, valid, xla_order=n_valid <= k)
+            thres = masked_median(mean_d2, valid) + std * std_thres
+        else:
+            thres = dist_thres
+        return valid & (mean_d2 < thres), thres

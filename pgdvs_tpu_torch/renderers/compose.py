@@ -17,6 +17,7 @@ nearest, then > 0 (``core.interpolate.resize``).
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import torch
@@ -26,6 +27,9 @@ from pgdvs_tpu_torch.renderers.config import RenderConfig, check_slice
 from pgdvs_tpu_torch.renderers.dynamic import render_dynamic
 from pgdvs_tpu_torch.renderers.static_geo import render_static_geo
 from pgdvs_tpu_torch.renderers.static_gnt import render_image_gnt
+from pgdvs_tpu_torch.utils import tracing
+
+_view_ids = itertools.count()  # the root id of each view's span
 
 
 @torch.no_grad()
@@ -48,9 +52,15 @@ def render_novel_view(models, data, cfg: RenderConfig,
         track branch under ``dyn_render_track_temporal="no_tgt"``.
 
     Returns a dict with combined_rgb and the intermediates the JAX
-    renderer returns.
+    renderer returns. Traced as the root span ``view``.
     """
     check_slice(cfg, static_mode)
+    with tracing.span("view", device=data["rgb_src_temporal"].device,
+                      root_id=next(_view_ids)):
+        return _render_novel_view(models, data, cfg, generator, static_mode, noise, tracker)
+
+
+def _render_novel_view(models, data, cfg, generator, static_mode, noise, tracker):
     h, w = data["rgb_src_temporal"].shape[1:3]
     if static_mode == "geo":
         static_rgb, static_mask = render_static_geo(

@@ -32,6 +32,7 @@ from pgdvs_tpu_torch.kernels.point_raster import rasterize_points
 from pgdvs_tpu_torch.kernels.softsplat import brightness_metric, softsplat
 from pgdvs_tpu_torch.renderers.config import RenderConfig
 from pgdvs_tpu_torch.renderers.dynamic_track import render_with_track
+from pgdvs_tpu_torch.utils import tracing
 
 
 def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
@@ -69,7 +70,11 @@ def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
     rgb_f2 = bilinear_sample(rgb_2, x2, y2)
     pcl_2 = uv_depth_to_world(uv_flow, depth_f2, k2, c2w2)
 
-    same_time = bool(abs(float(time_2) - float(time_1)) < 1e-9)
+    with tracing.span("sync"):
+        t_2 = float(time_2)
+    with tracing.span("sync"):
+        t_1 = float(time_1)
+    same_time = bool(abs(t_2 - t_1) < 1e-9)
     if same_time:
         points, colors = pcl_1, rgb_1.reshape(-1, 3)
     else:
@@ -87,7 +92,8 @@ def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
         if cfg.dyn_pcl_remove_outlier:
             valid = keep
 
-    uv_tgt, _z, _front = cameras.project_points(points, cam_tgt)
+    with tracing.span("sync"):  # inverse_se3's scalar store into a single camera
+        uv_tgt, _z, _front = cameras.project_points(points, cam_tgt)
     flow_to_tgt = torch.where(valid[:, None], uv_tgt - uv,
                               torch.zeros_like(uv)).reshape(h, w, 2)
     return {
@@ -112,7 +118,14 @@ def render_dynamic(data, cfg: RenderConfig,
     under ``dyn_render_track_temporal="no_tgt"``.
 
     Returns rgb [H, W, 3], mask [H, W, 1] and the per-branch intermediates.
+    Traced as ``dynamic``, the softsplat branch's brightness metric and
+    splats as ``dynamic.splat``.
     """
+    with tracing.span("dynamic", device=data["rgb_src_temporal"].device):
+        return _render_dynamic(data, cfg, generator, noise, tracker)
+
+
+def _render_dynamic(data, cfg, generator, noise, tracker):
     rgb_t = data["rgb_src_temporal"]
     h, w = rgb_t.shape[1:3]
     pcl = compute_dyn_pointcloud(
@@ -145,10 +158,11 @@ def render_dynamic(data, cfg: RenderConfig,
                                 dtype=rgb_t.dtype, device=rgb_t.device)
         noise = torch.clamp(noise, 0.0, 1.0)
         rgb_1_rand = rgb_t[0] * dyn_mask + noise * (1.0 - dyn_mask)
-        metric = brightness_metric(rgb_1_rand, rgb_t[1], data["flow_fwd"],
-                                   cfg.softsplat_metric_abs_alpha)
-        splat_rgb = softsplat(rgb_1_rand, pcl["flow_to_tgt"], metric, mode="soft")
-        splat_mask = softsplat(dyn_mask, pcl["flow_to_tgt"], metric, mode="soft")
+        with tracing.span("dynamic.splat", device=rgb_t.device):
+            metric = brightness_metric(rgb_1_rand, rgb_t[1], data["flow_fwd"],
+                                       cfg.softsplat_metric_abs_alpha)
+            splat_rgb = softsplat(rgb_1_rand, pcl["flow_to_tgt"], metric, mode="soft")
+            splat_mask = softsplat(dyn_mask, pcl["flow_to_tgt"], metric, mode="soft")
         mask = (splat_mask > 1e-3).float()
         rgb = splat_rgb * mask
     else:

@@ -85,6 +85,7 @@ from pgdvs_tpu_torch.models.gnt.projector import (
     quantize_quad_maps,
 )
 from pgdvs_tpu_torch.renderers.config import RenderConfig, check_slice
+from pgdvs_tpu_torch.utils import tracing
 
 
 def make_gnt_models(netwidth: int = 64, depth: int = 8, feat_ch: int = 32,
@@ -201,36 +202,43 @@ def gnt_pass(gnt_params, pts, z_vals, rays_d, tgt_cam, src_cams, maps,
     mode = cfg.epipolar_mode
     view_code = sinusoidal_embed(rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True))
     smp = None
+    dev = pts.device
     if mode == "exact":
-        smp = epipolar_sample(pts, tgt_cam, src_cams, *maps)
-        out = k2_apply(params, smp["rgb_feat"], smp["ray_diff"], smp["mask"],
-                       sinusoidal_embed(pts), view_code)
+        with tracing.span("gnt.sample", device=dev):
+            smp = epipolar_sample(pts, tgt_cam, src_cams, *maps)
+        pts_code = sinusoidal_embed(pts)
+        with tracing.span("gnt.kernel", device=dev):
+            out = k2_apply(params, smp["rgb_feat"], smp["ray_diff"], smp["mask"], pts_code,
+                           view_code)
     else:
         proj = cameras.flat_cam_projection(src_cams)
         centers = torch.cat([
             cameras.flat_cam_c2w(tgt_cam)[None, :3, 3],
             cameras.flat_cam_c2w(src_cams)[:, :3, 3],
         ])
-        if mode == "patch":
-            raw = epipolar_sample_patch_raw(pts, proj, maps)
-            _, map_h, map_w = maps.vhw
-            out = k1_patch(params, raw["rows"], raw["coef"], pts, view_code, centers, proj,
-                           (map_h, map_w))
-        elif mode in ("fused", "quad_i8"):
-            smp = epipolar_sample_fused(pts, proj, maps, cfg.gnt_use_dyn_mask,
-                                        quad=mode == "quad_i8")
-            if mode == "quad_i8" and not cfg.gnt_use_dyn_mask:
+        with tracing.span("gnt.sample", device=dev):
+            if mode == "patch":
+                smp = epipolar_sample_patch_raw(pts, proj, maps)
+            elif mode in ("fused", "quad_i8"):
+                smp = epipolar_sample_fused(pts, proj, maps, cfg.gnt_use_dyn_mask,
+                                            quad=mode == "quad_i8")
+            elif cfg.gnt_use_dyn_mask:
+                smp = epipolar_sample_quad_masked(pts, proj, maps)
+            else:
+                rgb_feat = epipolar_sample_quad(pts, proj, maps)
+        with tracing.span("gnt.kernel", device=dev):
+            if mode == "patch":
+                _, map_h, map_w = maps.vhw
+                out = k1_patch(params, smp["rows"], smp["coef"], pts, view_code, centers,
+                               proj, (map_h, map_w))
+            elif mode == "quad_i8" and not cfg.gnt_use_dyn_mask:
                 out = k1(params, smp["rgb_feat"], pts, view_code, centers, proj,
                          maps.vhw[1:])
-            else:
+            elif mode in ("fused", "quad_i8") or cfg.gnt_use_dyn_mask:
                 out = k2(params, smp["rgb_feat"], smp["mask"], pts, view_code, centers)
-        elif cfg.gnt_use_dyn_mask:
-            smp = epipolar_sample_quad_masked(pts, proj, maps)
-            out = k2(params, smp["rgb_feat"], smp["mask"], pts, view_code, centers)
-        else:
-            rgb_feat = epipolar_sample_quad(pts, proj, maps)
-            _, map_h, map_w, _ = maps.shape
-            out = k1(params, rgb_feat, pts, view_code, centers, proj, (map_h, map_w))
+            else:
+                _, map_h, map_w, _ = maps.shape
+                out = k1(params, rgb_feat, pts, view_code, centers, proj, (map_h, map_w))
     weights = out["weights"]
     if not cfg.gnt_use_dyn_mask:
         # validity is the in-bounds mask, so the kernel's count is the
@@ -369,9 +377,18 @@ def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
     Rays go through the pixels ``[::render_stride, ::render_stride]``.
     Returns [rh, rw, C] maps: rgb, depth, weights, inbound_cnt, dyn_cnt,
     view_std(+normalized), oob_mask and, with the dyn mask,
-    dyn_mask_any / dyn_mask_all / dyn_mask_thres.
+    dyn_mask_any / dyn_mask_all / dyn_mask_thres. Traced as ``static.gnt``,
+    the ResUNet as ``gnt.features``, each tile's sampler and transformer
+    as ``gnt.sample`` and ``gnt.kernel``.
     """
     check_slice(cfg)
+    with tracing.span("static.gnt", device=src_rgbs.device):
+        return _render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
+                                 cfg, src_invalid_masks)
+
+
+def _render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range, cfg,
+                      src_invalid_masks):
     if cfg.gnt_use_dyn_mask and src_invalid_masks is None:
         raise ValueError("gnt_use_dyn_mask needs the sources' dynamic masks")
     feature_net, gnt = models
@@ -382,8 +399,10 @@ def render_image_gnt(models, tgt_cam, src_cams, src_rgbs, image_hw, depth_range,
     )
     n_rays = rh * rw
     cfg, block = resolve_epipolar_cfg(cfg, gnt, rh, rw)
-    maps = build_sampling_maps(cfg, src_rgbs, feature_net(src_rgbs), src_invalid_masks,
-                               block)
+    with tracing.span("gnt.features", device=src_rgbs.device):
+        feats = feature_net(src_rgbs)
+    maps = build_sampling_maps(cfg, src_rgbs, feats, src_invalid_masks, block)
+    del feats  # the maps hold what the tiles read: kept, the features add to the peak
     if depth_range.ndim == 1:
         dr = depth_range.expand(n_rays, 2)
     else:

@@ -26,7 +26,11 @@ readers are the JAX package's five: ``nvidia_eval``,
 bundles) renders no network, so it loads no GNT. A bundle's tracker
 (Lucas-Kanade, TAPIR for the ``_track_tapir`` bundles, CoTracker for
 ``_track_cotracker`` from ``$PGDVS_CKPT_DIR``) is built by
-``configs.benchmarks.make_tracker`` on ``--device``. The bench subcommand,
+``configs.benchmarks.make_tracker`` on ``--device``. ``eval`` and
+``benchmark`` take ``--trace-dir DIR``: the program's spans and counters
+(``utils.tracing``) are on for the run and their summary is written to
+``DIR/spans.json`` at its end (``DIR/spans_<rank>.json`` per rank under
+``--distributed``). The bench subcommand,
 which runs the JAX package's benchmark, is not there.
 
 Examples:
@@ -59,6 +63,8 @@ import logging
 import pathlib
 
 import torch
+
+from pgdvs_tpu_torch.utils import tracing
 
 LOGGER = logging.getLogger("pgdvs_tpu_torch")
 
@@ -372,10 +378,17 @@ def main(argv=None):
                            help="ranks of the evaluator's mesh, one view each (0 = every "
                            "rank, 1 = none)")
 
+    def traced(p):
+        p.add_argument("--trace-dir", default=None, metavar="DIR",
+                       help="turn the program's spans and counters on and write their "
+                       "summary to DIR/spans.json at the end (DIR/spans_<rank>.json per "
+                       "rank under --distributed)")
+
     pe = sub.add_parser("eval", help="evaluate on a dataset")
     common(pe)
     distributed(pe)
     pe.add_argument("--save-vis", action="store_true")
+    traced(pe)
     pe.set_defaults(fn=cmd_eval)
 
     pv = sub.add_parser("vis", help="render a visualization trajectory")
@@ -409,6 +422,7 @@ def main(argv=None):
     distributed(pbm)
     pbm.add_argument("--benchmark-type", default="default")
     pbm.add_argument("--dataset-family", default="nvidia")
+    traced(pbm)
     pbm.set_defaults(fn=cmd_benchmark)
 
     args = ap.parse_args(argv)
@@ -416,6 +430,9 @@ def main(argv=None):
         raise RuntimeError("--device cuda asked for, but torch.cuda.is_available() is false "
                            "(pass --device cpu to run on the CPU)")
     dist_run = getattr(args, "distributed", False)
+    trace_dir = getattr(args, "trace_dir", None)
+    if trace_dir:
+        tracing.enable()
     if dist_run:
         from pgdvs_tpu_torch.parallel.mesh import init_distributed, world
 
@@ -426,8 +443,16 @@ def main(argv=None):
             args.process_index, args.process_count = world()
             args.grid_from_world = True
     try:
-        return args.fn(args)
+        result = args.fn(args)
+        if trace_dir:
+            from pgdvs_tpu_torch.parallel.mesh import world
+
+            name = f"spans_{world()[0]}.json" if dist_run else tracing.SUMMARY_FILE
+            tracing.write_summary(pathlib.Path(trace_dir) / name)
+        return result
     finally:
+        if trace_dir:
+            tracing.disable()
         if dist_run:
             torch.distributed.destroy_process_group()
 

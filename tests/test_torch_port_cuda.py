@@ -880,3 +880,42 @@ def test_dynamic_raster_on_card_matches_cpu(card, kind):
     assert float(ref_mask.sum()) > 0 and int((mask != ref_mask).sum()) <= 1e-4 * mask.numel()
     agree = mask == ref_mask
     assert float(((got["rgb"].cpu() - ref["rgb"]).abs() * agree).max()) <= 1e-4
+
+
+def test_device_spans_on_card(card):
+    """The span registry's CUDA events: device ms for spans on the current
+    stream and on the loader's copy stream, no synchronisation inside a
+    span, completed pairs folded so the pending list stays bounded."""
+    import numpy as np
+
+    from pgdvs_tpu_torch.data.loader import to_device_prefetch
+    from pgdvs_tpu_torch.utils import tracing
+
+    tracing.enable()
+    tracing.reset()
+    try:
+        x = torch.randn(2048, 2048, device=card)
+        with tracing.span("outer", device=card, root_id=0):
+            for _ in range(4):
+                with tracing.span("mm", device=card):
+                    x = torch.tanh(x @ x * 1e-3)
+        items = [{"a": np.ones((512, 1024), np.float32), "b": "text"} for _ in range(3)]
+        got = [it["a"].sum().item() for it in to_device_prefetch(items, card)]
+        assert got == [512 * 1024.0] * 3
+        for _ in range(tracing.FOLD_AT + 10):
+            with tracing.span("tiny", device=card):
+                pass
+        torch.cuda.synchronize()
+        with tracing.span("tiny", device=card):
+            pass
+        assert len(tracing._pending) < tracing.FOLD_AT
+        s = tracing.summary()["spans"]
+        assert 0.0 < s["mm"]["device_ms"] <= s["outer"]["device_ms"]
+        assert s["mm"]["count"] == 4 and s["mm"]["parent"] == "outer"
+        assert s["loader.stage"]["count"] == s["loader.pin"]["count"] == 3
+        assert s["loader.hand"]["count"] == 3
+        assert s["loader.stage"]["device_ms"] > 0.0
+        assert tracing.summary()["roots"]["outer"]["records"][0][2] == s["outer"]["device_ms"]
+    finally:
+        tracing.disable()
+        tracing.reset()
