@@ -43,6 +43,10 @@ exits non-zero without printing a result:
      fold_ray_diff without fold_pos_code; fold_mask without it; pre-packed;
      each at odd S and at the main tile) against its plain version, with
      both times and the bound at the main tile;
+  3f. ``[epipolar]``: the exact and quad-masked samplers' kernel
+     (``kernels/epipolar.py``) at the benchmark's 2048-ray tile (V = 10,
+     S = 256, 288x550, 32 feature channels) against the plain samplers,
+     then its ms per launch beside theirs and its byte bound;
   4. the main path (``[main]``): ``render_novel_view`` with
      ``apply_perf_preset(RenderConfig())`` (patch sampling on 4x2 ray
      blocks, K1's patch_rows mode) on the 288x550, 10-source, 256-sample
@@ -1090,6 +1094,113 @@ def phase_prologue_kernel(gnt, v=10, r=2048, s=256):
     return out
 
 
+def sampler_bytes(v, r, s, hw, fhw, f, mode):
+    """Bytes the epipolar kernel must move for one call: every input read
+    once (the points, the maps) and every output written once (the samples,
+    three byte masks, and on exact the float32 ray-difference code); its
+    arithmetic is negligible beside them."""
+    (h, w), (hf, wf) = hw, fhw
+    n = v * r * s
+    if mode == "exact":
+        read = v * h * w * (3 * 2 + 4) + v * hf * wf * f * 2
+        write = n * ((3 + f) * 2 + 16)
+    else:  # the fused map [V, H, W, 3+F+1] bf16
+        read = v * h * w * (3 + f + 1) * 2
+        write = n * (3 + f) * 2
+    return read + r * s * 12 + write + 3 * n
+
+
+def _sampler_rig(v, r, s, hw, fhw, f, seed=11, device="cuda"):
+    """A 2048-ray tile as the renderer makes one: rays from a target camera
+    through consecutive pixels of its middle rows, samples uniform in
+    inverse depth over [1.5, 8], sources on a small arc (points behind
+    none; off-image projections at the frusta's edges); bf16 rgb and
+    features, 0 / 1 float32 dynamic masks, and the fused map of the three."""
+    import numpy as np
+    import torch
+
+    from pgdvs_tpu_torch.core import cameras as cam
+    from pgdvs_tpu_torch.models.gnt.projector import build_fused_maps
+
+    rng = np.random.default_rng(seed)
+    (h, w), (hf, wf) = hw, fhw
+    k = np.eye(4)
+    k[0, 0] = k[1, 1] = 0.9 * w
+    k[0, 2], k[1, 2] = w / 2, h / 2
+    cams = []
+    for i in range(v + 1):
+        c2w = np.eye(4)
+        c2w[:3, 3] = [0.3 * np.cos(i) - 0.1 * (i == 0), 0.1 * np.sin(i), -0.05 * i / v]
+        cams.append(cam.make_flat_cam(h, w, k, c2w))
+    pix = np.arange(r) + (h // 2) * w - r // 2
+    d = np.stack([(pix % w + 0.5 - w / 2) / k[0, 0], (pix // w + 0.5 - h / 2) / k[1, 1],
+                  np.ones(r)], -1)
+    z = 1.0 / np.linspace(1 / 1.5, 1 / 8.0, s)
+    pts = (d[:, None, :] * z[None, :, None] + cams[0][18:34].reshape(4, 4)[:3, 3].numpy())
+    t = {
+        "pts": torch.from_numpy(pts.astype(np.float32)),
+        "rgbs": torch.from_numpy(rng.uniform(0, 1, (v, h, w, 3)).astype(np.float32)),
+        "feats": torch.from_numpy(rng.normal(0, 1, (v, hf, wf, f)).astype(np.float32)),
+        "masks": torch.from_numpy((rng.uniform(0, 1, (v, h, w, 1)) > 0.8).astype(np.float32)),
+        "tgt": cams[0].float(),
+        "cams": torch.stack(cams[1:]).float(),
+    }
+    t = {k_: x.to(device) for k_, x in t.items()}
+    t["fused"] = build_fused_maps(t["rgbs"], t["feats"], t["masks"])
+    t["rgbs"], t["feats"] = t["rgbs"].to(torch.bfloat16), t["feats"].to(torch.bfloat16)
+    t["proj"] = cam.flat_cam_projection(t["cams"])
+    return t
+
+
+def phase_epipolar_kernel(v=10, r=2048, s=256, hw=(288, 550), fhw=(72, 138), f=32):
+    """The epipolar sampler's kernel (``kernels/epipolar.py``) in both modes
+    at the benchmark's tile: held against the plain samplers (rgb_feat atol
+    1e-2 + rtol 2^-7, ray_diff 1e-5, the masks' flips counted: ties of the
+    two projections' summation orders), then ms per launch (20 launches,
+    CUDA events) beside the plain version's and the byte bound
+    (``sampler_bytes``). Returns {mode: times}."""
+    import torch
+
+    from pgdvs_tpu_torch.kernels import epipolar
+    from pgdvs_tpu_torch.models.gnt import projector as pj
+
+    t = _sampler_rig(v, r, s, hw, fhw, f)
+    calls = {
+        "exact": (pj.epipolar_sample, pj.epipolar_sample_plain,
+                  (t["pts"], t["tgt"], t["cams"], t["rgbs"], t["feats"], t["masks"])),
+        "quad_masked": (pj.epipolar_sample_quad_masked, pj.epipolar_sample_quad_masked_plain,
+                        (t["pts"], t["proj"], t["fused"])),
+    }
+    out, parts = {}, []
+    for mode, (kernel, plain, args) in calls.items():
+        before = epipolar.launches[mode]
+        got, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if epipolar.launches[mode] != before + 1:
+            raise AssertionError(f"[epipolar] {mode}: the kernel did not launch")
+        torch.testing.assert_close(got["rgb_feat"].float(), ref["rgb_feat"].float(),
+                                   atol=1e-2, rtol=2.0 ** -7)
+        if mode == "exact":
+            torch.testing.assert_close(got["ray_diff"], ref["ray_diff"], atol=1e-5, rtol=0)
+        flips = {k_: int((got[k_] != ref[k_]).sum()) for k_ in ("mask_inbound", "mask_invalid")}
+        if max(flips.values()) > 1e-4 * got["mask"].numel():
+            raise AssertionError(f"[epipolar] {mode}: mask flips {flips}")
+        err = float((got["rgb_feat"].float() - ref["rgb_feat"].float()).abs().max())
+        del got, ref
+        times = {"ms": _time_ms(lambda: kernel(*args), 20),
+                 "plain_ms": _time_ms(lambda: plain(*args), 3)}
+        times["bound_ms"] = sampler_bytes(v, r, s, hw, fhw, f, mode) / PEAK_BYTES_PER_S * 1e3
+        parts.append(
+            f"{mode}: {times['ms']:.4f} ms (plain {times['plain_ms']:.3f}), bound "
+            f"{times['bound_ms']:.4f} ms (bytes; {times['bound_ms'] / times['ms']:.1%} of it), "
+            f"rgb_feat err {err:.3e}, mask flips {flips}, in bounds "
+            f"{float(kernel(*args)['mask_inbound'].float().mean()):.3f}")
+        out[mode] = times
+    log(f"[epipolar] tile R={r} S={s} V={v} {hw[0]}x{hw[1]}, features {fhw[0]}x{fhw[1]}x{f}, "
+        "per launch: " + "; ".join(parts))
+    return out
+
+
 def slice_config(bundle=None, n_samples=256, preset="fast", **overrides):
     """The unmasked config (bundle None) or a named bundle, with
     ``n_samples`` coarse samples, on the fast preset (the JAX package's:
@@ -1249,17 +1360,21 @@ def dyn_points_kept(data, cfg):
 
 
 PROLOGUE_ROWS = ("rgb_feat", "patch", "quad_rows")
+# the epipolar sampler kernel's modes (``kernels/epipolar.py``)
+SAMPLER_MODES = ("exact", "quad_masked")
 KERNELS = ("gnt_fused_mono4", "gnt_fused_mono4_patch", "gnt_fused_mono3",
            "gnt_split_view", "gnt_split_ray",
            *(f"gnt_fused_apply_mono3[{mode}]" for mode in MONO3_MODES),
-           *(f"gnt_prologue[{src}]" for src in PROLOGUE_ROWS))
+           *(f"gnt_prologue[{src}]" for src in PROLOGUE_ROWS),
+           *(f"epipolar[{mode}]" for mode in SAMPLER_MODES))
 
 
 def _launch_counters():
     """{kernel name: wrapper} of the wrappers with a plain launch count, and
     {row name prefix: wrapper} of those whose count is a Counter
     (``gnt_fused_apply_mono3`` per operand mode, ``gnt_prologue`` per
-    source)."""
+    source, the ``epipolar`` sampler module per mode)."""
+    from pgdvs_tpu_torch.kernels import epipolar
     from pgdvs_tpu_torch.kernels.gnt_fused import gnt_fused_mono4
     from pgdvs_tpu_torch.kernels.gnt_fused_mono3 import gnt_fused_apply_mono3, gnt_fused_mono3
     from pgdvs_tpu_torch.kernels.gnt_fused_patch import gnt_fused_mono4_patch
@@ -1270,7 +1385,8 @@ def _launch_counters():
              "gnt_fused_mono3": gnt_fused_mono3, "gnt_split_view": gnt_split_view,
              "gnt_split_ray": gnt_split_ray},
             {"gnt_fused_apply_mono3": (gnt_fused_apply_mono3, MONO3_MODES),
-             "gnt_prologue": (gnt_prologue, PROLOGUE_ROWS)})
+             "gnt_prologue": (gnt_prologue, PROLOGUE_ROWS),
+             "epipolar": (epipolar, SAMPLER_MODES)})
 
 
 def reset_launches():
@@ -1302,7 +1418,9 @@ def expected_launches(cfg, n_rays, plain=False):
     pass (two with fine samples): K2's unfolded mode on exact, K1's
     patch_rows mode on patch, K2 on fused, K2 with the dyn mask and K1
     without it on quad and quad_i8; every other kernel none, and none at
-    all for a GNT made with ret_view_std (``plain``: the plain network)."""
+    all for a GNT made with ret_view_std (``plain``: the plain network).
+    The sampler kernel launches as often on exact and on quad with the dyn
+    mask, whatever network follows it."""
     launches = -(-n_rays // cfg.ray_tile) * (2 if cfg.n_fine_samples_per_ray > 0 else 1)
     mode = cfg.epipolar_mode
     if mode == "exact":
@@ -1313,7 +1431,12 @@ def expected_launches(cfg, n_rays, plain=False):
         name = "gnt_fused_mono3"
     else:
         name = "gnt_fused_mono4"
-    return {k: 0 if plain or k != name else launches for k in KERNELS}
+    want = {k: 0 if plain or k != name else launches for k in KERNELS}
+    if mode == "exact":
+        want["epipolar[exact]"] = launches
+    elif mode == "quad" and cfg.gnt_use_dyn_mask:
+        want["epipolar[quad_masked]"] = launches
+    return want
 
 
 def phase_main_path(models, bundle=None, device="cuda", h=288, w=550,
@@ -4773,6 +4896,7 @@ def main() -> int:
     phase_ray_kernel(k3_times["ray"])
     phase_view_kernel(models[1], k3_times["view"])
     pro = phase_prologue_kernel(models[1])
+    phase_epipolar_kernel()
     k1_launches, _, quad1 = phase_main_path(models, preset="quad", tag="[quad]", n_timed=1)
     quad_img = {what: quad1[what] for what in ("combined_rgb", "static_coarse_rgb")}
     for what in quad_img:

@@ -35,7 +35,8 @@ c_void_p, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # scratch and its block count, the rgb, weights and count outputs, the stream
 KERNEL_TAIL = [c_void_p] * 3 + [c_int] + [c_void_p] * 4
 
-# C signatures of the library's entry points (csrc/gnt_fused.cu)
+# C signatures of the library's entry points (csrc/gnt_fused.cu, then
+# csrc/epipolar_sample.cu)
 SIGNATURES = {
     # K1: rgb_feat, pts, view code, centres, projection rows; V, R, S, C,
     # padded C; the map size; the weights and their count; scratch, outputs
@@ -86,6 +87,14 @@ SIGNATURES = {
     "gnt_split_ray_forward": ([c_void_p] * 4 + [c_int] * 3 + [c_void_p, c_int, c_void_p], c_int),
     "gnt_split_n_view_ptrs": ([], c_int),
     "gnt_split_n_ray_ptrs": ([], c_int),
+    # csrc/epipolar_sample.cu. The exact sampler: pts, proj, centers, rgb,
+    # feat, mask (null: none); V, R, S, H, W, Hf, Wf, F, the row vector; the
+    # feature coordinates' scales; rgb_feat, ray_diff, the three masks; the
+    # stream
+    "epipolar_exact": ([c_void_p] * 6 + [c_int] * 9 + [c_float] * 2 + [c_void_p] * 6, c_int),
+    # the quad-masked sampler: pts, proj, the fused map; V, R, S, H, W, C+1,
+    # the row vector; rgb_feat, the three masks; the stream
+    "epipolar_quad_masked": ([c_void_p] * 3 + [c_int] * 7 + [c_void_p] * 5, c_int),
 }
 
 

@@ -24,6 +24,12 @@ and the ray-difference code are left to the GNT kernel; with it
 the masked kernel reads. ``epipolar_sample_quad_raw`` leaves the lerp to
 K2's fold_lerp mode: the four taps' rows and the fractional offsets.
 
+``epipolar_sample`` and ``epipolar_sample_quad_masked``, the two samplers
+the presets run with the dyn mask, take their plain versions
+(``epipolar_sample_plain``, ``epipolar_sample_quad_masked_plain``) for CPU
+tensors and one hand kernel (``kernels/epipolar.py``) for CUDA tensors;
+the other samplers are plain torch on every device.
+
 The fused and quad_i8 samplers (``epipolar_sample_fused``) repeat the JAX
 package's arithmetic on its own maps: ``multiview_bilinear`` in bf16 on the
 fused maps (``fused``), ``quad_bilinear`` on int8 quad maps
@@ -55,6 +61,7 @@ from pgdvs_tpu_torch.core.cameras import (
     ray_diff_features,
 )
 from pgdvs_tpu_torch.core.interpolate import resize_bilinear
+from pgdvs_tpu_torch.kernels import epipolar as epipolar_kernel
 
 
 def build_fused_maps(src_rgbs: torch.Tensor, src_feats: torch.Tensor,
@@ -221,7 +228,19 @@ def epipolar_sample_quad(pts: torch.Tensor, proj: torch.Tensor,
 def epipolar_sample_quad_masked(pts: torch.Tensor, proj: torch.Tensor,
                                 fused_maps: torch.Tensor):
     """``epipolar_sample_quad`` on maps whose trailing channel is the
-    dynamic mask (``build_fused_maps(..., src_invalid_masks)``).
+    dynamic mask (``build_fused_maps(..., src_invalid_masks)``): the plain
+    version (``epipolar_sample_quad_masked_plain``) for CPU tensors, the
+    hand kernel (``kernels/epipolar.py``) for CUDA tensors, which writes
+    rgb_feat contiguous and takes only bf16 maps.
+    """
+    if pts.device.type == "cpu":
+        return epipolar_sample_quad_masked_plain(pts, proj, fused_maps)
+    return epipolar_kernel.sample_quad_masked(pts, proj, fused_maps)
+
+
+def epipolar_sample_quad_masked_plain(pts: torch.Tensor, proj: torch.Tensor,
+                                      fused_maps: torch.Tensor):
+    """``epipolar_sample_quad_masked`` in plain torch, on any device.
 
     Args: pts [R, S, 3]; proj [V, 4, 4]; fused_maps [V, H, W, C+1] bf16.
     Returns a dict, every entry views outer:
@@ -500,8 +519,23 @@ def epipolar_sample(pts: torch.Tensor, tgt_cam: torch.Tensor, src_cams: torch.Te
                     src_rgbs: torch.Tensor, src_feats: torch.Tensor,
                     src_invalid_masks=None, out_dtype=torch.bfloat16,
                     lerp_dtype=torch.float32):
+    """Reference-exact epipolar sampling, views outer: the plain version
+    (``epipolar_sample_plain``, which documents the arguments) for CPU
+    tensors, the hand kernel (``kernels/epipolar.py``) for CUDA tensors,
+    which takes only bf16 maps lerped in float32 into bf16 samples."""
+    if pts.device.type == "cpu":
+        return epipolar_sample_plain(pts, tgt_cam, src_cams, src_rgbs, src_feats,
+                                     src_invalid_masks, out_dtype, lerp_dtype)
+    return epipolar_kernel.sample_exact(pts, tgt_cam, src_cams, src_rgbs, src_feats,
+                                        src_invalid_masks, out_dtype, lerp_dtype)
+
+
+def epipolar_sample_plain(pts: torch.Tensor, tgt_cam: torch.Tensor, src_cams: torch.Tensor,
+                          src_rgbs: torch.Tensor, src_feats: torch.Tensor,
+                          src_invalid_masks=None, out_dtype=torch.bfloat16,
+                          lerp_dtype=torch.float32):
     """Reference-exact epipolar sampling, views outer (JAX's
-    ``epipolar_sample(views_outer=True)``).
+    ``epipolar_sample(views_outer=True)``), in plain torch on any device.
 
     Args: pts [R, S, 3]; tgt_cam [34]; src_cams [V, 34]; src_rgbs
     [V, H, W, 3] and src_feats [V, Hf, Wf, F] in the dtype to gather in

@@ -10,17 +10,19 @@ and the weighted dynamic view count.
 The sampler follows ``cfg.epipolar_mode`` and the transformer follows the
 sampler and ``gnt_use_dyn_mask`` (a hand kernel on CUDA, its plain version
 on the CPU):
-  exact  ``epipolar_sample`` on the source rgbs, the quarter-resolution
-         features and the dynamic masks (``ExactMaps``), then K2 in its
-         unfolded mode (``gnt_fused_apply_mono3``), which reads the sampler's
-         features, mask and ray-diff code and the point code, as the JAX
+  exact  ``epipolar_sample`` (a hand kernel on CUDA) on the source rgbs,
+         the quarter-resolution features and the dynamic masks
+         (``ExactMaps``), then K2 in its unfolded mode
+         (``gnt_fused_apply_mono3``), which reads the sampler's features,
+         mask and ray-diff code and the point code, as the JAX
          package's ``RenderConfig()`` runs mono3 there; the counts come from
          the kernel without the dyn mask, from the sampler's masks with it;
   quad   fused full-resolution maps (the dynamic mask as a trailing channel
          with the dyn mask), then K1 (validity recomputed in-kernel) without
          the dyn mask, K2 (validity read from the sampler's mask: in
-         bounds, in front and not dynamic) with it, as the JAX package's
-         preset splits them (mono4 / mono3);
+         bounds, in front and not dynamic; the sampler
+         ``epipolar_sample_quad_masked``, a hand kernel on CUDA) with it, as
+         the JAX package's preset splits them (mono4 / mono3);
   patch  fy x fx-pixel patch maps, rays permuted into by x bx pixel blocks,
          one row per (view, block, sample) plus stencil coefficients
          (``epipolar_sample_patch_raw``), then K1's patch_rows mode
@@ -40,9 +42,9 @@ puts the rays on every stride-th pixel. A GNT made with ``ret_view_std``
 runs the plain versions of these kernels (the module itself) on any device,
 and the fast preset's patch falls back to quad for it, as in JAX.
 
-Training renders through ``render_rays_plain``: the exact sampler and the
-plain network under autograd, as the JAX package's train step turns its
-kernels off and differentiates its flax network.
+Training renders through ``render_rays_plain``: the exact sampler's plain
+version and the plain network under autograd, as the JAX package's train
+step turns its kernels off and differentiates its flax network.
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ from pgdvs_tpu_torch.models.gnt.projector import (
     epipolar_sample,
     epipolar_sample_fused,
     epipolar_sample_patch_raw,
+    epipolar_sample_plain,
     epipolar_sample_quad,
     epipolar_sample_quad_masked,
     flatten_quad_maps,
@@ -172,8 +175,10 @@ def build_sampling_maps(cfg: RenderConfig, src_rgbs, feats, src_invalid_masks=No
         blk, foot = PATCH_BLOCKS[block]
         return build_patch_maps(src_rgbs, feats, foot=foot, block=blk)
     if cfg.epipolar_mode == "exact":
-        return ExactMaps(src_rgbs.to(torch.bfloat16), feats.to(torch.bfloat16),
-                         None if masks is None else masks.float())
+        dense = torch.contiguous_format  # the hand sampler reads dense rows
+        return ExactMaps(src_rgbs.to(torch.bfloat16, memory_format=dense),
+                         feats.to(torch.bfloat16, memory_format=dense),
+                         None if masks is None else masks.to(torch.float32, memory_format=dense))
     if cfg.epipolar_mode == "quad_i8":
         return flatten_quad_maps(*quantize_quad_maps(build_quad_maps(src_rgbs, feats, masks)))
     return build_fused_maps(src_rgbs, feats, masks)
@@ -331,7 +336,7 @@ def render_rays_plain(gnt: GNT, rays_o, rays_d, depth_range, tgt_cam, src_cams, 
     Samples as ``render_rays_gnt`` places them (coarse, then with
     ``cfg.n_fine_samples_per_ray`` a second pass on the merged samples);
     each pass samples the source rgbs and ``src_feats`` exactly
-    (``epipolar_sample``, whatever ``cfg.epipolar_mode``: JAX's step hands
+    (``epipolar_sample_plain``, whatever ``cfg.epipolar_mode``: JAX's step hands
     its renderer no maps), gathered and lerped in ``sample_dtype`` (None:
     float32, the dtype of JAX's float32 GNT; bf16 for its bf16 GNT), then
     ``GNT.forward`` on [R, S, V, *].
@@ -342,8 +347,8 @@ def render_rays_plain(gnt: GNT, rays_o, rays_d, depth_range, tgt_cam, src_cams, 
     rgbs, feats = src_rgbs.to(dtype), src_feats.to(dtype)
 
     def one_pass(pts, z_vals):
-        smp = epipolar_sample(pts, tgt_cam, src_cams, rgbs, feats, out_dtype=dtype,
-                              lerp_dtype=dtype)
+        smp = epipolar_sample_plain(pts, tgt_cam, src_cams, rgbs, feats, out_dtype=dtype,
+                                    lerp_dtype=dtype)
         out = gnt(smp["rgb_feat"].movedim(0, 2), smp["ray_diff"].movedim(0, 2),
                   smp["mask"][..., None].float().movedim(0, 2), pts, rays_d)
         return {"rgb": out["rgb"], "depth": torch.sum(out["weights"] * z_vals, dim=-1),
