@@ -1,0 +1,14 @@
+"""Device ms per view in the static cloud's z-buffered point splatting: the
+CUDA events of the program's span ``static.geo.raster`` (around
+``rasterize_points`` in ``renderers/static_geo.py``), over the window's
+views."""
+
+from perfbench.harness import program_spans
+
+
+def install(ctx, drv):
+    program_spans.install(ctx, drv)
+
+
+def read(ctx):
+    return program_spans.device_ms_per_view(ctx, "static.geo.raster")

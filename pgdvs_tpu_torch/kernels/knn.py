@@ -157,16 +157,16 @@ def statistical_outlier_mask(points: torch.Tensor, valid=None, k: int = 50,
     renderer reuses the base cloud's, ``pgdvs_renderer_dyn_track.py:355-362``),
     else median + std_thres * std over the valid points' means (with fewer
     than K + 1 valid points, the std in XLA's order: see the module's note).
+    Its callers trace it: ``dynamic.knn``, ``static.geo.knn``.
     """
-    with tracing.span("dynamic.knn", device=points.device):
-        if valid is None:
-            valid = torch.ones((points.shape[0],), dtype=torch.bool, device=points.device)
-        mean_d2 = knn_mean_sq_dist(points, valid, k=k, tile=tile)
-        if dist_thres is None:
-            with tracing.span("sync"):
-                n_valid = int(valid.sum())
-            std = masked_std(mean_d2, valid, xla_order=n_valid <= k)
-            thres = masked_median(mean_d2, valid) + std * std_thres
-        else:
-            thres = dist_thres
-        return valid & (mean_d2 < thres), thres
+    if valid is None:
+        valid = torch.ones((points.shape[0],), dtype=torch.bool, device=points.device)
+    mean_d2 = knn_mean_sq_dist(points, valid, k=k, tile=tile)
+    if dist_thres is None:
+        with tracing.span("sync"):
+            n_valid = int(valid.sum())
+        std = masked_std(mean_d2, valid, xla_order=n_valid <= k)
+        thres = masked_median(mean_d2, valid) + std * std_thres
+    else:
+        thres = dist_thres
+    return valid & (mean_d2 < thres), thres

@@ -85,10 +85,11 @@ def compute_dyn_pointcloud(*, rgb_1, dyn_mask_1, depth_1, flow_12,
 
     nn_dist_thres = torch.zeros((), dtype=torch.float32, device=points.device)
     if cfg.dyn_pcl_remove_outlier or cfg.dyn_render_track_temporal != "none":
-        keep, nn_dist_thres = statistical_outlier_mask(
-            points, valid, k=cfg.dyn_pcl_outlier_knn,
-            std_thres=cfg.dyn_pcl_outlier_std_thres,
-        )
+        with tracing.span("dynamic.knn", device=points.device):
+            keep, nn_dist_thres = statistical_outlier_mask(
+                points, valid, k=cfg.dyn_pcl_outlier_knn,
+                std_thres=cfg.dyn_pcl_outlier_std_thres,
+            )
         if cfg.dyn_pcl_remove_outlier:
             valid = keep
 
@@ -118,8 +119,8 @@ def render_dynamic(data, cfg: RenderConfig,
     under ``dyn_render_track_temporal="no_tgt"``.
 
     Returns rgb [H, W, 3], mask [H, W, 1] and the per-branch intermediates.
-    Traced as ``dynamic``, the softsplat branch's brightness metric and
-    splats as ``dynamic.splat``.
+    Traced as ``dynamic``, the K-NN outlier removal as ``dynamic.knn``, the
+    softsplat branch's brightness metric and splats as ``dynamic.splat``.
     """
     with tracing.span("dynamic", device=data["rgb_src_temporal"].device):
         return _render_dynamic(data, cfg, generator, noise, tracker)

@@ -21,6 +21,7 @@ attention couples them) tells the renderer by its ``one_set`` attribute:
 in one-set mode it gets JAX's whole slot layout and the valid mask, as
 JAX's renderer hands them over; otherwise (``make_tracker``'s CoTracker
 chunks the valid queries) the compacted valid queries, as the others.
+The self filter is traced as ``dynamic.knn``, as the base cloud's.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from pgdvs_tpu_torch.core.interpolate import bilinear_sample, nearest_sample
 from pgdvs_tpu_torch.kernels.knn import knn_mean_sq_dist, statistical_outlier_mask
 from pgdvs_tpu_torch.kernels.point_raster import rasterize_points
 from pgdvs_tpu_torch.renderers.config import RenderConfig
+from pgdvs_tpu_torch.utils import tracing
 
 TRACK_KEYS = ("rgb", "dyn_mask", "depth", "flat_cam", "time")
 
@@ -144,9 +146,10 @@ def compute_track_pointcloud(stack, tracks, visibles, query_valid, time_tgt, bas
                               exclude_self=False)
     valid = valid & (d2base < base_thres * cfg.dyn_pcl_track_track2base_thres_mult)
     # the self filter at the base cloud's threshold
-    keep, _ = statistical_outlier_mask(points, valid, k=cfg.dyn_pcl_outlier_knn,
-                                       std_thres=cfg.dyn_pcl_outlier_std_thres,
-                                       dist_thres=base_thres)
+    with tracing.span("dynamic.knn", device=points.device):
+        keep, _ = statistical_outlier_mask(points, valid, k=cfg.dyn_pcl_outlier_knn,
+                                           std_thres=cfg.dyn_pcl_outlier_std_thres,
+                                           dist_thres=base_thres)
     if stats is not None:
         stats.update(lifted=lifted, kept_base_filter=int(valid.sum()),
                      kept_self_filter=int(keep.sum()))

@@ -5,7 +5,9 @@ tiny render of the ``default`` bundle (24x32, 3 sources, 8 samples, tiles of
 256 rays) on the fast (quad) and exact presets gives the span tree the
 renderer documents, one ``gnt.sample`` and ``gnt.kernel`` per tile and the
 view's seven ``sync`` spans, with the same ``combined_rgb`` bit for bit as
-untraced. Self time is duration less children; ``reset`` forgets and a
+untraced; a pure-geometry view (``st_cvd_pcl_clean_dy_cvd_pcl_clean``)
+gives ``static.geo`` over its K-NN and raster, the ``geo.points`` count
+and no sync of its own beyond the shared K-NN's. Self time is duration less children; ``reset`` forgets and a
 summary taken before stays as it was; under ``profile_trace`` the main
 thread's spans show and a worker's do not; the loader counts the items it
 had ready; ``Evaluator.run`` over a tiny NVIDIA-layout scene
@@ -43,6 +45,11 @@ VIEW_SYNCS = 7
 TREE = {"view": None, "static.gnt": "view", "gnt.features": "static.gnt",
         "gnt.sample": "static.gnt", "gnt.kernel": "static.gnt", "dynamic": "view",
         "dynamic.knn": "dynamic", "dynamic.splat": "dynamic"}
+# the pure-geometry view: the static cloud's layer, its K-NN and raster, and
+# the same dynamic layer
+GEO_TREE = {"view": None, "static.geo": "view", "static.geo.knn": "static.geo",
+            "static.geo.raster": "static.geo", "dynamic": "view", "dynamic.knn": "dynamic",
+            "dynamic.splat": "dynamic"}
 
 
 @pytest.fixture(autouse=True)
@@ -123,6 +130,34 @@ def test_render_span_tree(models, view_data, preset, sampler):
     assert view["within"]["sync"]["count"] == spans["sync"]["count"] == VIEW_SYNCS
     assert spans["sync"]["parents"] == {"dynamic": 3, "dynamic.knn": 4}
     assert all(t["device_ms"] is None for t in spans.values())  # on the CPU
+
+
+def _render_geo(data):
+    cfg = resolve_benchmark("st_cvd_pcl_clean_dy_cvd_pcl_clean", "exact")[0]
+    return render_novel_view(None, data, cfg, static_mode="geo", noise=torch.zeros(H, W, 3))
+
+
+def test_geo_view_span_tree(view_data):
+    """``static.geo`` holds the static cloud's K-NN and raster; the counter
+    ``geo.points`` reads the cloud's rows; ``dynamic.knn`` holds only the
+    dynamic layer's K-NN. The syncs are the dynamic layer's seven and the
+    static K-NN's own four (its compaction and three valid counts): the new
+    spans add none."""
+    tracing.enable()
+    out = _render_geo(view_data)
+    s = tracing.summary()
+    spans = s["spans"]
+    assert set(spans) == set(GEO_TREE) | {"sync"}, sorted(spans)
+    for name, parent in GEO_TREE.items():
+        assert spans[name]["parents"] == {parent: 1}, name
+    assert s["counters"] == {"geo.points": view_data["st_pcl_rgb"].shape[0]}
+    assert spans["sync"]["parents"] == {"dynamic": 3, "dynamic.knn": 4, "static.geo.knn": 4}
+    assert s["roots"]["view"]["within"]["sync"]["count"] == VIEW_SYNCS + 4
+    assert all(t["device_ms"] is None for t in spans.values())  # on the CPU
+    tracing.disable()
+    off = _render_geo(view_data)
+    for k in ("combined_rgb", "geo_static_rgb", "geo_static_mask", "render_dyn_mask"):
+        assert torch.equal(off[k], out[k]), k
 
 
 def test_combined_rgb_bit_identical_traced_and_untraced(models, view_data):
